@@ -1,0 +1,85 @@
+"""Named-node model graphs — the port of ``mmlspark_tpu/models/graph.py``.
+
+A model is an ordered sequence of named blocks, each an ``nn.Module``,
+run in order by ``apply(variables, x)``. As in the JAX package the graph
+holds the STRUCTURE and the variables are passed beside it:
+``variables`` is
+``{block name: {parameter name: tensor}}`` (each block's ``state_dict``
+layout), made by :func:`mmlspark_tpu_torch.models.bridge.init_variables`
+or :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
+
+The blocks are built on the ``meta`` device, so a graph owns no memory
+until it runs. :meth:`NamedGraph.bind` assigns a variables dict's tensors
+into the blocks (no copy) before a forward; binding is skipped when the
+same dict is already bound, so the decode loop pays one identity check
+per call. Variables are treated as immutable, like a JAX pytree: to
+change weights, pass a new dict.
+"""
+
+from __future__ import annotations
+
+import inspect
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from mmlspark_tpu_torch.core.exceptions import FriendlyError
+
+#: conventional name of the final (logits) node
+FINAL_NODE = "z"
+
+
+@dataclass(eq=False)
+class NamedGraph:
+    """An ordered, named-block model. ``blocks`` maps name -> module;
+    order is the dataflow order."""
+
+    name: str
+    blocks: list[tuple[str, torch.nn.Module]]
+    #: static metadata: expected input shape (per example, no batch dim)
+    input_shape: tuple[int, ...] = ()
+    extra: dict = field(default_factory=dict)
+    _bound: Any = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        for _, mod in self.blocks:
+            mod.requires_grad_(False)
+
+    @property
+    def layer_names(self) -> list[str]:
+        """Ordered node names."""
+        return [n for n, _ in self.blocks]
+
+    def bind(self, variables: dict) -> None:
+        """Make the blocks' parameters the tensors of ``variables``
+        (assigned, not copied); a no-op when ``variables`` is already
+        bound."""
+        if self._bound is variables:
+            return
+        self._bound = None  # a bind that fails half-way binds nothing
+        for block_name, mod in self.blocks:
+            try:
+                v = variables[block_name]
+            except KeyError as e:
+                raise FriendlyError(
+                    f"variables lack block '{block_name}' of graph "
+                    f"'{self.name}'; have {sorted(variables)}"
+                ) from e
+            mod.load_state_dict(v, strict=True, assign=True)
+        self._bound = variables
+
+    def apply(self, variables: dict, x):
+        """Forward pass through every block."""
+        self.bind(variables)
+        with torch.no_grad():
+            for _, mod in self.blocks:
+                x = mod(x)
+        return x
+
+
+def _accepts_kwarg(mod, name: str) -> bool:
+    try:
+        return name in inspect.signature(type(mod).forward).parameters
+    except (ValueError, TypeError):  # pragma: no cover
+        return False

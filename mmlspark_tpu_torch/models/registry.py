@@ -1,0 +1,39 @@
+"""Model-architecture registry: name -> NamedGraph builder — the port of
+``mmlspark_tpu/models/registry.py``. The port registers only what its
+slices have ported (``transformer_lm`` so far)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from mmlspark_tpu_torch.core.exceptions import FriendlyError
+from mmlspark_tpu_torch.models.graph import NamedGraph
+
+_BUILDERS: dict[str, Callable[..., NamedGraph]] = {}
+
+
+def register_model(name: str):
+    def deco(fn: Callable[..., NamedGraph]):
+        _BUILDERS[name] = fn
+        return fn
+
+    return deco
+
+
+def build_model(name: str, **config: Any) -> NamedGraph:
+    _ensure_loaded()
+    if name not in _BUILDERS:
+        import difflib
+
+        hint = difflib.get_close_matches(name, sorted(_BUILDERS), n=1)
+        suggest = f"; did you mean '{hint[0]}'?" if hint else ""
+        raise FriendlyError(
+            f"unknown model '{name}'; registered: "
+            f"{sorted(_BUILDERS)}{suggest}"
+        )
+    return _BUILDERS[name](**config)
+
+
+def _ensure_loaded() -> None:
+    # builder modules self-register on import
+    import mmlspark_tpu_torch.models.transformer  # noqa: F401

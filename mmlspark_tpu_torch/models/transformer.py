@@ -1,0 +1,364 @@
+"""Transformer LM — the port of ``mmlspark_tpu/models/transformer.py``.
+
+Compute is bfloat16 (each block's ``dtype``), parameters float32, logits
+float32, with bf16 rounding at the same places as the flax modules:
+
+- the token and position rows are f32;
+- every Dense (``qkv``, ``attn_out``, ``mlp_in``, ``mlp_out``, ``head``)
+  casts its input and weight to ``dtype`` and adds the bias in ``dtype``
+  after the product, as flax's ``nn.Dense(dtype=...)`` does;
+- LayerNorms run in f32 with flax's epsilon (1e-6), residual sums
+  promote to f32, and the gelu is the tanh approximation (flax's
+  ``nn.gelu`` default).
+
+Layer names (``qkv``/``attn_out``/``mlp_in``/``mlp_out``, ``ln1``/``ln2``/
+``ln_f``/``head``, ``token``/``pos``) are the flax names, which is what
+:mod:`mmlspark_tpu_torch.models.bridge` maps weights by.
+
+Cache paths ported in this slice: the 2-tuple linear cache (prefill
+through ``dense_attention(q_offset=pos)``), the per-row single-token
+decode through the CUDA ``flash_decode`` kernel, and the rolled
+sliding-window cache. The paged and int8 caches, and the cache-free
+``flash``/``ring``/``ulysses`` implementations, raise ``ParamError``
+naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmlspark_tpu_torch.core.exceptions import ParamError
+from mmlspark_tpu_torch.models.graph import FINAL_NODE, NamedGraph
+from mmlspark_tpu_torch.models.registry import register_model
+from mmlspark_tpu_torch.ops.attention import (
+    _is_per_row,
+    decode_live_lengths,
+    dense_attention,
+    rolled_window_attention,
+)
+from mmlspark_tpu_torch.ops.flash_attention import flash_decode
+from mmlspark_tpu_torch.ops.rope import apply_rope
+
+DENSE = "dense"
+RING = "ring"
+ULYSSES = "ulysses"
+FLASH = "flash"
+AUTO = "auto"
+ATTN_IMPLS = (DENSE, RING, ULYSSES, FLASH, AUTO)
+#: flax nn.LayerNorm's default epsilon (torch's is 1e-5)
+LN_EPS = 1e-6
+
+_NOT_PORTED = {
+    FLASH: "the forward flash kernel (ROADMAP.md Queue 1 item 10, "
+           "Queue 2 item 5)",
+    RING: "context parallelism (ROADMAP.md Queue 1 item 13)",
+    ULYSSES: "context parallelism (ROADMAP.md Queue 1 item 13)",
+}
+
+
+def resolve_attn_impl(attn_impl: str) -> str:
+    """``auto`` -> ``dense``: the JAX package picks its Pallas forward
+    kernel on a TPU, but that kernel is not ported yet, so the port
+    resolves to the dense path until it is. ``flash``/``ring``/
+    ``ulysses`` raise until their slices land."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ParamError(
+            f"unknown attn_impl '{attn_impl}'; one of {ATTN_IMPLS}"
+        )
+    if attn_impl in _NOT_PORTED:
+        raise ParamError(
+            f"attn_impl '{attn_impl}' is not ported yet: it needs "
+            f"{_NOT_PORTED[attn_impl]}; use 'dense' or 'auto'"
+        )
+    return DENSE
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=dtype, param_dtype=float32)``: f32 weight
+    (out, in) and bias; ``forward(x, dtype)`` casts the input and the
+    parameters to the caller's compute dtype and adds the bias after the
+    product — two roundings, as in flax."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x, dtype):
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y + self.bias.to(dtype)
+
+
+class TokenPosEmbed(nn.Module):
+    def __init__(self, vocab_size: int, d_model: int, max_len: int,
+                 learned_pos: bool = True):
+        super().__init__()
+        self.token = nn.Embedding(vocab_size, d_model)
+        self.learned_pos = learned_pos  # False: tokens only (RoPE)
+        if learned_pos:
+            self.pos = nn.Parameter(torch.empty(max_len, d_model))
+
+    def forward(self, ids, pos=None):
+        # ``pos`` offsets the position table for cached decode: an int
+        # (or 0-d tensor), or a (B,) vector of PER-ROW offsets for the
+        # serving engine's multi-tenant decode
+        tok = self.token(ids)
+        if not self.learned_pos:
+            return tok
+        t = ids.shape[1]
+        if pos is None:
+            return tok + self.pos[None, :t]
+        steps = torch.arange(t, device=ids.device)
+        if _is_per_row(pos):
+            return tok + self.pos[pos.long()[:, None] + steps]
+        return tok + self.pos[pos + steps][None]
+
+
+class SelfAttention(nn.Module):
+    """Multi-head (or grouped-query) self-attention. Without a cache it
+    is the dense path (``transformer_lm`` resolves ``attn_impl``)."""
+
+    def __init__(self, d_model: int, heads: int, head_dim: int,
+                 causal: bool, window: int | None = None,
+                 kv_heads: int | None = None, rope: bool = False,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.heads = heads
+        self.head_dim = head_dim
+        self.kv_heads = kv_heads
+        self.causal = causal
+        self.window = window
+        self.rope = rope
+        self.dtype = dtype
+        hk = kv_heads or heads
+        # one fused projection; under GQA the K/V slices are narrower
+        self.qkv = Dense(d_model, (heads + 2 * hk) * head_dim)
+        self.attn_out = Dense(heads * head_dim, d_model)
+
+    def forward(self, x, cache=None, pos=None, rolled=False,
+                decode=False, live=None):
+        b, t, _ = x.shape
+        h, d = self.heads, self.head_dim
+        hk = self.kv_heads or h
+        qkv = self.qkv(x, self.dtype).reshape(b, t, h + 2 * hk, d)
+        q = qkv[:, :, :h]
+        k = qkv[:, :, h:h + hk]
+        v = qkv[:, :, h + hk:]
+        if self.rope:
+            if cache is None:
+                positions = None
+            elif _is_per_row(pos):  # per-row serve decode: (B, T) positions
+                positions = (pos.long()[:, None]
+                             + torch.arange(t, device=x.device))
+            else:
+                positions = pos + torch.arange(t, device=x.device)
+            q = apply_rope(q, positions)
+            k = apply_rope(k, positions)
+        new_cache = None
+        if cache is not None:
+            ck, cv = self._check_cache(cache, pos, t, rolled)
+            if _is_per_row(pos):
+                # multi-tenant decode: every row writes its own absolute
+                # position in its own slot row. In place — the JAX
+                # package scatters into a donated buffer instead
+                rows = torch.arange(b, device=x.device)
+                ck.index_put_((rows, pos.long()), k[:, 0].to(ck.dtype))
+                cv.index_put_((rows, pos.long()), v[:, 0].to(cv.dtype))
+            else:
+                # linear: the write index IS the absolute position;
+                # rolled: slot pos % W (every written slot lies inside
+                # the window, ops/attention.rolled_window_attention).
+                # In place, where the JAX package's dynamic_update_slice
+                # returns a new buffer
+                idx = pos % ck.shape[1] if rolled else pos
+                ck[:, idx:idx + t] = k.to(ck.dtype)
+                cv[:, idx:idx + t] = v.to(cv.dtype)
+            new_cache = (ck, cv)
+            if rolled:
+                o = rolled_window_attention(q, ck, cv, pos)
+            elif decode and t == 1 and (
+                self.window is None or self.window >= ck.shape[1]
+            ):
+                # single-token DECODE step over a linear cache: the
+                # length-aware kernel reads only each row's live
+                # positions [0, pos + 1); ``live`` (the fused decode
+                # block's carry) zeroes dead rows' lengths so they read
+                # nothing
+                o = flash_decode(
+                    q, ck, cv,
+                    decode_live_lengths(pos, b, live=live, device=x.device),
+                )
+            else:
+                o = dense_attention(q, ck, cv, causal=True,
+                                    window=self.window, q_offset=pos)
+        else:
+            o = dense_attention(q, k, v, causal=self.causal,
+                                window=self.window)
+        out = self.attn_out(o.reshape(b, t, h * d), self.dtype)
+        return out if new_cache is None else (out, new_cache)
+
+    def _check_cache(self, cache, pos, t: int, rolled: bool):
+        if not self.causal:
+            raise ParamError("cache decode requires causal=True")
+        if rolled and t != 1:
+            raise ParamError(
+                "rolled cache decode is single-token (t=1); prefill uses "
+                "the linear cache path"
+            )
+        if _is_per_row(pos) and (rolled or t != 1):
+            raise ParamError(
+                "per-row cache positions (the serve engine's fused decode "
+                "step) are single-token and linear-cache only"
+            )
+        if len(cache) in (3, 5):
+            raise ParamError(
+                "paged KV caches are not ported yet (ROADMAP.md Queue 1 "
+                "item 6, serve/paging.py, with the paged decode kernel)"
+            )
+        if len(cache) == 4:
+            raise ParamError(
+                "int8 KV caches are not ported yet (ROADMAP.md Queue 1 "
+                "item 7, with the int8 decode kernel)"
+            )
+        if len(cache) != 2:
+            raise ParamError(
+                f"a cache is a (K, V) pair, got a {len(cache)}-tuple"
+            )
+        return cache
+
+
+class Block(nn.Module):
+    def __init__(self, d_model: int, heads: int, head_dim: int, d_ff: int,
+                 causal: bool, dtype=torch.bfloat16,
+                 window: int | None = None, kv_heads: int | None = None,
+                 rope: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.attn = SelfAttention(
+            d_model, heads, head_dim, causal, window=window,
+            kv_heads=kv_heads, rope=rope, dtype=dtype,
+        )
+        self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.mlp_in = Dense(d_model, d_ff)
+        self.mlp_out = Dense(d_ff, d_model)
+
+    def forward(self, x, cache=None, pos=None, rolled=False,
+                decode=False, live=None):
+        attn = self.attn(self.ln1(x.float()), cache=cache, pos=pos,
+                         rolled=rolled, decode=decode, live=live)
+        new_cache = None
+        if cache is not None:
+            attn, new_cache = attn
+        x = x + attn
+        y = self.mlp_in(self.ln2(x.float()), self.dtype)
+        y = self.mlp_out(F.gelu(y, approximate="tanh"), self.dtype)
+        out = x + y
+        return out if new_cache is None else (out, new_cache)
+
+
+class LMHead(nn.Module):
+    def __init__(self, d_model: int, vocab_size: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.head = Dense(d_model, vocab_size)
+
+    def forward(self, x):
+        return self.head(self.ln_f(x.float()), self.dtype).float()
+
+
+def validate_attention_features(*, heads: int, head_dim: int,
+                                causal: bool, window: int | None,
+                                kv_heads: int | None,
+                                pos_embedding: str) -> bool:
+    """Build-time validation of the attention feature set; returns
+    whether RoPE is enabled."""
+    if window is not None:
+        if not causal:
+            raise ParamError(
+                "window (causal sliding-window attention) requires "
+                "causal=True"
+            )
+        if int(window) < 1:
+            raise ParamError(f"window must be >= 1, got {window}")
+    if kv_heads is not None and (kv_heads < 1 or heads % kv_heads):
+        raise ParamError(
+            f"kv_heads ({kv_heads}) must be >= 1 and divide heads "
+            f"({heads})"
+        )
+    if pos_embedding not in ("learned", "rope"):
+        raise ParamError(
+            f"pos_embedding must be 'learned' or 'rope', got "
+            f"'{pos_embedding}'"
+        )
+    if pos_embedding == "rope" and head_dim % 2:
+        raise ParamError(
+            f"RoPE needs an even head_dim, got {head_dim}"
+        )
+    return pos_embedding == "rope"
+
+
+@register_model("transformer_lm")
+def transformer_lm(
+    vocab_size: int = 1024,
+    d_model: int = 128,
+    heads: int = 4,
+    depth: int = 2,
+    d_ff: int = 0,
+    max_len: int = 512,
+    causal: bool = True,
+    attn_impl: str = AUTO,
+    window: int | None = None,
+    kv_heads: int | None = None,
+    pos_embedding: str = "learned",
+    mesh: Any = None,
+) -> NamedGraph:
+    """Decoder-only LM (or bidirectional encoder with ``causal=False``)
+    with per-token logits. The graph's blocks live on the ``meta``
+    device; weights come from
+    :func:`~mmlspark_tpu_torch.models.bridge.init_variables` or
+    :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`."""
+    if d_model % heads:
+        raise ParamError(f"d_model {d_model} not divisible by heads {heads}")
+    if mesh is not None:
+        raise ParamError(
+            "meshes are not ported yet (ROADMAP.md Queue 1 item 13); "
+            "build without mesh"
+        )
+    rope = validate_attention_features(
+        heads=heads, head_dim=d_model // heads, causal=causal,
+        window=window, kv_heads=kv_heads, pos_embedding=pos_embedding,
+    )
+    attn_impl = resolve_attn_impl(attn_impl)
+    d_ff = d_ff or 4 * d_model
+    with torch.device("meta"):
+        blocks: list[tuple[str, nn.Module]] = [
+            ("embed", TokenPosEmbed(vocab_size, d_model, max_len,
+                                    learned_pos=not rope))
+        ]
+        for i in range(depth):
+            blocks.append((
+                f"block{i}",
+                Block(d_model, heads, d_model // heads, d_ff, causal,
+                      window=window, kv_heads=kv_heads, rope=rope),
+            ))
+        blocks.append((FINAL_NODE, LMHead(d_model, vocab_size)))
+    return NamedGraph(
+        name="transformer_lm",
+        blocks=blocks,
+        input_shape=(max_len,),
+        extra={
+            "vocab_size": vocab_size,
+            "attn_impl": attn_impl,
+            "causal": causal,
+            "heads": heads,
+            "window": window,
+            "kv_heads": kv_heads,
+            "pos_embedding": pos_embedding,
+        },
+    )
