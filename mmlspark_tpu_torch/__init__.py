@@ -5,11 +5,12 @@ has one counterpart (``core``, ``ops``, ``models``, ``serve``). It
 imports ``torch`` and never ``jax``, ``flax`` or ``mmlspark_tpu``: what
 it needs of the JAX package's jax-free modules it keeps as its own copy.
 
-The first slice ports the dense-pool LM serving path: ``transformer_lm``,
-greedy ``generate``, the fused decode block, the slot KV pool and
-``ServeEngine``, with the decode attention read as a hand-written CUDA
-kernel (``csrc/flash_decode.cu``). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+The port so far is the LM serving path: ``transformer_lm``, greedy
+``generate``, the fused decode block, the dense slot KV pool, the paged
+pool with its prefix cache, the int8 KV mode of both, and
+``ServeEngine``, with the decode attention reads as hand-written CUDA
+kernels (``csrc/flash_decode.cu``, ``csrc/paged_flash_decode.cu``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -15,12 +15,15 @@ Layer names (``qkv``/``attn_out``/``mlp_in``/``mlp_out``, ``ln1``/``ln2``/
 ``ln_f``/``head``, ``token``/``pos``) are the flax names, which is what
 :mod:`mmlspark_tpu_torch.models.bridge` maps weights by.
 
-Cache paths ported in this slice: the 2-tuple linear cache (prefill
-through ``dense_attention(q_offset=pos)``), the per-row single-token
-decode through the CUDA ``flash_decode`` kernel, and the rolled
-sliding-window cache. The paged and int8 caches, and the cache-free
-``flash``/``ring``/``ulysses`` implementations, raise ``ParamError``
-naming the ROADMAP item that ports them.
+Cache paths: the 2-tuple linear cache (prefill through
+``dense_attention(q_offset=pos)``), the per-row single-token decode
+through the CUDA ``flash_decode`` kernel, and the rolled sliding-window
+cache; the serve pools' decode formats — the int8 slot cache
+``(K, V, k_scale, v_scale)`` through ``flash_decode``'s int8 mode, and
+the paged cache ``(K, V, PT)`` / int8 ``(K, V, PT, k_scale, v_scale)``
+through ``paged_flash_decode``. The cache-free ``flash``/``ring``/
+``ulysses`` implementations raise ``ParamError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ from mmlspark_tpu_torch.ops.attention import (
     dense_attention,
     rolled_window_attention,
 )
-from mmlspark_tpu_torch.ops.flash_attention import flash_decode
+from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_decode,
+    paged_flash_decode,
+)
 from mmlspark_tpu_torch.ops.rope import apply_rope
 
 DENSE = "dense"
@@ -160,48 +166,121 @@ class SelfAttention(nn.Module):
             k = apply_rope(k, positions)
         new_cache = None
         if cache is not None:
-            ck, cv = self._check_cache(cache, pos, t, rolled)
-            if _is_per_row(pos):
-                # multi-tenant decode: every row writes its own absolute
-                # position in its own slot row. In place — the JAX
-                # package scatters into a donated buffer instead
-                rows = torch.arange(b, device=x.device)
-                ck.index_put_((rows, pos.long()), k[:, 0].to(ck.dtype))
-                cv.index_put_((rows, pos.long()), v[:, 0].to(cv.dtype))
+            # every cache is written in place: the caller's tuple comes
+            # back as the new cache
+            self._check_cache(cache, pos, t, rolled, decode)
+            new_cache = cache
+            if len(cache) in (3, 5):
+                o = self._paged_decode(q, k, v, cache, pos, live)
             else:
-                # linear: the write index IS the absolute position;
-                # rolled: slot pos % W (every written slot lies inside
-                # the window, ops/attention.rolled_window_attention).
-                # In place, where the JAX package's dynamic_update_slice
-                # returns a new buffer
-                idx = pos % ck.shape[1] if rolled else pos
-                ck[:, idx:idx + t] = k.to(ck.dtype)
-                cv[:, idx:idx + t] = v.to(cv.dtype)
-            new_cache = (ck, cv)
-            if rolled:
-                o = rolled_window_attention(q, ck, cv, pos)
-            elif decode and t == 1 and (
-                self.window is None or self.window >= ck.shape[1]
-            ):
-                # single-token DECODE step over a linear cache: the
-                # length-aware kernel reads only each row's live
-                # positions [0, pos + 1); ``live`` (the fused decode
-                # block's carry) zeroes dead rows' lengths so they read
-                # nothing
-                o = flash_decode(
-                    q, ck, cv,
-                    decode_live_lengths(pos, b, live=live, device=x.device),
-                )
-            else:
-                o = dense_attention(q, ck, cv, causal=True,
-                                    window=self.window, q_offset=pos)
+                o = self._slot_decode(q, k, v, cache, pos, rolled, decode,
+                                      live)
         else:
             o = dense_attention(q, k, v, causal=self.causal,
                                 window=self.window)
         out = self.attn_out(o.reshape(b, t, h * d), self.dtype)
         return out if new_cache is None else (out, new_cache)
 
-    def _check_cache(self, cache, pos, t: int, rolled: bool):
+    def _slot_decode(self, q, k, v, cache, pos, rolled, decode, live):
+        """Write the step's K/V into a linear, rolled or int8 slot cache
+        and attend over it."""
+        ck, cv, *cscales = cache
+        b, t = q.shape[:2]
+        if _is_per_row(pos):
+            # multi-tenant decode: every row writes its own absolute
+            # position in its own slot row. In place — the JAX package
+            # scatters into a donated buffer instead
+            rows = torch.arange(b, device=q.device)
+            if cscales:
+                # int8 slot pool: quantize the step's K/V against the
+                # slots' prefill-fixed scales (out-of-range values
+                # saturate)
+                from mmlspark_tpu_torch.serve.cache_pool import quantize_kv
+
+                wk = quantize_kv(k[:, 0], cscales[0])
+                wv = quantize_kv(v[:, 0], cscales[1])
+            else:
+                wk, wv = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+            ck.index_put_((rows, pos.long()), wk)
+            cv.index_put_((rows, pos.long()), wv)
+        else:
+            # linear: the write index IS the absolute position; rolled:
+            # slot pos % W (every written slot lies inside the window,
+            # ops/attention.rolled_window_attention). In place, where the
+            # JAX package's dynamic_update_slice returns a new buffer
+            idx = pos % ck.shape[1] if rolled else pos
+            ck[:, idx:idx + t] = k.to(ck.dtype)
+            cv[:, idx:idx + t] = v.to(cv.dtype)
+        if rolled:
+            return rolled_window_attention(q, ck, cv, pos)
+        if decode and t == 1 and (
+            self.window is None or self.window >= ck.shape[1]
+        ):
+            # single-token DECODE step over a linear cache: the
+            # length-aware kernel reads only each row's live positions
+            # [0, pos + 1); ``live`` (the fused decode block's carry)
+            # zeroes dead rows' lengths so they read nothing
+            return flash_decode(
+                q, ck, cv,
+                decode_live_lengths(pos, b, live=live, device=q.device),
+                k_scale=cscales[0] if cscales else None,
+                v_scale=cscales[1] if cscales else None,
+            )
+        return dense_attention(q, ck, cv, causal=True, window=self.window,
+                               q_offset=pos)
+
+    def _paged_decode(self, q, k, v, cache, pos, live):
+        """One decode step over a PAGED slot cache (``serve/paging.py``):
+        scatter the step's K/V through the page table — row b's position
+        pos[b] lands in physical page ``ptab[b, pos // ps]`` at offset
+        ``pos % ps`` — then read through ``paged_flash_decode``. Dead
+        rows hold a frozen pos whose page the pool keeps pointed at the
+        trash page (or at the row's own private page), so their writes
+        never touch live data."""
+        ck, cv, ptab, *cscales = cache
+        b = q.shape[0]
+        ps = ck.shape[2]
+        rows = torch.arange(b, device=q.device)
+        pl = pos.long()
+        pages = ptab[rows, pl // ps].long()
+        offs = pl % ps
+        idx = (pages[:, None],
+               torch.arange(ck.shape[1], device=q.device)[None, :],
+               offs[:, None])
+        if cscales:
+            # int8 page store: a page's scale is FIXED at its first write
+            # — offs == 0 means this token opens a fresh page (the pool
+            # pre-mapped it), so its amax (+ headroom) becomes the page's
+            # scale; later tokens into the page quantize against it.
+            # Dead rows re-stamp their trash page's scale, which nothing
+            # reads (live length 0)
+            from mmlspark_tpu_torch.serve.cache_pool import (
+                kv_head_scales,
+                quantize_kv,
+            )
+
+            ks, vs = cscales
+            tk, tv = k[:, 0].float(), v[:, 0].float()
+            first = (offs == 0)[:, None]
+            row_ks = torch.where(first, kv_head_scales(tk, axes=(2,)),
+                                 ks[pages])
+            row_vs = torch.where(first, kv_head_scales(tv, axes=(2,)),
+                                 vs[pages])
+            ks.index_put_((pages,), row_ks)
+            vs.index_put_((pages,), row_vs)
+            wk, wv = quantize_kv(tk, row_ks), quantize_kv(tv, row_vs)
+        else:
+            wk, wv = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        ck.index_put_(idx, wk)
+        cv.index_put_(idx, wv)
+        return paged_flash_decode(
+            q, ck, cv, decode_live_lengths(pos, b, live=live), ptab,
+            k_scale=cscales[0] if cscales else None,
+            v_scale=cscales[1] if cscales else None,
+        )
+
+    def _check_cache(self, cache, pos, t: int, rolled: bool,
+                     decode: bool) -> None:
         if not self.causal:
             raise ParamError("cache decode requires causal=True")
         if rolled and t != 1:
@@ -209,26 +288,46 @@ class SelfAttention(nn.Module):
                 "rolled cache decode is single-token (t=1); prefill uses "
                 "the linear cache path"
             )
-        if _is_per_row(pos) and (rolled or t != 1):
+        per_row = _is_per_row(pos)
+        if per_row and (rolled or t != 1):
             raise ParamError(
                 "per-row cache positions (the serve engine's fused decode "
                 "step) are single-token and linear-cache only"
             )
+        if len(cache) not in (2, 3, 4, 5):
+            raise ParamError(
+                f"a cache is a (K, V) pair, a paged (K, V, PT[, k_scale, "
+                f"v_scale]) or an int8 (K, V, k_scale, v_scale) tuple, got "
+                f"a {len(cache)}-tuple"
+            )
         if len(cache) in (3, 5):
+            # the serve engine's fused decode-block format: prefill runs
+            # on a linear batch-1 cache and the pool scatters it into
+            # pages host-side
+            if not (per_row and decode and t == 1):
+                raise ParamError(
+                    "paged caches serve per-row single-token decode "
+                    "only (the serve engine's fused decode step); "
+                    "prefill uses the linear cache path"
+                )
+            virt = cache[2].shape[1] * cache[0].shape[2]
+            if self.window is not None and self.window < virt:
+                raise ParamError(
+                    f"paged decode has no windowed read: window "
+                    f"({self.window}) must cover the virtual cache "
+                    f"({virt})"
+                )
+        elif len(cache) == 4 and not (
+            per_row and decode and t == 1
+            and (self.window is None or self.window >= cache[0].shape[1])
+        ):
+            # the slot pool's int8 mode; only the flash-decode read can
+            # dequantize it
             raise ParamError(
-                "paged KV caches are not ported yet (ROADMAP.md Queue 1 "
-                "item 6, serve/paging.py, with the paged decode kernel)"
+                "int8 dense caches serve the engine's per-row "
+                "single-token full-window decode only; prefill and "
+                "single-request generate use bf16 linear caches"
             )
-        if len(cache) == 4:
-            raise ParamError(
-                "int8 KV caches are not ported yet (ROADMAP.md Queue 1 "
-                "item 7, with the int8 decode kernel)"
-            )
-        if len(cache) != 2:
-            raise ParamError(
-                f"a cache is a (K, V) pair, got a {len(cache)}-tuple"
-            )
-        return cache
 
 
 class Block(nn.Module):

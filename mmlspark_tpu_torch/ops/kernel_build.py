@@ -2,7 +2,8 @@
 with ``ctypes``.
 
 Counterpart in spirit of ``mmlspark_tpu/ops/native_build.py``: sources
-ship in the package (``mmlspark_tpu_torch/csrc/*.cu``) and are compiled
+ship in the package (``mmlspark_tpu_torch/csrc/*.cu``, with the
+``*.cuh`` headers they include) and are compiled
 lazily, on the machine with the card, into ``build/torch_kernels/`` at
 the root of the checkout. Each source becomes its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
@@ -12,8 +13,9 @@ minutes):
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib<name>-<hash>.so
          csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is
-never served from a stale build. All sources compile in parallel (one
+The library name carries a hash of the source and the headers, so an
+edited kernel is never served from a stale build. All sources compile in
+parallel (one
 ``nvcc`` per source, started together) the first time any kernel is
 asked for. A failed build raises with the compiler's output; nothing
 falls back.
@@ -69,8 +71,11 @@ def sources() -> dict[str, Path]:
 
 def library_path(src: Path) -> Path:
     """Where the build of ``src`` lands: its name plus a hash of the
-    source and the flags, so any edit rebuilds."""
+    source, every ``*.cuh`` header beside it (a source may include any
+    of them) and the flags, so any edit rebuilds."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 

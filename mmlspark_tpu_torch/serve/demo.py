@@ -1,5 +1,6 @@
 """Synthetic-traffic serving demo — the port of
-``mmlspark_tpu/serve/demo.py`` on its single-engine path.
+``mmlspark_tpu/serve/demo.py`` on its single-engine path, with the
+dense, paged (+ prefix cache) and int8 KV pools.
 
 Drives a ``ServeEngine`` over a random-init ``transformer_lm`` with a
 deterministic staggered arrival schedule (a few submits per tick, prompt
@@ -20,9 +21,13 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
              max_new_tokens: int = 8, arrivals_per_tick: int = 2,
              vocab: int = 64, d_model: int = 32, heads: int = 2,
              depth: int = 2, cache_len: int = 64, seed: int = 0,
-             decode_block: int | None = None, device=None) -> dict:
+             decode_block: int | None = None, paged: bool = False,
+             page_size: int | None = None, prefix_cache: bool = False,
+             kv_dtype: str = "bf16", device=None) -> dict:
     """Run the synthetic-traffic loop on ``device`` (``cuda`` unless the
-    caller asks for ``"cpu"``); returns the metrics dict."""
+    caller asks for ``"cpu"``); returns the metrics dict. ``paged``/
+    ``page_size``/``prefix_cache`` select the paged KV pool and
+    ``kv_dtype="int8"`` the int8 KV mode, as the JAX demo's flags do."""
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.serve.engine import ServeEngine
 
@@ -34,7 +39,8 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
     variables = init_variables(graph, seed, device=dev)
     engine = ServeEngine(
         graph, variables, slots=slots, cache_len=cache_len,
-        max_queue=max(n_requests, 1), device=dev,
+        max_queue=max(n_requests, 1), device=dev, paged=paged,
+        page_size=page_size, prefix_cache=prefix_cache, kv_dtype=kv_dtype,
         **({} if decode_block is None else {"decode_block": decode_block}),
     )
     rng = np.random.default_rng(seed)

@@ -1,5 +1,5 @@
 """``ServeEngine`` — the continuous-batching serving API, ported from
-``mmlspark_tpu/serve/engine.py`` for one device and a dense bf16 pool.
+``mmlspark_tpu/serve/engine.py`` for one device.
 
 Requests of different prompt lengths and arrival times share the slot
 pool's fixed-shape buffers. Each tick admits queued requests into free
@@ -8,8 +8,8 @@ slots (one bucketed prefill each), runs ONE fused decode block of up to
 (``models.generate.make_decode_block``: sampling, position advance and
 the live/EOS/budget mask stay on the device), and then syncs the host
 once, to read the block's ``(S, T)`` tokens and the live vector. Every
-micro-step reads each slot's cache through the hand-written CUDA
-``flash_decode`` kernel.
+micro-step reads each slot's cache through a hand-written CUDA decode
+kernel.
 
 Prefill is bucketed by prompt length: prompts right-pad to power-of-two
 buckets (causality makes the pads invisible). Block sizes clamp to a
@@ -21,14 +21,28 @@ engine donates them.
 Usage::
 
     engine = ServeEngine(graph, variables, slots=8)    # on cuda
+    # or: ServeEngine(..., paged=True, prefix_cache=True, kv_dtype="int8")
     rid = engine.submit(prompt_ids, max_new_tokens=32)
     results = engine.run()
     results[rid].tokens                                # prompt + generated
 
+Pools: the dense bf16 slot pool (the default), its int8 mode
+(``kv_dtype="int8"``: int8 K/V with per-(slot, kv head) scales, read by
+``flash_decode``'s int8 kernel), and the paged pool (``paged=True``,
+``serve/paging.py``: pages mapped on demand, read by the CUDA
+``paged_flash_decode`` kernel; with ``kv_dtype="int8"`` too). With
+``prefix_cache=True`` a paged engine prefills a prompt that shares a
+cached prefix over the REMAINDER only: the prefix's K/V is gathered into
+a linear cache, the remainder runs at ``pos=keep`` against it, and the
+prefix's pages are mapped shared into the slot (copy-on-extend when the
+slot's writes enter a shared page).
+
 Decode is greedy — the same tokens as ``generate()`` per request, which
-is the engine's correctness contract. Not in this slice: meshes, fault
-injection and retries, paging, int8, chunked prefill, the async host
-loop, snapshots, hand-offs and SLOs (ROADMAP.md Queue 1 items 6-9, 12-13).
+is the engine's correctness contract (int8 pools: within a token-flip
+budget of the bf16 streams). Not in this slice: meshes, fault injection,
+retries and the degradation ladder (page exhaustion raises
+``ResourceExhausted``), chunked prefill, the async host loop, snapshots,
+hand-offs and SLOs (ROADMAP.md Queue 1 items 8-9, 12-13).
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from mmlspark_tpu_torch.models.generate import (
 )
 from mmlspark_tpu_torch.serve.cache_pool import SlotCachePool
 from mmlspark_tpu_torch.serve.metrics import ServeMetrics
+from mmlspark_tpu_torch.serve.paging import PagedCachePool
 from mmlspark_tpu_torch.serve.scheduler import (
     ContinuousBatchScheduler,
     RequestResult,
@@ -59,7 +74,10 @@ from mmlspark_tpu_torch.serve.scheduler import (
 class ServeEngine:
     def __init__(self, graph, variables, *, slots: int = 4,
                  cache_len: int | None = None, max_queue: int = 16,
-                 pad_id: int = 0, decode_block: int = 32, device=None):
+                 pad_id: int = 0, decode_block: int = 32,
+                 paged: bool = False, page_size: int | None = None,
+                 num_pages: int | None = None, prefix_cache: bool = False,
+                 kv_dtype: str = "bf16", device=None):
         if not graph.extra.get("causal", False):
             raise FriendlyError(
                 f"serving needs a causal LM; '{graph.name}' has "
@@ -105,12 +123,33 @@ class ServeEngine:
         # floor to a power of two: block sizes live on the ladder
         # {1, 2, 4, ..., decode_block}
         self.decode_block = 1 << (int(decode_block).bit_length() - 1)
-        self.pool = SlotCachePool(graph, self.variables, slots, cache_len,
-                                  device=self.device)
+        if not paged and (
+            page_size is not None or num_pages is not None or prefix_cache
+        ):
+            raise FriendlyError(
+                "page_size/num_pages/prefix_cache configure the paged "
+                "KV cache; pass paged=True to enable it"
+            )
+        self._paged = bool(paged)
+        self._prefix_cache = bool(paged and prefix_cache)
+        self.kv_dtype = kv_dtype
+        if paged:
+            self.pool = PagedCachePool(
+                graph, self.variables, slots, cache_len, device=self.device,
+                page_size=page_size, num_pages=num_pages,
+                prefix_cache=prefix_cache, kv_dtype=kv_dtype,
+            )
+        else:
+            self.pool = SlotCachePool(graph, self.variables, slots,
+                                      cache_len, device=self.device,
+                                      kv_dtype=kv_dtype)
         self.metrics = ServeMetrics(
             graph.name, slots, decode_block=self.decode_block,
             cache_pool_bytes_per_device=self.pool.device_bytes_per_device(),
+            kv_dtype=kv_dtype,
         )
+        if paged:
+            self.metrics.attach_paging(self.pool.paging_stats)
         self._sched = ContinuousBatchScheduler(self.pool,
                                                max_queue=max_queue)
         self._vocab = graph.extra.get("vocab_size")
@@ -244,8 +283,7 @@ class ServeEngine:
         while self._sched.queue_depth and self.pool.free_count:
             req = self._sched.pop_next()
             slot = self.pool.lease()
-            bucket = self.prefill_bucket(len(req.prompt))
-            first = self._prefill(slot, req.prompt, bucket)
+            first, bucket = self._prefill(slot, req.prompt)
             self.metrics.record_first_token(req, tick, bucket)
             tokens_this_tick += 1
             done = self._sched.activate(slot, req, first, tick)
@@ -265,21 +303,47 @@ class ServeEngine:
             self.metrics.record_finish(res)
         return finished
 
-    def _prefill(self, slot: int, prompt: np.ndarray, bucket: int) -> int:
-        """Prefill ``prompt`` right-padded to ``bucket`` on a batch-1
-        linear cache, copy the real prompt's K/V into ``slot`` and return
-        the first greedy token (a host sync)."""
+    def _prefill(self, slot: int, prompt: np.ndarray) -> tuple[int, int]:
+        """Prefill ``prompt`` into ``slot`` and return (the first greedy
+        token, a host sync; the bucket the forward ran at). A prefix-cache
+        hit runs only the remainder, over the cached prefix's gathered
+        K/V; a miss (or a stale entry) runs the whole prompt on a batch-1
+        linear cache of one bucket."""
         p = len(prompt)
-        padded = np.full((1, bucket), self.pad_id, np.int32)
-        padded[0, :p] = prompt
-        ids = torch.from_numpy(padded).to(self.device)
+        hit = (self.pool.prefix_lookup(prompt, self.prefill_bucket)
+               if self._prefix_cache else None)
+        if hit is not None:
+            entry, keep = hit
+            r = p - keep
+            bucket = self.prefill_bucket(r)
+            lin = self.pool.gather_prefix(entry, keep)
+            logits, cache = self._forward(prompt[keep:], bucket, lin, keep)
+            # map the shared pages FIRST (the slot's references keep them
+            # alive through any eviction the remainder write triggers),
+            # then scatter only the remainder [keep, p)
+            if self.pool.map_prefix(slot, entry, keep):
+                self.pool.write_prefill(slot, cache, p, start=keep)
+                return int(greedy_next(logits[0, r - 1])), bucket
+            # the entry was evicted since the lookup: its pages may be
+            # free or reallocated, so fall back to the full prefill
+        bucket = self.prefill_bucket(p)
         cache = init_cache(self.graph, self.variables, 1, bucket)
-        logits, cache = _cached_apply(self.graph, self.variables, ids,
-                                      cache, 0)
+        logits, cache = self._forward(prompt, bucket, cache, 0)
         # only the REAL prompt's K/V enter the slot; the pad tail of the
         # bucket cache is dropped here
         self.pool.write_prefill(slot, cache, p)
-        return int(greedy_next(logits[0, p - 1]))
+        if self._prefix_cache:
+            self.pool.prefix_insert(slot, prompt)
+        return int(greedy_next(logits[0, p - 1])), bucket
+
+    def _forward(self, tokens: np.ndarray, bucket: int, cache: dict,
+                 pos: int):
+        """``tokens`` right-padded to ``bucket`` through the model at
+        absolute position ``pos`` of the linear ``cache``."""
+        padded = np.full((1, bucket), self.pad_id, np.int32)
+        padded[0, :len(tokens)] = tokens
+        ids = torch.from_numpy(padded).to(self.device)
+        return _cached_apply(self.graph, self.variables, ids, cache, pos)
 
     def _decode_phase(self, tick: int, finished: list) -> int:
         """One fused decode BLOCK for all active slots, with ONE host
@@ -292,6 +356,10 @@ class ServeEngine:
         )
         t_block = self._block_size(min_rem)
         td = time.perf_counter()
+        if self._paged:
+            # pre-map every page this block can write; the page table is
+            # read-only during the block (its one host sync)
+            self.pool.ensure_decode_pages(pre_pos, t_block)
         toks, live, _, positions = self._decode(
             self.variables, self.pool.buffers, self.pool.positions,
             self.pool.live, torch.from_numpy(tok).to(self.device),

@@ -77,11 +77,16 @@ def _rnd(value: float | None, digits: int = 3) -> float | None:
 
 class ServeMetrics:
     def __init__(self, model: str, slots: int, decode_block: int = 1,
-                 cache_pool_bytes_per_device: int = 0):
+                 cache_pool_bytes_per_device: int = 0,
+                 kv_dtype: str = "bf16"):
         self.model = model
         self.slots = slots
         self.decode_block = decode_block
         self.cache_pool_bytes_per_device = cache_pool_bytes_per_device
+        self.kv_dtype = kv_dtype
+        #: the paged pool's ``paging_stats`` (attach_paging); None: a
+        #: dense pool, whose paging keys report inert defaults
+        self._paging_provider = None
         self.submitted = 0
         self.rejected = 0
         self.completed = 0
@@ -114,6 +119,26 @@ class ServeMetrics:
         if self._t0 is None:
             self._t0 = now
         self._t_last = now
+
+    def attach_paging(self, provider) -> None:
+        """Wire the paged pool's ``paging_stats`` callable in;
+        ``to_dict`` then reports live allocator / prefix-cache /
+        copy-on-extend figures instead of the dense defaults."""
+        self._paging_provider = provider
+
+    def _paging_dict(self) -> dict:
+        """The paging keys, ALWAYS present: dense engines report zeros
+        (and ``page_utilization: None``)."""
+        stats = (dict(self._paging_provider())
+                 if self._paging_provider is not None else {})
+        out = {
+            key: int(stats.get(key, 0))
+            for key in ("page_size", "pages_total", "pages_free",
+                        "prefix_cache_hits_total", "prefix_cache_entries",
+                        "cow_copies_total", "prefix_tokens_saved_total")
+        }
+        out["page_utilization"] = stats.get("page_utilization")
+        return out
 
     def record_submit(self) -> None:
         self.submitted += 1
@@ -232,5 +257,6 @@ class ServeMetrics:
             ),
             "decode_blocks": dict(self.decode_blocks),
             "cache_pool_bytes_per_device": self.cache_pool_bytes_per_device,
-            "kv_dtype": "bf16",  # the only pool this slice ports
+            "kv_dtype": self.kv_dtype,
+            **self._paging_dict(),
         }

@@ -6,14 +6,19 @@ GPU machine does not have, so run this file there on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m gpu -q
 
-The kernel is held to ``flash_decode_reference``, its plain PyTorch
-version, on the same CUDA tensors. Tolerances: 1e-5 in float32 (both
-accumulate in f32; only the order of the sums differs) and 1e-2 in
-bfloat16 (both round the output to bf16: one ulp at |out| < 2 is
-2^-7).
+Each kernel is held to its plain PyTorch version
+(``flash_decode_reference``, ``paged_flash_decode_reference``) on the
+same CUDA tensors. Tolerances: 1e-5 for a float32 query (both accumulate
+in f32; only the order of the sums differs) and 1e-2 for a bfloat16 one
+(both round the output to bf16: one ulp at |out| < 2 is 2^-7), int8 K/V
+included — both sides read the same int8 values and scales.
 """
 
 from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -131,3 +136,109 @@ def test_small_model_decode_on_card_matches_cpu(cuda):
                                     step=True, live=live)
     err = (out["cuda"].cpu() - out["cpu"]).abs().max().item()
     assert err <= 1e-4
+
+
+def _int8_kv(shape, n_scales, gen):
+    """int8 K/V values over the whole range and positive f32 scales that
+    dequantize them to about [-4, 4] (an amax of about 3 with the pools'
+    1.5x headroom)."""
+    vals = torch.randint(-127, 128, shape, generator=gen,
+                         dtype=torch.int8).cuda()
+    scales = (torch.rand(n_scales, generator=gen) * 0.01 + 0.02).cuda()
+    return vals, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hk,d", [(4, 64), (2, 64), (1, 32), (4, 128),
+                                  (2, 6), (1, 34)])
+def test_q8_kernel_matches_reference(cuda, dtype, hk, d):
+    b, L, h = 6, 200, 4
+    gen = torch.Generator().manual_seed(d + hk)
+    q = torch.randn(b, 1, h, d, generator=gen).to(dtype).cuda()
+    k, ks = _int8_kv((b, L, hk, d), (b, hk), gen)
+    v, vs = _int8_kv((b, L, hk, d), (b, hk), gen)
+    lengths = torch.tensor([0, 1, 63, 64, 150, 10_000], dtype=torch.int32,
+                           device=cuda)
+    before = fa.q8_launches
+    got = fa.flash_decode(q, k, v, lengths, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert fa.q8_launches == before + 1
+    want = fa.flash_decode_reference(q, k, v, lengths.clamp(0, L),
+                                     k_scale=ks, v_scale=vs)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert not got[0].any()
+
+
+def _page_table(b, max_pages, num_pages, lengths, ps, gen):
+    """A shuffled page table: distinct pages for every live logical page,
+    two rows sharing their first page, and the trash page 0 past each
+    row's live length."""
+    perm = (torch.randperm(num_pages - 1, generator=gen) + 1).tolist()
+    pt = torch.zeros(b, max_pages, dtype=torch.int32)
+    for row, n in enumerate(lengths):
+        for j in range(-(-min(n, max_pages * ps) // ps)):
+            pt[row, j] = perm.pop()
+    pt[1, 0] = pt[2, 0]  # a shared page
+    return pt.cuda()
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hk,d,ps", [(4, 64, 16), (2, 64, 8), (4, 128, 32),
+                                     (2, 6, 16)])
+def test_paged_kernel_matches_reference(cuda, kv, qdtype, hk, d, ps):
+    if kv != "int8" and (kv != str(qdtype).split(".")[1] or d % 8):
+        pytest.skip("float pages take their query's dtype and D % 8 == 0")
+    b, h, max_pages = 6, 4, 8
+    num_pages = b * max_pages + 1
+    lengths = [0, 1, ps - 1, ps + 1, 5 * ps, 10_000]
+    gen = torch.Generator().manual_seed(d + hk + ps)
+    q = torch.randn(b, 1, h, d, generator=gen).to(qdtype).cuda()
+    shape = (num_pages, hk, ps, d)
+    if kv == "int8":
+        kp, ks = _int8_kv(shape, (num_pages, hk), gen)
+        vp, vs = _int8_kv(shape, (num_pages, hk), gen)
+        counter = "paged_q8_launches"
+    else:
+        kp, vp = (torch.randn(shape, generator=gen).to(qdtype).cuda()
+                  for _ in range(2))
+        ks = vs = None
+        counter = "paged_launches"
+    pt = _page_table(b, max_pages, num_pages, lengths, ps, gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = getattr(fa, counter)
+    got = fa.paged_flash_decode(q, kp, vp, lens, pt, k_scale=ks,
+                                v_scale=vs)
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == before + 1
+    want = fa.paged_flash_decode_reference(
+        q, kp, vp, lens.clamp(0, max_pages * ps), pt, k_scale=ks,
+        v_scale=vs)
+    assert got.dtype == qdtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[qdtype]
+    assert not got[0].any()
+
+
+def test_paged_kernel_fails_on_a_page_id_out_of_range(cuda):
+    """A page id past the stores traps in the kernel: the launch fails
+    (run in a child process, since a trap ends the CUDA context)."""
+    code = (
+        "import torch\n"
+        "from mmlspark_tpu_torch.ops import flash_attention as fa\n"
+        "q = torch.randn(1, 1, 2, 16, device='cuda')\n"
+        "kp = torch.randn(3, 2, 8, 16, device='cuda')\n"
+        "pt = torch.tensor([[1, 7]], dtype=torch.int32, device='cuda')\n"
+        "lens = torch.tensor([12], dtype=torch.int32, device='cuda')\n"
+        "try:\n"
+        "    fa.paged_flash_decode(q, kp, kp, lens, pt)\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('FAILED', type(e).__name__)\n"
+        "else:\n"
+        "    print('RAN')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert "FAILED" in out.stdout, (out.stdout, out.stderr[-2000:])

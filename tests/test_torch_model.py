@@ -288,7 +288,17 @@ def test_unported_paths_raise_param_error():
     buf = torch.zeros(2, 8, 2, 16, dtype=torch.bfloat16)
     pos = torch.tensor([1, 2], dtype=torch.int32)
     g.bind(v)
-    for cache, item in (((buf, buf, torch.zeros(2, 1)), "item 6"),
-                        ((buf, buf, buf, buf), "item 7")):
-        with pytest.raises(ParamError, match=item):
-            block(x, cache=cache, pos=pos, decode=True)
+    # the paged and int8 caches are the serve pools' decode formats: a
+    # prefill-style call with them raises, as in the JAX package
+    pages = torch.zeros(3, 2, 8, 16, dtype=torch.bfloat16)
+    table = torch.zeros(2, 1, dtype=torch.int32)
+    q8 = torch.zeros(2, 8, 2, 16, dtype=torch.int8)
+    scales = torch.ones(2, 2)
+    for cache, kw, match in (
+        ((pages, pages, table), dict(pos=pos), "per-row single-token"),
+        ((q8, q8, scales, scales), dict(pos=1, decode=True),
+         "int8 dense caches"),
+        ((buf,) * 6, dict(pos=pos, decode=True), "6-tuple"),
+    ):
+        with pytest.raises(ParamError, match=match):
+            block(x, cache=cache, **kw)

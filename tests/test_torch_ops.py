@@ -270,7 +270,7 @@ def test_apply_rope_matches_jax(positions):
 
 def test_every_kernel_source_builds_for_sm90a():
     srcs = kernel_build.sources()
-    assert "flash_decode" in srcs
+    assert {"flash_decode", "paged_flash_decode"} <= set(srcs)
     cmd = kernel_build.nvcc_command("nvcc", srcs["flash_decode"],
                                     kernel_build.BUILD_DIR / "x.so")
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
@@ -290,6 +290,10 @@ def test_library_name_follows_the_source(tmp_path):
     b.write_text("// two\n")
     assert (kernel_build.library_path(a).name.split("-")[1]
             != kernel_build.library_path(b).name.split("-")[1])
+    # an edited header beside the source rebuilds it too
+    before = kernel_build.library_path(a)
+    (tmp_path / "shared.cuh").write_text("// header\n")
+    assert kernel_build.library_path(a) != before
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -309,9 +313,24 @@ class _NoDefaultNvcc(type(kernel_build.CSRC)):
 
 
 def test_kernel_source_declares_the_c_interface():
-    src = kernel_build.sources()["flash_decode"].read_text()
-    # the wrapper binds exactly these two symbols with ctypes
-    assert 'extern "C" int mml_flash_decode(' in src
-    assert 'extern "C" const char* mml_cuda_error_string(' in src
-    assert "return (int)cudaGetLastError();" in src
-    assert "mmlspark_tpu/ops/flash_attention.py:_decode_kernel" in src
+    srcs = kernel_build.sources()
+    header = (kernel_build.CSRC / "decode_attention.cuh").read_text()
+    # the launchers the wrappers bind with ctypes, the error text, and
+    # the TPU kernels each source replaces
+    for name, symbols, replaces in (
+        ("flash_decode", ("mml_flash_decode", "mml_flash_decode_q8"),
+         ("_decode_kernel", "_decode_kernel_q8")),
+        ("paged_flash_decode", ("mml_paged_flash_decode",),
+         ("_paged_decode_kernel", "_paged_decode_kernel_q8")),
+    ):
+        src = srcs[name].read_text()
+        assert '#include "decode_attention.cuh"' in src
+        for sym in symbols:
+            assert f'extern "C" int {sym}(' in src
+            assert sym in fa._SIGNATURES
+        assert 'extern "C" const char* mml_cuda_error_string(' in src
+        for kernel in replaces:
+            assert f"mmlspark_tpu/ops/flash_attention.py:{kernel}" in src
+    # every launch path returns the launch's own error
+    assert "return (int)cudaGetLastError();" in header
+    assert "__trap()" in header  # an out-of-range page id fails the launch
