@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mmlspark_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``csrc/``, holds each
-against its plain PyTorch version, drives the serving paths at the full
-width of the repo's serve model, and prints the measured numbers.
+against its plain PyTorch version, drives the serving paths and the
+training path at the full width of the repo's serve model, and prints the
+measured numbers.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,12 @@ Phases (each one fails the run with a non-zero exit on error):
    int8 mode at B=8, page_size 16, 32 pages a row (L=512), H=Hkv=8,
    D=64, plus Hkv=2 and D=128, live lengths {0, 1, 15, 16, 17, 300, 511,
    512}, over a shuffled page table with shared pages and trash-page
-   entries past each row's live length;
+   entries past each row's live length; the attention forward and both
+   backward kernels, float32 and bfloat16, at (B, S, H, Hkv, D) =
+   (8, 512, 8, 8, 64) causal (the training shape), (2, 500, 8, 2, 64)
+   causal with a 128 window (GQA, a padded tile), (2, 384, 8, 1, 128)
+   non-causal (MQA), (1, 1, 4, 4, 64) and (2, 64, 4, 4, 256), q/k/v
+   strided slices of one fused tensor and dO a strided view;
 3. the engines, each a main path of its own, with every launch count
    set to 0 just before it and read just after:
    - dense bf16: ``transformer_lm(vocab_size=8192, d_model=512, heads=8,
@@ -41,12 +47,24 @@ Phases (each one fails the run with a non-zero exit on error):
    the same step on the CPU, in float32: over a dense cache (1e-3), a
    paged float32 cache (1e-3), and int8 dense and paged caches (1e-2),
    the caches built on the CPU and copied to the card;
-4. numbers: each kernel's, its plain version's and (where one exists)
+4. training, each run a main path with the counts set to 0 just before
+   it and read just after: the same model with ``attn_impl="flash"``
+   under ``SPMDTrainer`` (adam, lr 1e-3, batch 8) for 8 steps over
+   seeded rows of 512 tokens that are arithmetic progressions mod the
+   vocabulary (learnable), then a depth-2 GQA model with a 128 window
+   and RoPE for 4 steps. Gates: every loss finite and the last below the
+   first; each attention kernel launched ``depth`` times a step; no
+   dense attention ran. Then one training step of the float32 model,
+   card vs CPU (the plain versions), on the same weights and batch: the
+   loss within 1e-4 relative, every parameter's gradient within 1e-3 of
+   that leaf's largest;
+5. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold), the kernel's
-   bound, the engines' throughput, and one steady decode block under
-   ``torch.profiler`` (device busy share and the kernels that take its
-   time).
+   bound, the engines' throughput, the training runs' step time,
+   tokens/s and peak memory, and one steady decode block and one
+   training step under ``torch.profiler`` (device busy share and the
+   kernels that take its time).
 
 The last line is ``{"ok": true, "device": {...}}``. float32 matrix
 products and convolutions run in full float32 here: TF32 is switched off
@@ -63,10 +81,12 @@ import time
 
 import numpy as np
 
-#: H100 SXM, NVIDIA's data sheet: HBM3 bandwidth and the float32 rate
-#: outside the tensor cores (the kernel's arithmetic is f32 FMAs)
+#: H100 SXM, NVIDIA's data sheet: HBM3 bandwidth, the float32 rate
+#: outside the tensor cores (the decode kernels' arithmetic is f32 FMAs)
+#: and the dense bf16 tensor-core rate (the attention kernels' inputs)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 #: what the rotation of timing inputs must exceed: twice the L2 cache
 ROTATE_BYTES = 2 * 50 * 2**20
 
@@ -83,7 +103,8 @@ PAGE_SIZE, HEADER_LEN = 16, 72
 BF16_LOGIT_TOL = 6.25e-2
 #: the launch counters of ops/flash_attention.py, one per kernel
 COUNTERS = ("launches", "q8_launches", "paged_launches",
-            "paged_q8_launches")
+            "paged_q8_launches", "fwd_launches", "bwd_kv_launches",
+            "bwd_q_launches")
 #: where the main path runs; a CPU rehearsal of the script sets "cpu"
 DEVICE = "cuda"
 
@@ -109,6 +130,29 @@ PAGED_LENGTHS = [0, 1, 15, 16, 17, 300, 511, 512]
 #: the sums. bf16: both outputs round to bf16 at the end, and one bf16
 #: ulp at |out| < 2 is 2^-7 = 0.0078
 TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-2}
+#: (name, B, S, H, Hkv, D, causal, window) of the attention kernel checks
+ATTN_CASES = [
+    ("slice", 8, 512, 8, 8, 64, True, None),
+    ("gqa_window_padded", 2, 500, 8, 2, 64, True, 128),
+    ("mqa_d128_noncausal", 2, 384, 8, 1, 128, False, None),
+    ("one_token", 1, 1, 4, 4, 64, True, None),
+    ("d256", 2, 64, 4, 4, 256, True, None),
+]
+#: (out, LSE, gradients): out as the decode kernels; the LSE is f32 on
+#: both sides; a gradient's max abs error over the plain value's max abs
+#: (or over 1 where that is smaller: dq and dk of a single token are 0 in
+#: exact arithmetic and hold only rounding noise) — f32 sums in other
+#: orders (1e-4); in bf16 P and dS round at the same places, but the
+#: kernel sums a GQA group's dK/dV in f32 and the plain version rounds
+#: each head's first (1e-2)
+ATTN_TOLERANCE = {"float32": (1e-5, 1e-5, 1e-4),
+                  "bfloat16": (1e-2, 1e-5, 1e-2)}
+#: the training runs: the serve model with the flash attention kernels,
+#: then a cheaper depth-2 model with GQA, a window and RoPE
+TRAIN_MODEL = dict(SERVE_MODEL, attn_impl="flash")
+SMALL_TRAIN_MODEL = dict(SERVE_MODEL, depth=2, kv_heads=2, window=128,
+                         pos_embedding="rope", attn_impl="flash")
+TRAIN_BATCH, TRAIN_STEPS, SMALL_TRAIN_STEPS = 8, 8, 4
 
 
 def log(msg: str) -> None:
@@ -254,6 +298,65 @@ def check_kernels() -> dict:
                     paged_flash_decode_reference(q, kp8, vp8, lens, pt,
                                                  **pq8),
                     PAGED_LENGTHS)
+    return errors
+
+
+def attention_inputs(b, s, h, hk, d, dtype, seed):
+    """q, k, v as the model slices them out of one fused (B, S, H + 2Hkv,
+    D) projection, and dO as every other head of a wider tensor: all
+    strided, last dims contiguous."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, s, h + 2 * hk, d), generator=gen).to(dtype)
+    wide = torch.randn((b, s, 2 * h, d), generator=gen).to(dtype)
+    qkv, wide = qkv.to(DEVICE), wide.to(DEVICE)
+    return (qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:],
+            wide[:, :, ::2])
+
+
+def check_attention_kernels() -> dict:
+    """The forward kernel (out, LSE) and both backward kernels (dq; dk,
+    dv), each against its plain version on the same CUDA tensors; the
+    backward kernels read the plain forward's (out, lse), so each is held
+    to its own plain version alone."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    errors = {}
+    for i, (name, b, s, h, hk, d, causal, window) in enumerate(ATTN_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}/{str(dtype).split('.')[1]}"
+            tol_out, tol_lse, tol_grad = ATTN_TOLERANCE[tag.split("/")[1]]
+            q, k, v, g = attention_inputs(b, s, h, hk, d, dtype, seed=70 + i)
+            kw = dict(causal=causal, window=window, scale=d ** -0.5)
+            out, lse = fa.flash_attention_forward(q, k, v, **kw)
+            want_out, want_lse = fa.flash_attention_reference(q, k, v, **kw)
+            grads = fa.flash_attention_backward(q, k, v, want_out, want_lse,
+                                                g, **kw)
+            want = fa.flash_attention_backward_reference(
+                q, k, v, want_out, want_lse, g, **kw)
+            torch.cuda.synchronize()
+            err = {"out": (out.float() - want_out.float()).abs().max().item(),
+                   "lse": (lse - want_lse).abs().max().item()}
+            for gname, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                if got.shape != ref.shape or got.dtype != ref.dtype:
+                    raise AssertionError(f"attention {tag} {gname}: "
+                                         f"{got.shape}/{got.dtype}")
+                diff = (got.float() - ref.float()).abs().max().item()
+                err[gname + "_abs"] = diff
+                err[gname] = diff / max(ref.float().abs().max().item(),
+                                        1.0)
+            errors[tag] = err
+            log(f"attention kernels vs plain {tag}: {err}")
+            bad = [key for key, limit in (("out", tol_out), ("lse", tol_lse),
+                                          ("dq", tol_grad), ("dk", tol_grad),
+                                          ("dv", tol_grad))
+                   if not err[key] <= limit]
+            if out.shape != q.shape or out.dtype != q.dtype or bad:
+                raise AssertionError(f"attention {tag}: {bad} past "
+                                     f"{ATTN_TOLERANCE}: {err}")
     return errors
 
 
@@ -507,12 +610,12 @@ def check_header_engines(graph, variables) -> dict:
 # -- the full-width model, card vs CPU ------------------------------------------
 
 
-def f32_graph():
+def f32_graph(**kw):
     import torch
 
     from mmlspark_tpu_torch.models import build_model
 
-    graph = build_model("transformer_lm", **SERVE_MODEL)
+    graph = build_model("transformer_lm", **dict(SERVE_MODEL, **kw))
     for _, mod in graph.blocks:
         for m in mod.modules():
             if hasattr(m, "dtype"):
@@ -654,6 +757,199 @@ def check_cache_formats_vs_cpu(seed: int = 2) -> dict:
     return errors
 
 
+# -- training ------------------------------------------------------------------
+
+
+def progression_rows(n: int, seed: int):
+    """n rows of max_len tokens, each an arithmetic progression mod the
+    vocabulary with a random start and stride (each next token follows
+    from the last two, so a model can learn it); labels are the rows
+    shifted by one."""
+    rng = np.random.default_rng(seed)
+    vocab, seq = SERVE_MODEL["vocab_size"], SERVE_MODEL["max_len"]
+    start = rng.integers(0, vocab, size=(n, 1))
+    stride = rng.integers(1, 64, size=(n, 1))
+    x = ((start + stride * np.arange(seq)) % vocab).astype(np.int32)
+    return x, np.roll(x, -1, axis=1)
+
+
+def make_trainer(graph, recorder=None):
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    return SPMDTrainer(graph, TrainConfig(
+        epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-3,
+        optimizer="adam", log_every=1, shuffle=True), recorder=recorder,
+        device=DEVICE)
+
+
+def run_training(label: str, model: dict, steps: int, seed: int):
+    """One training main path: ``steps`` adam steps through
+    ``SPMDTrainer``, the counts set to 0 just before and read just after,
+    and every dense-attention call counted. Returns the summary and the
+    trained variables."""
+    import torch
+
+    import mmlspark_tpu_torch.ops.flash_attention as fa
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.models import transformer
+
+    graph = build_model("transformer_lm", **model)
+    variables = init_variables(graph, seed, device=DEVICE)
+    x, y = progression_rows(steps * TRAIN_BATCH, seed)
+    trainer = make_trainer(graph)
+    dense_calls = []
+    dense = transformer.dense_attention
+
+    def counted(*args, **kw):
+        dense_calls.append(1)
+        return dense(*args, **kw)
+
+    transformer.dense_attention = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in COUNTERS:
+            setattr(fa, name, 0)
+        trained = trainer.train(x, y, init_variables=variables)
+        torch.cuda.synchronize()
+        counts = {name: getattr(fa, name) for name in COUNTERS}
+    finally:
+        transformer.dense_attention = dense
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history]
+    # log_every=1: the trainer syncs on each step's loss, so the gaps
+    # between its step events are the steps' wall times (steps 2+)
+    stamps = [e["t"] for e in trainer.recorder.events()
+              if e["name"] == "step"]
+    step_ms = statistics.median(
+        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    tokens = TRAIN_BATCH * SERVE_MODEL["max_len"]
+    want = model["depth"] * steps
+    log(f"training {label}: losses {losses}, counts {counts}, dense "
+        f"attention calls {len(dense_calls)}, step {step_ms:.2f} ms")
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training {label}: losses {losses}")
+    if not counts["fwd_launches"] == counts["bwd_kv_launches"] == \
+            counts["bwd_q_launches"] == want:
+        raise AssertionError(f"training {label}: {counts}, wanted {want} "
+                             "launches of each attention kernel")
+    if dense_calls:
+        raise AssertionError(f"training {label}: dense attention ran "
+                             f"{len(dense_calls)} times")
+    return {
+        "model": model, "steps": steps, "batch": TRAIN_BATCH,
+        "losses": losses, "launch_counts": counts,
+        "dense_attention_calls": len(dense_calls),
+        "step_ms_median_steps_2_on": step_ms,
+        "tokens_per_sec": tokens / (step_ms / 1e3),
+        "peak_memory_bytes": peak,
+    }, trained
+
+
+def check_train_step_vs_cpu(seed: int = 3) -> dict:
+    """One training step of the full-width float32 flash model — forward,
+    loss, backward — on the card (the kernels) and on the CPU (their
+    plain versions), from the same weights and the same 2 x 512 batch."""
+    import torch
+
+    from mmlspark_tpu_torch.models import init_variables
+    from mmlspark_tpu_torch.train import masked_loss
+
+    graph = f32_graph(attn_impl="flash")
+    weights = init_variables(graph, seed, device="cpu")
+    x, y = progression_rows(2, seed)
+    results = {}
+    for dev in ("cpu", DEVICE):
+        variables = {
+            b: {k: t.detach().to(dev, copy=True).requires_grad_(True)
+                for k, t in leaves.items()}
+            for b, leaves in weights.items()
+        }
+        mask = torch.ones(2, dtype=torch.bool, device=dev)
+        out, _ = graph.apply(variables, torch.from_numpy(x).to(dev),
+                             train=True, mask=mask)
+        loss = masked_loss("softmax_xent", out,
+                           torch.from_numpy(y).to(dev), mask)
+        loss.backward()
+        results[dev] = (loss.item(), {
+            f"{b}.{k}": t.grad.cpu() for b, leaves in variables.items()
+            for k, t in leaves.items()})
+    (cpu_loss, cpu_grads), (loss, grads) = results["cpu"], results[DEVICE]
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = {}
+    for name, want in cpu_grads.items():
+        err = (grads[name] - want).abs().max().item()
+        scale = want.abs().max().item()
+        grad_rel[name] = err / scale if scale else err
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"train step card vs CPU: {name} grads "
+                                 f"differ by {err} (leaf max {scale})")
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"full-width f32 train step, card vs CPU: loss {loss} vs "
+        f"{cpu_loss} (rel {loss_rel:.3g}), worst grad {worst} "
+        f"{grad_rel[worst]:.3g} of its leaf's max")
+    if not np.isfinite(loss) or not loss_rel <= 1e-4:
+        raise AssertionError(f"train step loss {loss} vs CPU {cpu_loss}")
+    return {"loss": loss, "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
+            "worst_grad": worst, "worst_grad_rel_err": grad_rel[worst]}
+
+
+def device_profile(prof, wall_ms: float) -> dict:
+    """Device time, busy share and the top kernels of a profiled window."""
+    import torch
+
+    # a scheduled window's ProfilerStep annotation carries device time of
+    # its own: it spans the kernels, it is not one
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "top_kernels": [
+            {"name": e.key[:80], "count": e.count,
+             "ms": e.self_device_time_total / 1e3}
+            for e in top
+        ],
+    }
+
+
+def profile_train_step(trained: dict) -> dict:
+    """One steady full-width training step under ``torch.profiler``,
+    after the 8-step run warmed everything up: a 3-step ``train()`` from
+    its weights whose recorder steps the profiler's schedule at each
+    step's log event, so the active window is the third step alone (the
+    trainer's set-up and the first step fall outside it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from mmlspark_tpu_torch.core.telemetry import FlightRecorder
+    from mmlspark_tpu_torch.models import build_model
+
+    class Stepping(FlightRecorder):
+        def record(self, name, **attrs):
+            super().record(name, **attrs)
+            if name == "step":
+                prof.step()
+
+    recorder = Stepping()
+    trainer = make_trainer(build_model("transformer_lm", **TRAIN_MODEL),
+                           recorder)
+    x, y = progression_rows(3 * TRAIN_BATCH, 11)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        trainer.train(x, y, init_variables=trained)
+    stamps = [e["t"] for e in recorder.events() if e["name"] == "step"]
+    return dict(device_profile(prof, (stamps[2] - stamps[1]) * 1e3),
+                batch=TRAIN_BATCH, seq=SERVE_MODEL["max_len"], step=2)
+
+
 def profile_decode_block(graph, variables) -> dict:
     """Where one steady decode block's time goes: all 8 slots live, one
     T=32 block under ``torch.profiler``; the kernels' device time against
@@ -674,22 +970,8 @@ def profile_decode_block(graph, variables) -> dict:
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {
-        "block": DECODE_BLOCK,
-        "slots_live": SLOTS,
-        "wall_ms": wall_ms,
-        "device_ms": device_ms if device_ms > 0 else None,
-        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
-        "top_kernels": [
-            {"name": e.key[:80], "count": e.count,
-             "ms": e.self_device_time_total / 1e3}
-            for e in top
-        ],
-    }
+    return dict(device_profile(prof, wall_ms), block=DECODE_BLOCK,
+                slots_live=SLOTS)
 
 
 # -- timing ----------------------------------------------------------------------
@@ -723,14 +1005,13 @@ TIMED = dict(b=8, L=512, h=8, hk=8, d=64, live=256)
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, kernel_ms,
-               plain_ms, library_ms, n_bytes, kv_dtype, library=None):
+               plain_ms, library_ms, n_bytes, n_flops, flops_per_s, shape,
+               **notes):
     """One row of the ``kernels`` line; the bound is the larger of the
-    bytes over the card's memory rate and the f32 arithmetic (q.k and
-    p.v, 2 flops a multiply-add) over its f32 rate."""
-    t = TIMED
-    n_flops = 4 * t["b"] * t["live"] * t["h"] * t["d"]
+    bytes over the card's memory rate and the operations over its peak
+    rate for the kernel's arithmetic."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = n_flops / flops_per_s * 1e3
     return {
         "name": name,
         "route": "cuda",
@@ -743,10 +1024,23 @@ def kernel_row(name, source, replaces, launches, max_abs_err, kernel_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
-        "library": library,
-        "shape": dict(t, dtype="bfloat16", kv_dtype=kv_dtype),
+        **notes,
+        "shape": shape,
         "bytes": n_bytes,
+        "flops": n_flops,
     }
+
+
+def decode_row(name, source, replaces, launches, max_abs_err, kernel_ms,
+               plain_ms, library_ms, n_bytes, kv_dtype, library=None):
+    """A decode kernel's row at the TIMED shape: q.k and p.v, 2 flops a
+    multiply-add, at the f32 rate (the kernels compute in f32)."""
+    t = TIMED
+    return kernel_row(
+        name, source, replaces, launches, max_abs_err, kernel_ms, plain_ms,
+        library_ms, n_bytes, 4 * t["b"] * t["live"] * t["h"] * t["d"],
+        F32_FLOPS_PER_S, dict(t, dtype="bfloat16", kv_dtype=kv_dtype),
+        library=library)
 
 
 def io_bytes(kv_elem: int) -> int:
@@ -785,7 +1079,7 @@ def measure_kernels(errors: dict, launches: dict) -> list:
                  k[:, :live].transpose(1, 2).contiguous(),
                  v[:, :live].transpose(1, 2).contiguous())
                 for q, k, v in sets]
-    rows.append(kernel_row(
+    rows.append(decode_row(
         "flash_decode", src + "flash_decode.cu", f"{jax_file}:586",
         launches["launches"], errors["slice/bfloat16"],
         time_ms(lambda q, k, v: flash_decode(q, k, v, lens), sets),
@@ -801,7 +1095,7 @@ def measure_kernels(errors: dict, launches: dict) -> list:
         k8, ks = int8_kv((b, L, hk, d), (b, hk), gen)
         v8, vs = int8_kv((b, L, hk, d), (b, hk), gen)
         sets.append((q, k8, v8, ks, vs))
-    rows.append(kernel_row(
+    rows.append(decode_row(
         "flash_decode_q8", src + "flash_decode.cu", f"{jax_file}:640",
         launches["q8_launches"], errors["q8_slice/bfloat16"],
         time_ms(lambda q, k, v, ks, vs: flash_decode(
@@ -836,7 +1130,7 @@ def measure_kernels(errors: dict, launches: dict) -> list:
 
     lib_sets = [(q.transpose(1, 2).contiguous(), gathered(kp, pt),
                  gathered(vp, pt)) for q, kp, vp, pt in sets]
-    rows.append(kernel_row(
+    rows.append(decode_row(
         "paged_flash_decode", src + "paged_flash_decode.cu",
         f"{jax_file}:894", launches["paged_launches"],
         errors["paged_slice/bfloat16"],
@@ -852,7 +1146,7 @@ def measure_kernels(errors: dict, launches: dict) -> list:
 
     sets = [paged_set(True) for _ in range(ROTATE_BYTES // (per_set // 2)
                                            + 1)]
-    rows.append(kernel_row(
+    rows.append(decode_row(
         "paged_flash_decode_q8", src + "paged_flash_decode.cu",
         f"{jax_file}:942", launches["paged_q8_launches"],
         errors["paged_q8_slice/bfloat16"],
@@ -862,6 +1156,107 @@ def measure_kernels(errors: dict, launches: dict) -> list:
             q, k, v, lens, pt, k_scale=ks, v_scale=vs), sets),
         None, io_bytes(1) + table_bytes + 2 * b * live_pages * hk * 4,
         "int8"))
+    return rows
+
+
+#: the attention kernels' timed shape: the training path's, bf16
+TIMED_ATTN = dict(b=8, s=512, h=8, hk=8, d=64, causal=True, window=None)
+
+
+def attention_work(b, s, h, hk, d, causal, window, elem=2) -> dict:
+    """{kernel: (bytes, flops)} for one call at this shape: each input
+    read once and each output written once (the backward kernels read D
+    = rowsum(dO * out), not out), and 2 flops a multiply-add over the
+    live (query, key) pairs: q.k and p.v forward; q.k, dO.v, dV and dK
+    for dK/dV; q.k, dO.v and dQ for dQ."""
+    pairs = sum(
+        min(i + 1, window or s) if causal else s for i in range(s))
+    qo = b * s * h * d * elem  # q, out, dO or dq
+    kv = b * s * hk * d * elem  # k, v, dk or dv
+    rows = b * h * s * 4  # LSE or D, f32
+    per_pair = 2 * b * h * d
+    return {
+        "flash_attention_fwd": (2 * qo + 2 * kv + rows, 2 * per_pair * pairs),
+        "flash_attention_bwd_kv": (2 * qo + 4 * kv + 2 * rows,
+                                   4 * per_pair * pairs),
+        "flash_attention_bwd_q": (3 * qo + 2 * kv + 2 * rows,
+                                  3 * per_pair * pairs),
+    }
+
+
+def measure_attention_kernels(errors: dict, launches: dict) -> list:
+    """The three attention kernels at the training shape: kernel, plain
+    version and the SDPA yardstick. The backward rows' plain version is
+    the whole plain backward (dq, dk and dv in one), and their library
+    call SDPA's backward alone, both backward kernels' work together."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    t = TIMED_ATTN
+    b, s, h, hk, d = (t[k] for k in ("b", "s", "h", "hk", "d"))
+    kw = dict(causal=t["causal"], window=t["window"], scale=d ** -0.5)
+    work = attention_work(b, s, h, hk, d, t["causal"], t["window"])
+    # enough sets that the call reading the fewest bytes still rotates
+    # through more than the rotation floor
+    sets = []
+    for i in range(ROTATE_BYTES // min(n for n, _ in work.values()) + 1):
+        q, k, v, g = attention_inputs(b, s, h, hk, d, torch.bfloat16,
+                                      seed=200 + i)
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        ops = fa._backward_operands(q, k, v, out, lse, g)
+        # SDPA on the same tensors in its (B, H, S, D) layout, with the
+        # forward kept so that its backward can be timed alone
+        lib = [x.transpose(1, 2).detach().requires_grad_(True)
+               for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+        sets.append(dict(q=q, k=k, v=v, g=g, out=out, lse=lse, ops=ops,
+                         lib=lib, lib_out=lib_out, lib_g=g.transpose(1, 2)))
+
+    def timed(fn):
+        return time_ms(fn, [(st,) for st in sets])
+
+    src = "mmlspark_tpu_torch/csrc/"
+    jax_file = "mmlspark_tpu/ops/flash_attention.py"
+    shape = dict(t, dtype="bfloat16")
+    err = errors["slice/bfloat16"]
+    plain_bwd = timed(lambda st: fa.flash_attention_backward_reference(
+        st["q"], st["k"], st["v"], st["out"], st["lse"], st["g"], **kw))
+    lib_bwd = timed(lambda st: torch.autograd.grad(
+        st["lib_out"], st["lib"], st["lib_g"], retain_graph=True))
+    bwd_notes = dict(
+        plain="flash_attention_backward_reference: dq, dk and dv together",
+        library="scaled_dot_product_attention's backward alone: both "
+                "backward kernels together")
+    rows = [
+        kernel_row(
+            "flash_attention_fwd", src + "flash_attention_fwd.cu",
+            f"{jax_file}:123", launches["fwd_launches"], err["out"],
+            timed(lambda st: fa.flash_attention_forward(
+                st["q"], st["k"], st["v"], **kw)),
+            timed(lambda st: fa.flash_attention_reference(
+                st["q"], st["k"], st["v"], **kw)),
+            timed(lambda st: F.scaled_dot_product_attention(
+                *(x.detach() for x in st["lib"]), is_causal=True)),
+            *work["flash_attention_fwd"], BF16_FLOPS_PER_S, shape,
+            library="scaled_dot_product_attention, causal"),
+        kernel_row(
+            "flash_attention_bwd_kv", src + "flash_attention_bwd.cu",
+            f"{jax_file}:285", launches["bwd_kv_launches"],
+            max(err["dk_abs"], err["dv_abs"]),
+            timed(lambda st: fa._launch_bwd_kv(st["ops"], kw["causal"],
+                                               kw["window"], kw["scale"])),
+            plain_bwd, lib_bwd, *work["flash_attention_bwd_kv"],
+            BF16_FLOPS_PER_S, shape, **bwd_notes),
+        kernel_row(
+            "flash_attention_bwd_q", src + "flash_attention_bwd.cu",
+            f"{jax_file}:330", launches["bwd_q_launches"], err["dq_abs"],
+            timed(lambda st: fa._launch_bwd_q(st["ops"], kw["causal"],
+                                              kw["window"], kw["scale"])),
+            plain_bwd, lib_bwd, *work["flash_attention_bwd_q"],
+            BF16_FLOPS_PER_S, shape, **bwd_notes),
+    ]
     return rows
 
 
@@ -903,6 +1298,7 @@ def main() -> int:
         f"{torch.version.cuda}")
     build_kernels()
     errors = check_kernels()
+    attn_errors = check_attention_kernels()
 
     graph = build_model("transformer_lm", **SERVE_MODEL)
     variables = init_variables(graph, 0, device=DEVICE)
@@ -912,6 +1308,14 @@ def main() -> int:
     log(f"engine phases took {time.perf_counter() - t0:.1f}s")
     model_err = check_model_vs_cpu()
     format_errs = check_cache_formats_vs_cpu()
+    t0 = time.perf_counter()
+    training, trained = run_training("full width", TRAIN_MODEL, TRAIN_STEPS,
+                                     seed=5)
+    small_training, _ = run_training("depth 2, GQA, window, RoPE",
+                                     SMALL_TRAIN_MODEL, SMALL_TRAIN_STEPS,
+                                     seed=6)
+    step_vs_cpu = check_train_step_vs_cpu()
+    log(f"training phases took {time.perf_counter() - t0:.1f}s")
 
     launches = {
         "launches": dense["counts"]["launches"],
@@ -921,10 +1325,13 @@ def main() -> int:
         "paged_q8_launches":
             header["header paged int8"]["counts"]["paged_q8_launches"],
     }
-    rows = measure_kernels(errors, launches)
+    rows = measure_kernels(errors, launches) + measure_attention_kernels(
+        attn_errors, training["launch_counts"])
     print(json.dumps({"kernel_errors": errors,
+                      "attention_kernel_errors": attn_errors,
                       "model_f32_card_vs_cpu_max_abs_err": model_err,
-                      "model_f32_cache_formats_card_vs_cpu": format_errs}))
+                      "model_f32_cache_formats_card_vs_cpu": format_errs,
+                      "train_step_f32_card_vs_cpu": step_vs_cpu}))
     print(json.dumps({"engine": engine_summary(dense),
                       "model": SERVE_MODEL, "slots": SLOTS,
                       "cache_len": CACHE_LEN,
@@ -933,7 +1340,10 @@ def main() -> int:
         label: engine_summary(run) for label, run in header.items()},
         "page_size": PAGE_SIZE, "num_pages": paged_num_pages(),
         "header_len": HEADER_LEN}))
+    print(json.dumps({"training": training,
+                      "small_training": small_training}))
     print(json.dumps({"profile": profile_decode_block(graph, variables)}))
+    print(json.dumps({"train_profile": profile_train_step(trained)}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,1 +1,2 @@
-"""Core: the error hierarchy and the CUDA device probe."""
+"""Core: the error hierarchy, the CUDA device probe, the allocation-failure
+classifier and the trimmed telemetry (metric registry, flight recorder)."""

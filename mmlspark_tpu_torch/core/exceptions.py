@@ -21,3 +21,7 @@ class FriendlyError(MMLError):
 
 class ParamError(FriendlyError):
     """Invalid parameter value or combination."""
+
+
+class SchemaError(FriendlyError):
+    """Dataset schema does not match what a stage requires."""

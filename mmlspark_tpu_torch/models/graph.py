@@ -9,11 +9,13 @@ layout), made by :func:`mmlspark_tpu_torch.models.bridge.init_variables`
 or :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
 
 The blocks are built on the ``meta`` device, so a graph owns no memory
-until it runs. :meth:`NamedGraph.bind` assigns a variables dict's tensors
-into the blocks (no copy) before a forward; binding is skipped when the
-same dict is already bound, so the decode loop pays one identity check
-per call. Variables are treated as immutable, like a JAX pytree: to
-change weights, pass a new dict.
+until it runs. In eval mode :meth:`NamedGraph.bind` assigns a variables
+dict's tensors into the blocks (no copy) before a forward; binding is
+skipped when the same dict is already bound, so the decode loop pays one
+identity check per call. Variables are treated as immutable, like a JAX
+pytree: to change weights, pass a new dict. Train mode runs each block
+on the dict's own tensors through ``torch.func.functional_call``, so
+gradients reach them.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
@@ -51,6 +55,15 @@ class NamedGraph:
         """Ordered node names."""
         return [n for n, _ in self.blocks]
 
+    def _block_variables(self, variables: dict, block_name: str) -> dict:
+        try:
+            return variables[block_name]
+        except KeyError as e:
+            raise FriendlyError(
+                f"variables lack block '{block_name}' of graph "
+                f"'{self.name}'; have {sorted(variables)}"
+            ) from e
+
     def bind(self, variables: dict) -> None:
         """Make the blocks' parameters the tensors of ``variables``
         (assigned, not copied); a no-op when ``variables`` is already
@@ -59,23 +72,49 @@ class NamedGraph:
             return
         self._bound = None  # a bind that fails half-way binds nothing
         for block_name, mod in self.blocks:
-            try:
-                v = variables[block_name]
-            except KeyError as e:
-                raise FriendlyError(
-                    f"variables lack block '{block_name}' of graph "
-                    f"'{self.name}'; have {sorted(variables)}"
-                ) from e
-            mod.load_state_dict(v, strict=True, assign=True)
+            mod.load_state_dict(self._block_variables(variables, block_name),
+                                strict=True, assign=True)
         self._bound = variables
 
-    def apply(self, variables: dict, x):
-        """Forward pass through every block."""
-        self.bind(variables)
-        with torch.no_grad():
-            for _, mod in self.blocks:
-                x = mod(x)
-        return x
+    def apply(self, variables: dict, x, train: bool = False, mask=None,
+              remat: bool = False):
+        """Forward pass through every block.
+
+        Eval mode (the default) returns the output, run under
+        ``no_grad`` on the bound variables. Train mode returns ``(out,
+        variables)``, as the JAX package's does (the port's blocks keep
+        no batch statistics, so the variables come back as they went
+        in), and runs each block on the dict's own tensors, so
+        ``backward()`` reaches them; ``remat`` recomputes each block's
+        activations in the backward (``torch.utils.checkpoint``) instead
+        of keeping them. ``mask`` ((B,) 0/1 real-row mask) goes to the
+        blocks whose ``forward`` accepts it.
+        """
+        if not train:
+            self.bind(variables)
+            with torch.no_grad():
+                for _, mod in self.blocks:
+                    x = mod(x, **_mask_kwarg(mod, mask))
+            return x
+        for block_name, mod in self.blocks:
+            params = self._block_variables(variables, block_name)
+            kwargs = _mask_kwarg(mod, mask)
+            if remat:
+                x = checkpoint(_call_block, mod, params, x, kwargs,
+                               use_reentrant=False)
+            else:
+                x = _call_block(mod, params, x, kwargs)
+        return x, variables
+
+
+def _call_block(mod, params: dict, x, kwargs: dict):
+    return functional_call(mod, params, (x,), kwargs, strict=True)
+
+
+def _mask_kwarg(mod, mask) -> dict:
+    if mask is not None and _accepts_kwarg(mod, "mask"):
+        return {"mask": mask}
+    return {}
 
 
 def _accepts_kwarg(mod, name: str) -> bool:

@@ -21,9 +21,14 @@ through the CUDA ``flash_decode`` kernel, and the rolled sliding-window
 cache; the serve pools' decode formats — the int8 slot cache
 ``(K, V, k_scale, v_scale)`` through ``flash_decode``'s int8 mode, and
 the paged cache ``(K, V, PT)`` / int8 ``(K, V, PT, k_scale, v_scale)``
-through ``paged_flash_decode``. The cache-free ``flash``/``ring``/
-``ulysses`` implementations raise ``ParamError`` naming the ROADMAP item
-that ports them.
+through ``paged_flash_decode``.
+
+Without a cache, ``attn_impl`` picks the attention: ``flash`` is the
+blockwise kernel with its gradient (:func:`~mmlspark_tpu_torch.ops.
+flash_attention.flash_attention`, the CUDA kernels on the card), ``dense``
+the plain oracle; ``auto`` is ``flash`` when PyTorch sees a GPU, as the
+JAX package picks its Pallas kernel on a TPU. ``ring``/``ulysses`` raise
+``ParamError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmlspark_tpu_torch.core.env import has_cuda
 from mmlspark_tpu_torch.core.exceptions import ParamError
 from mmlspark_tpu_torch.models.graph import FINAL_NODE, NamedGraph
 from mmlspark_tpu_torch.models.registry import register_model
@@ -44,6 +50,7 @@ from mmlspark_tpu_torch.ops.attention import (
     rolled_window_attention,
 )
 from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_decode,
     paged_flash_decode,
 )
@@ -59,18 +66,15 @@ ATTN_IMPLS = (DENSE, RING, ULYSSES, FLASH, AUTO)
 LN_EPS = 1e-6
 
 _NOT_PORTED = {
-    FLASH: "the forward flash kernel (ROADMAP.md Queue 1 item 10, "
-           "Queue 2 item 5)",
     RING: "context parallelism (ROADMAP.md Queue 1 item 13)",
     ULYSSES: "context parallelism (ROADMAP.md Queue 1 item 13)",
 }
 
 
 def resolve_attn_impl(attn_impl: str) -> str:
-    """``auto`` -> ``dense``: the JAX package picks its Pallas forward
-    kernel on a TPU, but that kernel is not ported yet, so the port
-    resolves to the dense path until it is. ``flash``/``ring``/
-    ``ulysses`` raise until their slices land."""
+    """``auto`` -> ``flash`` when PyTorch sees a GPU, else ``dense`` (the
+    JAX package's ``is_tpu()`` choice at build time); ``flash`` and
+    ``dense`` stay; ``ring``/``ulysses`` raise until their slice lands."""
     if attn_impl not in ATTN_IMPLS:
         raise ParamError(
             f"unknown attn_impl '{attn_impl}'; one of {ATTN_IMPLS}"
@@ -78,9 +82,11 @@ def resolve_attn_impl(attn_impl: str) -> str:
     if attn_impl in _NOT_PORTED:
         raise ParamError(
             f"attn_impl '{attn_impl}' is not ported yet: it needs "
-            f"{_NOT_PORTED[attn_impl]}; use 'dense' or 'auto'"
+            f"{_NOT_PORTED[attn_impl]}; use 'flash', 'dense' or 'auto'"
         )
-    return DENSE
+    if attn_impl == AUTO:
+        return FLASH if has_cuda() else DENSE
+    return attn_impl
 
 
 class Dense(nn.Module):
@@ -126,13 +132,15 @@ class TokenPosEmbed(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head (or grouped-query) self-attention. Without a cache it
-    is the dense path (``transformer_lm`` resolves ``attn_impl``)."""
+    runs ``attn_impl`` (``flash`` or ``dense``, resolved by
+    ``transformer_lm``)."""
 
     def __init__(self, d_model: int, heads: int, head_dim: int,
                  causal: bool, window: int | None = None,
                  kv_heads: int | None = None, rope: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, attn_impl: str = DENSE):
         super().__init__()
+        self.attn_impl = attn_impl
         self.heads = heads
         self.head_dim = head_dim
         self.kv_heads = kv_heads
@@ -175,6 +183,9 @@ class SelfAttention(nn.Module):
             else:
                 o = self._slot_decode(q, k, v, cache, pos, rolled, decode,
                                       live)
+        elif self.attn_impl == FLASH:
+            o = flash_attention(q, k, v, causal=self.causal,
+                                window=self.window)
         else:
             o = dense_attention(q, k, v, causal=self.causal,
                                 window=self.window)
@@ -334,13 +345,13 @@ class Block(nn.Module):
     def __init__(self, d_model: int, heads: int, head_dim: int, d_ff: int,
                  causal: bool, dtype=torch.bfloat16,
                  window: int | None = None, kv_heads: int | None = None,
-                 rope: bool = False):
+                 rope: bool = False, attn_impl: str = DENSE):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn = SelfAttention(
             d_model, heads, head_dim, causal, window=window,
-            kv_heads=kv_heads, rope=rope, dtype=dtype,
+            kv_heads=kv_heads, rope=rope, dtype=dtype, attn_impl=attn_impl,
         )
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mlp_in = Dense(d_model, d_ff)
@@ -444,7 +455,8 @@ def transformer_lm(
             blocks.append((
                 f"block{i}",
                 Block(d_model, heads, d_model // heads, d_ff, causal,
-                      window=window, kv_heads=kv_heads, rope=rope),
+                      window=window, kv_heads=kv_heads, rope=rope,
+                      attn_impl=attn_impl),
             ))
         blocks.append((FINAL_NODE, LMHead(d_model, vocab_size)))
     return NamedGraph(

@@ -2,9 +2,12 @@
 
 - :mod:`attention` — the dense oracle and the masking conventions
 - :mod:`rope` — rotary position embeddings
-- :mod:`flash_attention` — ``flash_decode`` and ``paged_flash_decode``,
-  the decode attention reads (float and int8 K/V), wrapping
-  ``csrc/flash_decode.cu`` and ``csrc/paged_flash_decode.cu``
+- :mod:`flash_attention` — ``flash_attention`` (the cache-free forward
+  and its gradient, wrapping ``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu``), and ``flash_decode`` and
+  ``paged_flash_decode``, the decode attention reads (float and int8
+  K/V), wrapping ``csrc/flash_decode.cu`` and
+  ``csrc/paged_flash_decode.cu``
 - :mod:`quantize` — KV-cache byte accounting for the int8 pools
 - :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use
 """

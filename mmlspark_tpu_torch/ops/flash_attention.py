@@ -1,7 +1,18 @@
-"""Length-aware single-token attention over slot caches and paged caches:
-``flash_decode`` and ``paged_flash_decode`` — the ports of
-``mmlspark_tpu/ops/flash_attention.py:flash_decode`` and
-``:paged_flash_decode``, each with its int8 mode.
+"""Attention kernels — the port of ``mmlspark_tpu/ops/flash_attention.py``:
+the cache-free ``flash_attention`` with its gradient, and the length-aware
+single-token reads ``flash_decode`` and ``paged_flash_decode``, each with
+its int8 mode.
+
+``flash_attention`` is blockwise causal / windowed grouped-query attention
+for the forward of training and scoring. It is a
+``torch.autograd.Function``: the forward keeps the row log-sum-exp (a
+compact (B·H, S) f32 tensor) when an input requires grad, and the
+backward recomputes P from it. On a CUDA tensor the forward launches
+``csrc/flash_attention_fwd.cu`` (replacing the Pallas ``_fwd_kernel``)
+and the backward ``csrc/flash_attention_bwd.cu`` (replacing
+``_bwd_kv_kernel`` and ``_bwd_q_kernel``); on a CPU tensor both run
+their plain versions, :func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference`.
 
 The serving hot path decodes ONE query token per slot per step. Both
 functions read only each row's live prefix ``[0, lengths[b])``, so per-row
@@ -28,18 +39,27 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from mmlspark_tpu_torch.ops.attention import _validate_and_expand_gqa
+from mmlspark_tpu_torch.ops.attention import (
+    KERNEL_NEG_INF,
+    _validate_and_expand_gqa,
+)
 
 #: launches of each CUDA kernel in this process — added to where its
 #: wrapper launches it and nowhere else; ``chip_smoke.py`` resets and
-#: reads them to show the decode path went through the kernels.
-#: ``launches``: float dense; ``q8_launches``: int8 dense;
-#: ``paged_launches``: float paged; ``paged_q8_launches``: int8 paged
+#: reads them to show a main path went through the kernels.
+#: ``launches``: float dense decode; ``q8_launches``: int8 dense;
+#: ``paged_launches``: float paged; ``paged_q8_launches``: int8 paged;
+#: ``fwd_launches``: the attention forward; ``bwd_kv_launches`` and
+#: ``bwd_q_launches``: its two backward kernels
 launches = 0
 q8_launches = 0
 paged_launches = 0
 paged_q8_launches = 0
+fwd_launches = 0
+bwd_kv_launches = 0
+bwd_q_launches = 0
 
 #: smallest page and the page unit: the paged pool's API contract
 #: (``serve/paging.py``), kept from the JAX package, where a page's
@@ -49,6 +69,194 @@ MIN_PAGE_SIZE = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_HEAD_DIM = 128
+#: the widest head the attention kernels take (their shared-memory tiles)
+MAX_ATTENTION_HEAD_DIM = 256
+
+
+# -- cache-free attention and its gradient -------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool = False, window=None,
+                    scale=None, block: int = 128):
+    """Blockwise fused attention, (B, S, H, D) layout, with exact
+    gradients through :func:`flash_attention_backward_reference`'s math.
+
+    Grouped-query attention: ``k``/``v`` may carry fewer heads (Hkv
+    dividing H); query head i attends kv head ``i // (H // Hkv)``, and
+    dK/dV come back per kv head. ``window=W`` (with ``causal=True``)
+    restricts each query to its W most recent keys. q, k and v share one
+    dtype; the output has it.
+
+    ``block`` is accepted for the JAX signature: the CUDA kernels use
+    their own tiles (64 positions, 32 for head dims over 128) and the
+    plain versions none, so results equal the JAX kernels' up to the
+    order of the sums (and, in bf16, where P is rounded against a
+    running max). When no input requires grad the forward skips the
+    log-sum-exp, as the JAX primal path does. There is no second
+    derivative (the JAX VJP has none either).
+    """
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(
+            "flash_attention requires q, k, v to share one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if k.shape[2] != v.shape[2] or q.shape[2] % k.shape[2]:
+        raise ValueError(
+            "flash_attention needs k/v heads equal and dividing q heads, "
+            f"got q={q.shape[2]} k={k.shape[2]} v={v.shape[2]}"
+        )
+    if window is not None:
+        if not causal:
+            raise ValueError(
+                "flash_attention window=W is the causal sliding window; "
+                "pass causal=True with it"
+            )
+        if int(window) < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        window = int(window)
+    # the JAX package's rule: a falsy scale means 1/sqrt(D)
+    scale = float(scale) if scale else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), window, scale)
+    out, _ = flash_attention_forward(q, k, v, causal=bool(causal),
+                                     window=window, scale=scale,
+                                     with_lse=False)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of the JAX package's ``_build``: the forward saves
+    (q, k, v, out, lse), the backward returns (dq, dk, dv) in the input
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dq, dk, dv = flash_attention_backward(*ctx.saved_tensors, g,
+                                              **ctx.attn)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_forward(q, k, v, *, causal: bool, window, scale: float,
+                            with_lse: bool = True):
+    """The forward of :func:`flash_attention` on validated arguments (the
+    JAX package's ``_flash_forward``): ``(out, lse)``, the LSE compact
+    (B·H, S) f32, or None without ``with_lse``. A CUDA tensor launches
+    the forward kernel; a CPU tensor runs
+    :func:`flash_attention_reference`."""
+    if q.device.type == "cpu":
+        out, lse = flash_attention_reference(q, k, v, causal=causal,
+                                             window=window, scale=scale)
+        return out, (lse if with_lse else None)
+    _require_cuda(q, "flash_attention")
+    return _launch_attention_fwd(q, k, v, causal, window, scale, with_lse)
+
+
+def flash_attention_backward(q, k, v, out, lse, g, *, causal: bool, window,
+                             scale: float):
+    """(dq, dk, dv) from the forward's residuals and the cotangent ``g``
+    (the JAX package's ``_flash_backward``). A CUDA tensor launches the
+    dK/dV and dQ kernels; a CPU tensor runs
+    :func:`flash_attention_backward_reference`."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, g, causal=causal, window=window, scale=scale)
+    _require_cuda(q, "flash_attention")
+    ops = _backward_operands(q, k, v, out, lse, g)
+    dk, dv = _launch_bwd_kv(ops, causal, window, scale)
+    return _launch_bwd_q(ops, causal, window, scale), dk, dv
+
+
+def _attention_live(s: int, causal: bool, window, device):
+    """(S, S) bool: which (query, key) pairs attend."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    live = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        live = live & (kpos <= qpos)
+    if window is not None:
+        live = live & (kpos > qpos - window)
+    return live
+
+
+def _row_delta(out, g):
+    """D = rowsum(dO ⊙ O) in f32, as the compact (B·H, S) rows the
+    kernels read."""
+    b, s, h, _ = out.shape
+    dd = (g.float() * out.float()).sum(dim=-1)  # (B, S, H)
+    return dd.transpose(1, 2).reshape(b * h, s).contiguous()
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = False, window=None,
+                              scale=None):
+    """Plain PyTorch attention forward with the Pallas kernel's math:
+    f32 scores times ``scale``, dead pairs dropped (P exactly 0), P
+    rounded to V's dtype before P·V, f32 sums, out in q's dtype. Returns
+    ``(out, lse)`` with the row log-sum-exp as compact (B·H, S) f32; a
+    row with no live key (``l == 0``) gives zeros and LSE
+    ``KERNEL_NEG_INF``."""
+    b, s, h, d = q.shape
+    if not scale:
+        scale = d ** -0.5
+    kx, vx = _validate_and_expand_gqa(q, k, v)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()) * scale
+    live = _attention_live(s, causal, window, q.device)
+    m = torch.where(live, sc, torch.full_like(sc, float("-inf")))
+    m = m.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.where(live, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(dim=-1)  # (B, H, S)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vx.float())
+    denom = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (pv / denom.transpose(1, 2)[..., None]).to(q.dtype)
+    lse = torch.where(l == 0.0, torch.full_like(l, KERNEL_NEG_INF),
+                      m[..., 0] + torch.log(denom))
+    return out, lse.reshape(b * h, s)
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, g, *,
+                                       causal: bool = False, window=None,
+                                       scale=None):
+    """Plain PyTorch gradient of :func:`flash_attention`, with the Pallas
+    backward's math: P recomputed from q, k and the compact (B·H, S)
+    ``lse`` (dead pairs exactly 0), ``dS = P ⊙ (dO·Vᵀ − D)`` with
+    ``D = rowsum(dO ⊙ O)``, P rounded to dO's dtype before dV and dS to
+    q's (k's) dtype before dK (dQ), f32 sums. Under GQA dK/dV are
+    computed per query head, rounded to the input dtype, and summed over
+    the group in f32, as the JAX wrapper does. Returns (dq, dk, dv) in the
+    input dtypes."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    if not scale:
+        scale = d ** -0.5
+    kx, vx = _validate_and_expand_gqa(q, k, v)
+    dd = _row_delta(out, g).reshape(b, h, s, 1)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()) * scale
+    live = _attention_live(s, causal, window, q.device)
+    p = torch.where(live, torch.exp(sc - lse.reshape(b, h, s, 1)),
+                    torch.zeros_like(sc))
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), vx.float())
+    ds = p * (dp - dd)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      kx.float()) * scale
+    dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+    if h != hk:
+        grp = h // hk
+        dk = dk.reshape(b, s, hk, grp, d).float().sum(dim=3).to(k.dtype)
+        dv = dv.reshape(b, s, hk, grp, d).float().sum(dim=3).to(v.dtype)
+    return dq.to(q.dtype), dk, dv
 
 
 def _validate_kv_scales(q, kv_dtype, hk: int, b: int, k_scale, v_scale,
@@ -480,6 +688,113 @@ def _launch_paged(q, k_pages, v_pages, lengths, page_table, scale: float,
     return out
 
 
+def _attention_operands(tensors, d: int):
+    """What the attention kernels take: float32 or bfloat16, a head dim
+    up to 256, one device, 64-bit-safe grids. A tensor whose last dim is
+    not contiguous is copied once (the kernels read the other dims
+    through their strides)."""
+    q = tensors[0]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"the attention kernels take float32 or bfloat16, got {q.dtype}"
+        )
+    if d > MAX_ATTENTION_HEAD_DIM:
+        raise ValueError(
+            f"the attention kernels take a head_dim up to "
+            f"{MAX_ATTENTION_HEAD_DIM} (their shared-memory tiles), got {d}"
+        )
+    b, s, h, _ = q.shape
+    if s < 1 or b * h > 65535:
+        raise ValueError(
+            f"the attention kernels take 1 <= S and B·H <= 65535, got "
+            f"{tuple(q.shape)}"
+        )
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"an operand is on {t.device}, q on {q.device}")
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
+
+
+def _strides(*tensors):
+    """The (batch, position, head) strides of each (B, S, heads, D)
+    tensor, in elements."""
+    return [st for t in tensors for st in t.stride()[:3]]
+
+
+def _launch_attention_fwd(q, k, v, causal, window, scale, with_lse):
+    global fwd_launches
+    from mmlspark_tpu_torch.ops.kernel_build import load
+
+    b, s, h, d = q.shape
+    q, k, v = _attention_operands((q, k, v), d)
+    lib = _bind(load("flash_attention_fwd"))
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.mml_flash_attention_fwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if with_lse else None,
+            b, s, h, k.shape[2], d, *_strides(q, k, v), scale, int(causal),
+            window or 0, stream,
+        )
+    _raise_on(rc, lib, "flash_attention forward")
+    fwd_launches += 1
+    return out, lse
+
+
+def _backward_operands(q, k, v, out, lse, g):
+    """What both backward kernels read: q, k, v and dO with contiguous
+    last dims, the LSE and D = rowsum(dO ⊙ O) as compact (B·H, S) f32."""
+    q, k, v, g = _attention_operands((q, k, v, g.to(q.dtype)), q.shape[3])
+    return q, k, v, g, lse.contiguous(), _row_delta(out, g)
+
+
+def _bwd_call(fn, ops, outs, causal, window, scale) -> int:
+    q, k, v, g, lse, delta = ops
+    b, s, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        return fn(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), b, s, h, k.shape[2], d,
+            *_strides(q, k, v, g), scale, int(causal), window or 0, stream,
+        )
+
+
+def _launch_bwd_kv(ops, causal, window, scale):
+    """dK and dV, (B, S, Hkv, D) in k's and v's dtype."""
+    global bwd_kv_launches
+    from mmlspark_tpu_torch.ops.kernel_build import load
+
+    k = ops[1]
+    lib = _bind(load("flash_attention_bwd"))
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=ops[2].dtype, device=k.device)
+    rc = _bwd_call(lib.mml_flash_attention_bwd_kv, ops, (dk, dv), causal,
+                   window, scale)
+    _raise_on(rc, lib, "flash_attention dK/dV")
+    bwd_kv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd_q(ops, causal, window, scale):
+    """dQ, (B, S, H, D) in q's dtype."""
+    global bwd_q_launches
+    from mmlspark_tpu_torch.ops.kernel_build import load
+
+    q = ops[0]
+    lib = _bind(load("flash_attention_bwd"))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _bwd_call(lib.mml_flash_attention_bwd_q, ops, (dq,), causal,
+                   window, scale)
+    _raise_on(rc, lib, "flash_attention dQ")
+    bwd_q_launches += 1
+    return dq
+
+
 def _raise_on(rc: int, lib, name: str) -> None:
     if rc:
         raise RuntimeError(
@@ -504,6 +819,18 @@ _SIGNATURES = {
     "mml_paged_flash_decode": (
         [_I32] * 2 + [_PTR] * 8 + [_I32] * 8 + [_I64] * 2
         + [ctypes.c_float, _PTR]
+    ),
+    "mml_flash_attention_fwd": (
+        [_I32] + [_PTR] * 5 + [_I32] * 5 + [_I64] * 9
+        + [ctypes.c_float, _I32, _I32, _PTR]
+    ),
+    "mml_flash_attention_bwd_kv": (
+        [_I32] + [_PTR] * 8 + [_I32] * 5 + [_I64] * 12
+        + [ctypes.c_float, _I32, _I32, _PTR]
+    ),
+    "mml_flash_attention_bwd_q": (
+        [_I32] + [_PTR] * 7 + [_I32] * 5 + [_I64] * 12
+        + [ctypes.c_float, _I32, _I32, _PTR]
     ),
 }
 

@@ -2,9 +2,9 @@
 latency, slot utilization, throughput — a trimmed port of
 ``mmlspark_tpu/serve/metrics.py``.
 
-It keeps the keys the demo prints, under the JAX package's names, and
-its own copy of the log-bucketed histogram of
-``mmlspark_tpu/core/telemetry.py`` for deterministic p50/p95/p99. The
+It keeps the keys the demo prints, under the JAX package's names, with
+the log-bucketed histogram of :mod:`mmlspark_tpu_torch.core.telemetry`
+for deterministic p50/p95/p99. The
 device analytics, SLO monitor and Prometheus exposition wait for a
 later slice (ROADMAP.md Queue 1 item 12).
 
@@ -16,54 +16,9 @@ meaningful from a run on the card.
 
 from __future__ import annotations
 
-import math
 import time
 
-
-class Histogram:
-    """Log-bucketed histogram with deterministic quantiles: bucket ``i``
-    covers ``(lo * growth**(i-1), lo * growth**i]`` for lo = 1e-3 and
-    growth = 1.1 up to 1e8; quantiles return the bucket's geometric
-    midpoint clamped into the exact ``[min, max]``, so the same samples
-    in any order give the same p50/p95/p99, within 10%."""
-
-    lo = 1e-3
-    growth = 1.1
-    _log_growth = math.log(growth)
-    n_buckets = 2 + math.ceil(math.log(1e8 / lo) / _log_growth)
-
-    def __init__(self):
-        self._counts = [0] * self.n_buckets
-        self.count = 0
-        self.min: float | None = None
-        self.max: float | None = None
-
-    def _bucket(self, value: float) -> int:
-        if value <= self.lo:
-            return 0
-        idx = 1 + int(math.ceil(math.log(value / self.lo) / self._log_growth
-                                - 1e-12))
-        return min(idx, self.n_buckets - 1)
-
-    def record(self, value: float) -> None:
-        value = float(value)
-        self._counts[self._bucket(value)] += 1
-        self.count += 1
-        self.min = value if self.min is None else min(self.min, value)
-        self.max = value if self.max is None else max(self.max, value)
-
-    def percentile(self, p: float) -> float | None:
-        """Deterministic quantile estimate; None while empty."""
-        if not self.count:
-            return None
-        rank = max(1, math.ceil(p / 100.0 * self.count))
-        seen = 0
-        for i, c in enumerate(self._counts):
-            seen += c
-            if seen >= rank:
-                est = self.lo if i == 0 else self.lo * self.growth ** (i - 0.5)
-                return min(max(est, self.min), self.max)
-        return self.max  # unreachable
+from mmlspark_tpu_torch.core.telemetry import Histogram
 
 
 def _mean(xs) -> float | None:

@@ -7,11 +7,13 @@ GPU machine does not have, so run this file there on its own:
     python -m pytest tests/test_torch_cuda.py --noconftest -m gpu -q
 
 Each kernel is held to its plain PyTorch version
-(``flash_decode_reference``, ``paged_flash_decode_reference``) on the
-same CUDA tensors. Tolerances: 1e-5 for a float32 query (both accumulate
-in f32; only the order of the sums differs) and 1e-2 for a bfloat16 one
-(both round the output to bf16: one ulp at |out| < 2 is 2^-7), int8 K/V
-included — both sides read the same int8 values and scales.
+(``flash_decode_reference``, ``paged_flash_decode_reference``,
+``flash_attention_reference``, ``flash_attention_backward_reference``)
+on the same CUDA tensors. Tolerances: 1e-5 for a float32 query (both
+accumulate in f32; only the order of the sums differs) and 1e-2 for a
+bfloat16 one (both round the output to bf16: one ulp at |out| < 2 is
+2^-7), int8 K/V included — both sides read the same int8 values and
+scales. The attention gradients' own tolerances are at their test.
 """
 
 from __future__ import annotations
@@ -242,3 +244,114 @@ def test_paged_kernel_fails_on_a_page_id_out_of_range(cuda):
                          cwd=Path(__file__).resolve().parent.parent,
                          capture_output=True, text=True, timeout=300)
     assert "FAILED" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+# -- the attention forward and its two backward kernels -------------------------
+
+
+def _attention_inputs(b, s, h, hk, d, dtype, seed):
+    """q/k/v strided slices of one fused projection, dO every other head
+    of a wider tensor (the layouts the model hands the kernels)."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, h + 2 * hk, d, generator=gen).to(dtype).cuda()
+    wide = torch.randn(b, s, 2 * h, d, generator=gen).to(dtype).cuda()
+    return (qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:],
+            wide[:, :, ::2])
+
+
+def _scaled_err(got, want):
+    """Max abs error over the plain value's max abs, or over 1 where that
+    is smaller (a gradient that is 0 in exact arithmetic, as dq and dk of
+    a single token, holds only rounding noise)."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,causal,window", [
+    (2, 200, 4, 4, 64, True, None),
+    (2, 130, 4, 2, 32, True, 48),
+    (1, 96, 4, 1, 128, False, None),
+    (1, 1, 2, 2, 64, True, None),
+    (1, 40, 2, 2, 256, True, None),
+    (2, 70, 4, 2, 24, True, 7),
+])
+def test_attention_kernels_match_reference(cuda, dtype, b, s, h, hk, d,
+                                           causal, window):
+    """Forward (out, LSE) and both backward kernels against the plain
+    versions on the same tensors; the backward kernels read the plain
+    forward's (out, lse). Gradients as max abs error over the plain
+    value's max abs: 1e-4 in f32, 1e-2 in bf16 (the kernel sums a GQA
+    group in f32, the plain version rounds each head first)."""
+    q, k, v, g = _attention_inputs(b, s, h, hk, d, dtype, seed=s + d)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    before = (fa.fwd_launches, fa.bwd_kv_launches, fa.bwd_q_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, **kw)
+    grads = fa.flash_attention_backward(q, k, v, want_out, want_lse, g, **kw)
+    want = fa.flash_attention_backward_reference(q, k, v, want_out,
+                                                 want_lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_kv_launches, fa.bwd_q_launches) == tuple(
+        n + 1 for n in before)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - want_out.float()).abs().max().item() <= TOL[dtype]
+    assert lse.shape == (b * h, s)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _scaled_err(got, ref) <= (1e-4 if dtype == torch.float32
+                                         else 1e-2)
+
+
+def test_attention_autograd_on_card_matches_cpu(cuda):
+    """flash_attention through autograd: the kernels on the card, the
+    plain versions on the CPU, float32."""
+    q, k, v, g = _attention_inputs(2, 90, 4, 2, 32, torch.float32, seed=9)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev, copy=True).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True, window=40)
+        out.backward(g.to(dev))
+        results[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        assert _scaled_err(got, want) <= 1e-4
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, _ = _attention_inputs(1, 8, 2, 2, 320, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention(q, k, v, causal=True)
+    q, k, v, _ = _attention_inputs(1, 8, 2, 2, 16, torch.float16, seed=1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, k, v, causal=True)
+
+
+def test_small_model_trains_on_card_like_cpu(cuda):
+    """Three SGD steps of a small float32 flash model through
+    SPMDTrainer, on the card and on the CPU: the same losses (1e-4)."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    graph = build_model("transformer_lm", vocab_size=64, d_model=64,
+                        heads=4, kv_heads=2, depth=2, max_len=48,
+                        attn_impl="flash", window=20)
+    for _, mod in graph.blocks:
+        for m in mod.modules():
+            if hasattr(m, "dtype"):
+                m.dtype = torch.float32
+    x = torch.randint(0, 64, (12, 48), generator=torch.Generator()
+                      .manual_seed(0)).numpy()
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        trainer = SPMDTrainer(graph, TrainConfig(
+            batch_size=4, optimizer="sgd", learning_rate=0.1, log_every=1),
+            device=dev)
+        trainer.train(x, x, init_variables=init_variables(graph, 1,
+                                                          device=dev))
+        losses[dev] = [h["loss"] for h in trainer.history]
+    assert len(losses["cuda"]) == 3
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4

@@ -343,7 +343,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.serve, mmlspark_tpu_torch.ops.kernel_build, "
         "mmlspark_tpu_torch.ops.flash_attention, "
         "mmlspark_tpu_torch.ops.quantize, mmlspark_tpu_torch.core.faults, "
-        "mmlspark_tpu_torch.serve.paging\n"
+        "mmlspark_tpu_torch.serve.paging, mmlspark_tpu_torch.train, "
+        "mmlspark_tpu_torch.data, mmlspark_tpu_torch.core.telemetry\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'mmlspark_tpu') or m.startswith(('jax.', 'flax.', "
