@@ -53,16 +53,21 @@ Phases (each one fails the run with a non-zero exit on error):
    seeded rows of 512 tokens that are arithmetic progressions mod the
    vocabulary (learnable), then a depth-2 GQA model with a 128 window
    and RoPE for 4 steps. Gates: every loss finite and the last below the
-   first; each attention kernel launched ``depth`` times a step; no
-   dense attention ran. Then one training step of the float32 model,
-   card vs CPU (the plain versions), on the same weights and batch: the
-   loss within 1e-4 relative, every parameter's gradient within 1e-3 of
-   that leaf's largest;
+   first; each attention kernel launched ``depth`` times a step, every
+   forward through the tensor-core kernel; no dense attention ran. Then
+   one training step of the float32 model, card vs CPU (the plain
+   versions), on the same weights and batch: the loss within 1e-4
+   relative, every parameter's gradient within 1e-3 of that leaf's
+   largest;
 5. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
-   memory than the 50 MB L2 so each launch reads cold), the kernel's
-   bound, the engines' throughput, the training runs' step time,
-   tokens/s and peak memory, and one steady decode block and one
+   memory than the 50 MB L2 so each launch reads cold): ``ms`` the
+   device's time (a spin kernel holds the stream while the host
+   enqueues the timed loop, so the calls run back to back), ``call_ms``
+   the host-paced time an eager caller pays; the forward's device time
+   also from ``torch.profiler``; the kernel's bound, the engines'
+   throughput, the training runs' step time, tokens/s and peak memory,
+   and one steady decode block and one
    training step under ``torch.profiler`` (device busy share and the
    kernels that take its time).
 
@@ -78,6 +83,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -103,8 +109,8 @@ PAGE_SIZE, HEADER_LEN = 16, 72
 BF16_LOGIT_TOL = 6.25e-2
 #: the launch counters of ops/flash_attention.py, one per kernel
 COUNTERS = ("launches", "q8_launches", "paged_launches",
-            "paged_q8_launches", "fwd_launches", "bwd_kv_launches",
-            "bwd_q_launches")
+            "paged_q8_launches", "fwd_launches", "fwd_mma_launches",
+            "bwd_kv_launches", "bwd_q_launches")
 #: where the main path runs; a CPU rehearsal of the script sets "cpu"
 DEVICE = "cuda"
 
@@ -834,6 +840,10 @@ def run_training(label: str, model: dict, steps: int, seed: int):
             counts["bwd_q_launches"] == want:
         raise AssertionError(f"training {label}: {counts}, wanted {want} "
                              "launches of each attention kernel")
+    # bf16 at head dim 64: every forward takes the tensor-core kernel
+    if counts["fwd_mma_launches"] != counts["fwd_launches"]:
+        raise AssertionError(f"training {label}: {counts}: a forward "
+                             "launch did not take the mma kernel")
     if dense_calls:
         raise AssertionError(f"training {label}: dense attention ran "
                              f"{len(dense_calls)} times")
@@ -977,14 +987,44 @@ def profile_decode_block(graph, variables) -> dict:
 # -- timing ----------------------------------------------------------------------
 
 
-def time_ms(fn, arg_sets, reps: int = 200) -> float:
-    """Median CUDA-event time of ``fn(*args)``, rotating over
-    ``arg_sets`` so consecutive launches read different memory."""
+class Timing(NamedTuple):
+    """``ms``: the device's time for one call (the queue held full, so
+    each pair of events brackets only the device's work); ``call_ms``:
+    the same pair recorded as the host issues each call (what an eager
+    caller pays a call: the wrapper's host time, or the device's where
+    that is longer); ``covered``: whether the device still had work
+    queued when the host finished issuing the device-timed loop."""
+
+    ms: float
+    call_ms: float
+    covered: bool
+
+
+_sleep_rate = []  # spin-kernel cycles per ms, measured once
+
+
+def sleep_cycles_per_ms() -> float:
+    """The rate at which ``torch.cuda._sleep`` spins, on this card."""
     import torch
 
-    for args in arg_sets[:3]:
-        fn(*args)
-    torch.cuda.synchronize()
+    if not _sleep_rate:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _sleep_rate.append(10 ** 7 / start.elapsed_time(end))
+    return _sleep_rate[0]
+
+
+def event_loop(fn, arg_sets, reps: int) -> list:
+    """``reps`` calls of ``fn``, rotating over ``arg_sets`` so consecutive
+    launches read different memory, each between its own pair of CUDA
+    events."""
+    import torch
+
     events = []
     for r in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -994,8 +1034,57 @@ def time_ms(fn, arg_sets, reps: int = 200) -> float:
         fn(*args)
         end.record()
         events.append((start, end))
+    return events
+
+
+def time_ms(fn, arg_sets, reps: int = 200) -> Timing:
+    """Median CUDA-event times of ``fn(*args)``: host-paced (``call_ms``:
+    the events are recorded as the host issues each call, so an interval
+    holds the wrapper's host time whenever the host is slower than the
+    device), then device-only (``ms``): a spin kernel, twice as long as
+    the host took to issue the whole loop, holds the stream while the
+    host enqueues the loop again, so the device runs the calls back to
+    back and each pair brackets only its work. Should the spin end
+    before the host is done, it is doubled and the loop rerun."""
+    import torch
+
+    for args in arg_sets[:3]:
+        fn(*args)
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    t0 = time.perf_counter()
+    events = event_loop(fn, arg_sets, reps)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    call_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    stream = torch.cuda.current_stream()
+    for attempt in range(3):
+        torch.cuda._sleep(int(2 ** (attempt + 1) * host_ms
+                              * sleep_cycles_per_ms()))
+        events = event_loop(fn, arg_sets, reps)
+        covered = not stream.query()  # the device still busy: never idle
+        torch.cuda.synchronize()
+        if covered:
+            break
+    ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    return Timing(ms, call_ms, covered)
+
+
+def profiler_ms(fn, arg_sets, name: str, reps: int = 50) -> float:
+    """Mean device time of the kernels whose name holds ``name`` over
+    ``reps`` calls, from ``torch.profiler``: a cross-check of the event
+    timer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in range(reps):
+            fn(*arg_sets[r % len(arg_sets)])
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key)
+    return total / 1e3 / reps
 
 
 #: the timed shape of every kernel: the slice's (B=8, L=512, H=Hkv=8,
@@ -1004,12 +1093,15 @@ def time_ms(fn, arg_sets, reps: int = 200) -> float:
 TIMED = dict(b=8, L=512, h=8, hk=8, d=64, live=256)
 
 
-def kernel_row(name, source, replaces, launches, max_abs_err, kernel_ms,
-               plain_ms, library_ms, n_bytes, n_flops, flops_per_s, shape,
+def kernel_row(name, source, replaces, launches, max_abs_err, kernel_t,
+               plain_t, library_t, n_bytes, n_flops, flops_per_s, shape,
                **notes):
-    """One row of the ``kernels`` line; the bound is the larger of the
-    bytes over the card's memory rate and the operations over its peak
-    rate for the kernel's arithmetic."""
+    """One row of the ``kernels`` line from the three ``Timing``s (the
+    library's None where no one call computes the function): ``ms``,
+    ``plain_ms`` and ``library_ms`` are device times, the ``*call_ms``
+    their host-paced twins. The bound is the larger of the bytes over
+    the card's memory rate and the operations over its peak rate for the
+    kernel's arithmetic."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_flops / flops_per_s * 1e3
     return {
@@ -1019,11 +1111,21 @@ def kernel_row(name, source, replaces, launches, max_abs_err, kernel_ms,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": kernel_t.ms,
+        "plain_ms": plain_t.ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_t.ms if library_t else None,
+        "call_ms": kernel_t.call_ms,
+        "plain_call_ms": plain_t.call_ms,
+        "library_call_ms": library_t.call_ms if library_t else None,
+        "ratio_to_library": (kernel_t.ms / library_t.ms if library_t
+                             else None),
+        # per timing: the device still had work queued when the host
+        # finished issuing the device-timed loop
+        "device_timer_covered": {
+            "kernel": kernel_t.covered, "plain": plain_t.covered,
+            "library": library_t.covered if library_t else None},
         **notes,
         "shape": shape,
         "bytes": n_bytes,
@@ -1031,16 +1133,22 @@ def kernel_row(name, source, replaces, launches, max_abs_err, kernel_ms,
     }
 
 
-def decode_row(name, source, replaces, launches, max_abs_err, kernel_ms,
-               plain_ms, library_ms, n_bytes, kv_dtype, library=None):
+def decode_row(name, source, replaces, launches, max_abs_err, kernel_t,
+               plain_t, library_t, n_bytes, kv_dtype, library=None,
+               **notes):
     """A decode kernel's row at the TIMED shape: q.k and p.v, 2 flops a
-    multiply-add, at the f32 rate (the kernels compute in f32)."""
+    multiply-add, at the f32 rate (the kernels compute in f32). The
+    kernel's time is its wrapper's two launches, split-KV partials and
+    their combine."""
     t = TIMED
     return kernel_row(
-        name, source, replaces, launches, max_abs_err, kernel_ms, plain_ms,
-        library_ms, n_bytes, 4 * t["b"] * t["live"] * t["h"] * t["d"],
+        name, source, replaces, launches, max_abs_err, kernel_t, plain_t,
+        library_t, n_bytes, 4 * t["b"] * t["live"] * t["h"] * t["d"],
         F32_FLOPS_PER_S, dict(t, dtype="bfloat16", kv_dtype=kv_dtype),
-        library=library)
+        library=library,
+        design="split-KV: one block per (chunk of 64 positions, kv head, "
+               "row), then a combine kernel (decode_attention.cuh)",
+        **notes)
 
 
 def io_bytes(kv_elem: int) -> int:
@@ -1079,13 +1187,22 @@ def measure_kernels(errors: dict, launches: dict) -> list:
                  k[:, :live].transpose(1, 2).contiguous(),
                  v[:, :live].transpose(1, 2).contiguous())
                 for q, k, v in sets]
+    def dense(q, k, v):
+        return flash_decode(q, k, v, lens)
+
+    kernel_t = time_ms(dense, sets)
+    # the event timer's device time against the profiler's: the kernels
+    # of one call (split-KV partials and their combine), summed
+    profiled = profiler_ms(dense, sets, "decode_")
+    log(f"flash_decode device time: events {kernel_t.ms:.5f} ms, profiler "
+        f"{profiled:.5f} ms a call (host-paced {kernel_t.call_ms:.5f})")
     rows.append(decode_row(
         "flash_decode", src + "flash_decode.cu", f"{jax_file}:586",
-        launches["launches"], errors["slice/bfloat16"],
-        time_ms(lambda q, k, v: flash_decode(q, k, v, lens), sets),
+        launches["launches"], errors["slice/bfloat16"], kernel_t,
         time_ms(lambda q, k, v: flash_decode_reference(q, k, v, lens), sets),
         time_ms(F.scaled_dot_product_attention, lib_sets),
-        io_bytes(2), "bfloat16", "scaled_dot_product_attention"))
+        io_bytes(2), "bfloat16", "scaled_dot_product_attention",
+        profiler_ms=profiled))
     del sets, lib_sets
 
     # int8 dense: no single PyTorch call attends over int8 K/V with scales
@@ -1229,18 +1346,28 @@ def measure_attention_kernels(errors: dict, launches: dict) -> list:
         plain="flash_attention_backward_reference: dq, dk and dv together",
         library="scaled_dot_product_attention's backward alone: both "
                 "backward kernels together")
+    def forward(st):
+        return fa.flash_attention_forward(st["q"], st["k"], st["v"], **kw)
+
+    fwd = timed(forward)
+    # the event timer's device time against the profiler's, same launches
+    fwd_profiled = profiler_ms(forward, [(st,) for st in sets], "flash_fwd")
+    log(f"forward device time: events {fwd.ms:.5f} ms, profiler "
+        f"{fwd_profiled:.5f} ms a launch (host-paced {fwd.call_ms:.5f})")
     rows = [
         kernel_row(
-            "flash_attention_fwd", src + "flash_attention_fwd.cu",
-            f"{jax_file}:123", launches["fwd_launches"], err["out"],
-            timed(lambda st: fa.flash_attention_forward(
-                st["q"], st["k"], st["v"], **kw)),
+            "flash_attention_fwd", src + "flash_attention_fwd_mma.cu",
+            f"{jax_file}:123", launches["fwd_mma_launches"], err["out"], fwd,
             timed(lambda st: fa.flash_attention_reference(
                 st["q"], st["k"], st["v"], **kw)),
             timed(lambda st: F.scaled_dot_product_attention(
                 *(x.detach() for x in st["lib"]), is_causal=True)),
             *work["flash_attention_fwd"], BF16_FLOPS_PER_S, shape,
-            library="scaled_dot_product_attention, causal"),
+            library="scaled_dot_product_attention, causal",
+            design="mma.sync m16n8k16 bf16 tensor cores, cp.async double "
+                   "buffer (the bf16 route; f32 and other head dims keep "
+                   "flash_attention_fwd.cu)",
+            profiler_ms=fwd_profiled),
         kernel_row(
             "flash_attention_bwd_kv", src + "flash_attention_bwd.cu",
             f"{jax_file}:285", launches["bwd_kv_launches"],

@@ -29,11 +29,12 @@
 // What bounds these kernels on the H100: at the training shape (S = 512,
 // D = 64, bf16) the bytes (each input once, each output once) take about
 // 5-8 us at 3.35 TB/s and the causal products about 2-5 us at the tensor
-// cores' 989 TFLOP/s. This first version is neither: its products are
-// scalar f32 FMAs fed from shared memory, with no overlap of loads and
-// compute. Left for later PRs: mma.sync/wgmma products in bf16, cp.async or
-// TMA double buffering, a persistent grid that balances the causal
-// triangle.
+// cores' 989 TFLOP/s. The kernels built on these helpers are neither: their
+// products are scalar f32 FMAs fed from shared memory, with no overlap of
+// loads and compute. The bf16 forward at head dims 64 and 128 has left
+// them for the tensor cores (flash_attention_fwd_mma.cu, which reuses only
+// the masking geometry here). Left for later PRs: the same mma.sync
+// tiles and cp.async double buffering for the two backward kernels.
 
 #pragma once
 

@@ -11,6 +11,11 @@
 // 128 KiB LSE, about 5 us at 3.35 TB/s, and do 4 * B * H * D * S (S + 1) / 2
 // = 2.2 GFLOP, about 2 us on the tensor cores: bytes bound it.
 //
+// Since the tensor-core forward (flash_attention_fwd_mma.cu) took the bf16
+// inputs at head dims 64 and 128, this kernel serves float32 (whose f32
+// products the card-vs-CPU f32 training check needs) and the other head
+// dims; ops/flash_attention._fwd_route picks before the launch.
+//
 // Design (the simple first version): one block per (query tile, b * h).
 // The query tile stays in shared memory; the block walks only the key
 // tiles it can meet (the causal diagonal and the window's far edge,

@@ -7,11 +7,14 @@ its int8 mode.
 for the forward of training and scoring. It is a
 ``torch.autograd.Function``: the forward keeps the row log-sum-exp (a
 compact (B·H, S) f32 tensor) when an input requires grad, and the
-backward recomputes P from it. On a CUDA tensor the forward launches
-``csrc/flash_attention_fwd.cu`` (replacing the Pallas ``_fwd_kernel``)
-and the backward ``csrc/flash_attention_bwd.cu`` (replacing
-``_bwd_kv_kernel`` and ``_bwd_q_kernel``); on a CPU tensor both run
-their plain versions, :func:`flash_attention_reference` and
+backward recomputes P from it. On a CUDA tensor the forward launches a
+kernel replacing the Pallas ``_fwd_kernel``: bf16 at head dims 64 and
+128 with 16-byte-aligned rows takes the tensor-core kernel
+``csrc/flash_attention_fwd_mma.cu``, any other input
+``csrc/flash_attention_fwd.cu`` (:func:`_fwd_route` picks before the
+launch); the backward launches ``csrc/flash_attention_bwd.cu``
+(replacing ``_bwd_kv_kernel`` and ``_bwd_q_kernel``). On a CPU tensor
+both run their plain versions, :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`.
 
 The serving hot path decodes ONE query token per slot per step. Both
@@ -27,7 +30,10 @@ On a CUDA tensor each launches a hand-written Hopper kernel built on
 first use by :mod:`kernel_build`: ``csrc/flash_decode.cu`` (replacing the
 Pallas ``_decode_kernel`` and ``_decode_kernel_q8``) and
 ``csrc/paged_flash_decode.cu`` (replacing ``_paged_decode_kernel`` and
-``_paged_decode_kernel_q8``); a refused launch raises. On a CPU tensor
+``_paged_decode_kernel_q8``): split-KV, one block per chunk of
+:data:`DECODE_CHUNK` positions of one (row, kv head), then a small
+kernel that combines a row's chunks in order (:func:`decode_plan`); a
+refused launch raises. On a CPU tensor
 each runs its plain PyTorch version (:func:`flash_decode_reference`,
 :func:`paged_flash_decode_reference`), which the tests hold to the JAX
 kernels and ``chip_smoke.py`` holds the CUDA kernels to. There is no
@@ -51,13 +57,15 @@ from mmlspark_tpu_torch.ops.attention import (
 #: reads them to show a main path went through the kernels.
 #: ``launches``: float dense decode; ``q8_launches``: int8 dense;
 #: ``paged_launches``: float paged; ``paged_q8_launches``: int8 paged;
-#: ``fwd_launches``: the attention forward; ``bwd_kv_launches`` and
-#: ``bwd_q_launches``: its two backward kernels
+#: ``fwd_launches``: the attention forward (either route), of which
+#: ``fwd_mma_launches`` took the tensor-core kernel; ``bwd_kv_launches``
+#: and ``bwd_q_launches``: its two backward kernels
 launches = 0
 q8_launches = 0
 paged_launches = 0
 paged_q8_launches = 0
 fwd_launches = 0
+fwd_mma_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
 
@@ -71,6 +79,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_HEAD_DIM = 128
 #: the widest head the attention kernels take (their shared-memory tiles)
 MAX_ATTENTION_HEAD_DIM = 256
+#: the head dims the tensor-core forward is built for
+MMA_HEAD_DIMS = (64, 128)
+#: positions one split-KV decode block reads: a multiple of every page
+#: size the engine uses (a page size that does not divide it gets chunks
+#: of whole pages); chunk boundaries depend on the position alone, so a
+#: row's result does not depend on its batch or cache length
+DECODE_CHUNK = 64
 
 
 # -- cache-free attention and its gradient -------------------------------------
@@ -358,7 +373,8 @@ def flash_decode(q, k, v, lengths, *, scale=None, k_scale=None,
         )
     if scale is None:
         scale = d ** -0.5
-    lengths = lengths.to(torch.int32).clamp(0, k.shape[1])
+    # the kernels and the plain version clamp each length to [0, L]
+    lengths = lengths.to(torch.int32)
     if q.device.type == "cpu":
         return flash_decode_reference(q, k, v, lengths, scale=scale,
                                       k_scale=k_scale, v_scale=v_scale)
@@ -436,7 +452,6 @@ def paged_flash_decode(q, k_pages, v_pages, lengths, page_table, *,
             f"page_table must be ({b}, max_pages) int32 — one row per "
             f"batch row — got {tuple(page_table.shape)}"
         )
-    L = page_table.shape[1] * ps
     lengths = torch.as_tensor(lengths, device=q.device)
     if tuple(lengths.shape) != (b,):
         raise ValueError(
@@ -445,7 +460,8 @@ def paged_flash_decode(q, k_pages, v_pages, lengths, page_table, *,
         )
     if scale is None:
         scale = d ** -0.5
-    lengths = lengths.to(torch.int32).clamp(0, L)
+    # the kernels and the plain version clamp each length to [0, L]
+    lengths = lengths.to(torch.int32)
     page_table = page_table.to(torch.int32)
     if q.device.type == "cpu":
         return paged_flash_decode_reference(
@@ -546,9 +562,10 @@ def _require_cuda(q, name: str) -> None:
 
 
 def _load_width(d: int, tensors, strides) -> int:
-    """int8 staging: the widest load of 16, 8, 4 or 2 bytes that divides
-    the row (D bytes), every row stride and every base address."""
-    for vec in (16, 8, 4, 2):
+    """int8: a lane's load, the widest of 8, 4 or 2 bytes that divides
+    the row (D bytes), every row stride and every base address (8, so
+    that a lane holds at most 8 elements of a row)."""
+    for vec in (8, 4, 2):
         if d % vec == 0 and all(t.data_ptr() % vec == 0 for t in tensors) \
                 and all(s % vec == 0 for s in strides):
             return vec
@@ -559,9 +576,9 @@ def _load_width(d: int, tensors, strides) -> int:
 
 
 def _check_operands(q, kv, lengths, extra=()) -> int:
-    """What the kernels take; returns the K/V staging load width in
-    bytes. q float32 or bfloat16, contiguous in its last dim; float K/V
-    with a head_dim that is a multiple of 8 up to 128 and every row start
+    """What the kernels take; returns a lane's K/V load width in bytes.
+    q float32 or bfloat16, contiguous in its last dim; float K/V with a
+    head_dim that is a multiple of 8 up to 128 and every row start
     16-byte aligned (16-byte loads); int8 K/V with an even head_dim up to
     128 (the load width follows D and the alignment)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -610,6 +627,24 @@ def _check_operands(q, kv, lengths, extra=()) -> int:
     return 16
 
 
+def decode_plan(cache_len: int, page_size=None) -> tuple[int, int]:
+    """``(chunk, splits)`` of the split-KV decode kernels: ``chunk``
+    positions a block — :data:`DECODE_CHUNK`, or for a paged cache the
+    whole pages that cover it — and ``splits = ceil(cache_len / chunk)``
+    blocks a (row, kv head), from the static cache length alone (the host
+    never reads the live lengths)."""
+    chunk = DECODE_CHUNK
+    if page_size is not None:
+        chunk = page_size * -(-DECODE_CHUNK // page_size)
+    return chunk, -(-cache_len // chunk)
+
+
+def decode_workspace_shape(b: int, h: int, splits: int, d: int) -> tuple:
+    """The f32 workspace of one decode call: every (row, query head,
+    split)'s partial — acc[D], then (m, l) — in one flat tensor."""
+    return (b * h * splits * (d + 2),)
+
+
 def _launch_dense(q, k, v, lengths, scale: float, k_scale, v_scale):
     global launches, q8_launches
     from mmlspark_tpu_torch.ops.kernel_build import load
@@ -622,7 +657,10 @@ def _launch_dense(q, k, v, lengths, scale: float, k_scale, v_scale):
     b, _, h, d = q.shape
     L, hk = k.shape[1], k.shape[2]
     lengths = lengths.contiguous()
+    chunk, splits = decode_plan(L)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(decode_workspace_shape(b, h, splits, d),
+                     dtype=torch.float32, device=q.device)
     strides = (q.stride(0), q.stride(2),
                k.stride(0), k.stride(1), k.stride(2),
                v.stride(0), v.stride(1), v.stride(2))
@@ -632,14 +670,15 @@ def _launch_dense(q, k, v, lengths, scale: float, k_scale, v_scale):
             rc = lib.mml_flash_decode_q8(
                 _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lengths.data_ptr(), scales[0].data_ptr(),
-                scales[1].data_ptr(), out.data_ptr(), b, h, hk, L, d, vec,
-                *strides, scale, stream,
+                scales[1].data_ptr(), out.data_ptr(), ws.data_ptr(), b, h,
+                hk, L, d, vec, chunk, splits, *strides, scale, stream,
             )
         else:
             rc = lib.mml_flash_decode(
                 _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                b, h, hk, L, d, *strides, scale, stream,
+                ws.data_ptr(), b, h, hk, L, d, chunk, splits, *strides,
+                scale, stream,
             )
     _raise_on(rc, lib, "flash_decode")
     if quantized:
@@ -668,7 +707,10 @@ def _launch_paged(q, k_pages, v_pages, lengths, page_table, scale: float,
     b, _, h, d = q.shape
     num_pages, hk, ps, _ = k_pages.shape
     lengths = lengths.contiguous()
+    chunk, splits = decode_plan(page_table.shape[1] * ps, ps)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(decode_workspace_shape(b, h, splits, d),
+                     dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mml_paged_flash_decode(
@@ -677,8 +719,9 @@ def _launch_paged(q, k_pages, v_pages, lengths, page_table, scale: float,
             lengths.data_ptr(), page_table.data_ptr(),
             scales[0].data_ptr() if quantized else None,
             scales[1].data_ptr() if quantized else None,
-            out.data_ptr(), b, h, hk, num_pages, ps, page_table.shape[1],
-            d, vec, q.stride(0), q.stride(2), scale, stream,
+            out.data_ptr(), ws.data_ptr(), b, h, hk, num_pages, ps,
+            page_table.shape[1], d, vec, chunk, splits, q.stride(0),
+            q.stride(2), scale, stream,
         )
     _raise_on(rc, lib, "paged_flash_decode")
     if quantized:
@@ -721,26 +764,48 @@ def _strides(*tensors):
     return [st for t in tensors for st in t.stride()[:3]]
 
 
+def _fwd_route(q, k, v) -> str:
+    """Which forward kernel takes these operands (last dims contiguous):
+    ``"mma"``, the tensor-core kernel, for bf16 at a head dim it is built
+    for with every row on a 16-byte boundary (its 16-byte ``cp.async``
+    loads); ``"simt"``, the f32-FMA kernel, for anything else — float32
+    (whose card-vs-CPU training check needs f32 products) and other head
+    dims. A choice by shape, made before the launch; nothing falls back."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in MMA_HEAD_DIMS:
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st in t.stride()[:3]):
+            return "simt"
+    return "mma"
+
+
 def _launch_attention_fwd(q, k, v, causal, window, scale, with_lse):
-    global fwd_launches
+    global fwd_launches, fwd_mma_launches
     from mmlspark_tpu_torch.ops.kernel_build import load
 
     b, s, h, d = q.shape
     q, k, v = _attention_operands((q, k, v), d)
-    lib = _bind(load("flash_attention_fwd"))
+    mma = _fwd_route(q, k, v) == "mma"
+    lib = _bind(load("flash_attention_fwd_mma" if mma
+                     else "flash_attention_fwd"))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, s, h, k.shape[2], d,
+            *_strides(q, k, v), scale, int(causal), window or 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mml_flash_attention_fwd(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if with_lse else None,
-            b, s, h, k.shape[2], d, *_strides(q, k, v), scale, int(causal),
-            window or 0, stream,
-        )
+        if mma:
+            rc = lib.mml_flash_attention_fwd_mma(*args, stream)
+        else:
+            rc = lib.mml_flash_attention_fwd(_DTYPE_CODES[q.dtype], *args,
+                                             stream)
     _raise_on(rc, lib, "flash_attention forward")
     fwd_launches += 1
+    if mma:
+        fwd_mma_launches += 1
     return out, lse
 
 
@@ -809,19 +874,23 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: strides as 64-bit
 _SIGNATURES = {
     "mml_flash_decode": (
-        [_I32] + [_PTR] * 5 + [_I32] * 5 + [_I64] * 8
+        [_I32] + [_PTR] * 6 + [_I32] * 7 + [_I64] * 8
         + [ctypes.c_float, _PTR]
     ),
     "mml_flash_decode_q8": (
-        [_I32] + [_PTR] * 7 + [_I32] * 6 + [_I64] * 8
+        [_I32] + [_PTR] * 8 + [_I32] * 8 + [_I64] * 8
         + [ctypes.c_float, _PTR]
     ),
     "mml_paged_flash_decode": (
-        [_I32] * 2 + [_PTR] * 8 + [_I32] * 8 + [_I64] * 2
+        [_I32] * 2 + [_PTR] * 9 + [_I32] * 10 + [_I64] * 2
         + [ctypes.c_float, _PTR]
     ),
     "mml_flash_attention_fwd": (
         [_I32] + [_PTR] * 5 + [_I32] * 5 + [_I64] * 9
+        + [ctypes.c_float, _I32, _I32, _PTR]
+    ),
+    "mml_flash_attention_fwd_mma": (
+        [_PTR] * 5 + [_I32] * 5 + [_I64] * 9
         + [ctypes.c_float, _I32, _I32, _PTR]
     ),
     "mml_flash_attention_bwd_kv": (

@@ -355,3 +355,123 @@ def test_small_model_trains_on_card_like_cpu(cuda):
     assert len(losses["cuda"]) == 3
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4
+
+
+# -- the redesigned kernels: routes, chunk edges, batch invariance -------------
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,causal,window", [
+    (8, 512, 8, 8, 64, True, None),
+    (2, 500, 8, 2, 64, True, 128),
+    (2, 384, 8, 1, 128, False, None),
+    (1, 1, 4, 4, 64, True, None),
+    (2, 64, 4, 4, 256, True, None),
+    (2, 96, 4, 2, 40, True, None),
+])
+def test_forward_routes_match_reference(cuda, b, s, h, hk, d, causal,
+                                        window):
+    """The bf16 forward at the smoke run's five shapes and a D = 40 one:
+    head dims 64 and 128 take the tensor-core kernel, 256 and 40 the
+    f32-FMA one, each within the bf16 tolerance of the plain version
+    (out) and 1e-5 (LSE, f32 on both sides)."""
+    q, k, v, _ = _attention_inputs(b, s, h, hk, d, torch.bfloat16,
+                                   seed=s + d + 1)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    want_route = "mma" if d in fa.MMA_HEAD_DIMS else "simt"
+    assert fa._fwd_route(q, k, v) == want_route
+    before = (fa.fwd_launches, fa.fwd_mma_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == before[0] + 1
+    assert fa.fwd_mma_launches == before[1] + (want_route == "mma")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - want_out.float()).abs().max().item() <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    # the inference-only forward writes the same output without an LSE
+    out2, none = fa.flash_attention_forward(q, k, v, with_lse=False, **kw)
+    assert none is None and torch.equal(out2, out)
+
+
+def _decode_case(mode, b, L, lengths, seed, ps=16, h=8, hk=2, d=64):
+    """(call, reference call, counter name) for one decode mode over
+    lengths, bf16 query."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 1, h, d, generator=gen).bfloat16().cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32).cuda()
+    if mode in ("dense", "dense_q8"):
+        if mode == "dense":
+            k, v = (torch.randn(b, L, hk, d, generator=gen).bfloat16().cuda()
+                    for _ in range(2))
+            kw = {}
+        else:
+            k, ks = _int8_kv((b, L, hk, d), (b, hk), gen)
+            v, vs = _int8_kv((b, L, hk, d), (b, hk), gen)
+            kw = dict(k_scale=ks, v_scale=vs)
+        return (lambda: fa.flash_decode(q, k, v, lens, **kw),
+                lambda: fa.flash_decode_reference(q, k, v, lens, **kw),
+                "launches" if mode == "dense" else "q8_launches")
+    max_pages = L // ps
+    num_pages = b * max_pages + 1
+    shape = (num_pages, hk, ps, d)
+    if mode == "paged":
+        kp, vp = (torch.randn(shape, generator=gen).bfloat16().cuda()
+                  for _ in range(2))
+        kw = {}
+    else:
+        kp, ks = _int8_kv(shape, (num_pages, hk), gen)
+        vp, vs = _int8_kv(shape, (num_pages, hk), gen)
+        kw = dict(k_scale=ks, v_scale=vs)
+    pt = _page_table(b, max_pages, num_pages, lengths, ps, gen)
+    return (lambda: fa.paged_flash_decode(q, kp, vp, lens, pt, **kw),
+            lambda: fa.paged_flash_decode_reference(q, kp, vp, lens, pt,
+                                                    **kw),
+            "paged_launches" if mode == "paged" else "paged_q8_launches")
+
+
+@pytest.mark.parametrize("mode", ["dense", "dense_q8", "paged", "paged_q8"])
+def test_decode_lengths_at_chunk_edges(cuda, mode):
+    """Live lengths on either side of a split-KV chunk boundary, 0 and
+    the whole cache, in all four decode modes (GQA, group 4)."""
+    c, L = fa.DECODE_CHUNK, 4 * fa.DECODE_CHUNK
+    lengths = [c - 1, c, c + 1, 0, L, 2 * c + 1]
+    call, ref, counter = _decode_case(mode, len(lengths), L, lengths,
+                                      seed=11)
+    before = getattr(fa, counter)
+    got = call()
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == before + 1
+    want = ref()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    assert not got[3].any()  # length 0: exact zeros
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_decode_is_batch_invariant(cuda, mode):
+    """One row decoded alone over a 256-position cache is bit-equal to
+    the same row inside a batch of 8 over a 512-position cache: chunk
+    boundaries follow the position, and every sum runs in a fixed
+    order."""
+    gen = torch.Generator().manual_seed(5)
+    b, h, hk, d, n = 8, 8, 2, 64, 200
+    q = torch.randn(b, 1, h, d, generator=gen).bfloat16().cuda()
+    lens = torch.tensor([n, 17, 512, 0, 64, 65, 300, 1], dtype=torch.int32,
+                        device="cuda")
+    if mode == "dense":
+        k, v = (torch.randn(b, 512, hk, d, generator=gen).bfloat16().cuda()
+                for _ in range(2))
+        batch = fa.flash_decode(q, k, v, lens)
+        alone = fa.flash_decode(q[:1], k[:1, :256].contiguous(),
+                                v[:1, :256].contiguous(), lens[:1])
+    else:
+        ps, max_pages = 16, 32
+        num_pages = b * max_pages + 1
+        kp, vp = (torch.randn(num_pages, hk, ps, d, generator=gen)
+                  .bfloat16().cuda() for _ in range(2))
+        pt = _page_table(b, max_pages, num_pages, lens.tolist(), ps, gen)
+        batch = fa.paged_flash_decode(q, kp, vp, lens, pt)
+        alone = fa.paged_flash_decode(q[:1], kp, vp, lens[:1],
+                                      pt[:1, :16].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[0])
