@@ -21,7 +21,10 @@ Phases (each one fails the run with a non-zero exit on error):
    (8, 512, 8, 8, 64) causal (the training shape), (2, 500, 8, 2, 64)
    causal with a 128 window (GQA, a padded tile), (2, 384, 8, 1, 128)
    non-causal (MQA), (1, 1, 4, 4, 64) and (2, 64, 4, 4, 256), q/k/v
-   strided slices of one fused tensor and dO a strided view;
+   strided slices of one fused tensor and dO a strided view; the route
+   each call took is read off the counters (bf16 at head dims 64 and 128:
+   the tensor-core forward and backward pair; f32 and D = 256: the
+   f32-FMA kernels);
 3. the engines, each a main path of its own, with every launch count
    set to 0 just before it and read just after:
    - dense bf16: ``transformer_lm(vocab_size=8192, d_model=512, heads=8,
@@ -54,22 +57,26 @@ Phases (each one fails the run with a non-zero exit on error):
    vocabulary (learnable), then a depth-2 GQA model with a 128 window
    and RoPE for 4 steps. Gates: every loss finite and the last below the
    first; each attention kernel launched ``depth`` times a step, every
-   forward through the tensor-core kernel; no dense attention ran. Then
-   one training step of the float32 model, card vs CPU (the plain
-   versions), on the same weights and batch: the loss within 1e-4
-   relative, every parameter's gradient within 1e-3 of that leaf's
-   largest;
+   forward and every backward through the tensor-core kernels; no dense
+   attention ran. Then one training step of the float32 model, card vs
+   CPU (the plain versions), on the same weights and batch, through the
+   f32-FMA kernels: the loss within 1e-4 relative, every parameter's
+   gradient within 1e-3 of that leaf's largest;
 5. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
    enqueues the timed loop, so the calls run back to back), ``call_ms``
-   the host-paced time an eager caller pays; the forward's device time
-   also from ``torch.profiler``; the kernel's bound, the engines'
-   throughput, the training runs' step time, tokens/s and peak memory,
-   and one steady decode block and one
+   the host-paced time an eager caller pays; the attention kernels'
+   device times also from ``torch.profiler``; the kernel's bound, the
+   engines' throughput, the training runs' step time, tokens/s and peak
+   memory, and one steady decode block and one
    training step under ``torch.profiler`` (device busy share and the
-   kernels that take its time).
+   kernels that take its time). The ``attention_backward`` line: the
+   whole ``flash_attention_backward`` call, its operands, the two kernels
+   alone and together, the f32-FMA pair on the same inputs, and SDPA's
+   backward, all device times in one call; and the pair at the GQA
+   training run's shape.
 
 The last line is ``{"ok": true, "device": {...}}``. float32 matrix
 products and convolutions run in full float32 here: TF32 is switched off
@@ -110,7 +117,13 @@ BF16_LOGIT_TOL = 6.25e-2
 #: the launch counters of ops/flash_attention.py, one per kernel
 COUNTERS = ("launches", "q8_launches", "paged_launches",
             "paged_q8_launches", "fwd_launches", "fwd_mma_launches",
-            "bwd_kv_launches", "bwd_q_launches")
+            "bwd_kv_launches", "bwd_q_launches", "bwd_kv_mma_launches",
+            "bwd_q_mma_launches")
+#: the attention counters a call adds to: every kernel once, and each
+#: ``*_mma_launches`` once more on the tensor-core route
+ATTN_COUNTERS = ("fwd_launches", "bwd_kv_launches", "bwd_q_launches")
+ATTN_MMA_COUNTERS = ("fwd_mma_launches", "bwd_kv_mma_launches",
+                     "bwd_q_mma_launches")
 #: where the main path runs; a CPU rehearsal of the script sets "cpu"
 DEVICE = "cuda"
 
@@ -325,7 +338,8 @@ def check_attention_kernels() -> dict:
     """The forward kernel (out, LSE) and both backward kernels (dq; dk,
     dv), each against its plain version on the same CUDA tensors; the
     backward kernels read the plain forward's (out, lse), so each is held
-    to its own plain version alone."""
+    to its own plain version alone. The counters show the route each
+    call took."""
     import torch
 
     from mmlspark_tpu_torch.ops import flash_attention as fa
@@ -337,6 +351,8 @@ def check_attention_kernels() -> dict:
             tol_out, tol_lse, tol_grad = ATTN_TOLERANCE[tag.split("/")[1]]
             q, k, v, g = attention_inputs(b, s, h, hk, d, dtype, seed=70 + i)
             kw = dict(causal=causal, window=window, scale=d ** -0.5)
+            before = {n: getattr(fa, n)
+                      for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
             out, lse = fa.flash_attention_forward(q, k, v, **kw)
             want_out, want_lse = fa.flash_attention_reference(q, k, v, **kw)
             grads = fa.flash_attention_backward(q, k, v, want_out, want_lse,
@@ -344,6 +360,13 @@ def check_attention_kernels() -> dict:
             want = fa.flash_attention_backward_reference(
                 q, k, v, want_out, want_lse, g, **kw)
             torch.cuda.synchronize()
+            mma = int(dtype == torch.bfloat16 and d in fa.MMA_HEAD_DIMS)
+            added = {n: getattr(fa, n) - before[n] for n in before}
+            if added != {**dict.fromkeys(ATTN_COUNTERS, 1),
+                         **dict.fromkeys(ATTN_MMA_COUNTERS, mma)}:
+                raise AssertionError(f"attention {tag}: launches {added}, "
+                                     f"wanted the {'mma' if mma else 'simt'}"
+                                     " route for every kernel")
             err = {"out": (out.float() - want_out.float()).abs().max().item(),
                    "lse": (lse - want_lse).abs().max().item()}
             for gname, got, ref in zip(("dq", "dk", "dv"), grads, want):
@@ -840,10 +863,11 @@ def run_training(label: str, model: dict, steps: int, seed: int):
             counts["bwd_q_launches"] == want:
         raise AssertionError(f"training {label}: {counts}, wanted {want} "
                              "launches of each attention kernel")
-    # bf16 at head dim 64: every forward takes the tensor-core kernel
-    if counts["fwd_mma_launches"] != counts["fwd_launches"]:
-        raise AssertionError(f"training {label}: {counts}: a forward "
-                             "launch did not take the mma kernel")
+    # bf16 at head dim 64: every attention launch takes the tensor cores
+    for name in ATTN_COUNTERS:
+        if counts[name.replace("_launches", "_mma_launches")] != want:
+            raise AssertionError(f"training {label}: {counts}: a {name} "
+                                 "launch did not take the mma kernel")
     if dense_calls:
         raise AssertionError(f"training {label}: dense attention ran "
                              f"{len(dense_calls)} times")
@@ -866,10 +890,13 @@ def check_train_step_vs_cpu(seed: int = 3) -> dict:
     from mmlspark_tpu_torch.models import init_variables
     from mmlspark_tpu_torch.train import masked_loss
 
+    import mmlspark_tpu_torch.ops.flash_attention as fa
+
     graph = f32_graph(attn_impl="flash")
     weights = init_variables(graph, seed, device="cpu")
     x, y = progression_rows(2, seed)
     results = {}
+    before = {n: getattr(fa, n) for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
     for dev in ("cpu", DEVICE):
         variables = {
             b: {k: t.detach().to(dev, copy=True).requires_grad_(True)
@@ -885,6 +912,12 @@ def check_train_step_vs_cpu(seed: int = 3) -> dict:
         results[dev] = (loss.item(), {
             f"{b}.{k}": t.grad.cpu() for b, leaves in variables.items()
             for k, t in leaves.items()})
+    added = {n: getattr(fa, n) - before[n] for n in before}
+    # float32: every attention kernel on the f32-FMA route, none on mma
+    depth = SERVE_MODEL["depth"]
+    if added != {**dict.fromkeys(ATTN_COUNTERS, depth),
+                 **dict.fromkeys(ATTN_MMA_COUNTERS, 0)}:
+        raise AssertionError(f"train step card vs CPU: launches {added}")
     (cpu_loss, cpu_grads), (loss, grads) = results["cpu"], results[DEVICE]
     loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
     grad_rel = {}
@@ -1301,11 +1334,55 @@ def attention_work(b, s, h, hk, d, causal, window, elem=2) -> dict:
     }
 
 
-def measure_attention_kernels(errors: dict, launches: dict) -> list:
+def backward_sets(b, s, h, hk, d, causal, window, seed, with_library):
+    """Enough bf16 input sets at this shape that the backward call reading
+    the fewest bytes rotates through more than the rotation floor: q, k,
+    v, dO, the forward's (out, lse) and the backward's operands; with
+    ``with_library``, SDPA on the same tensors in its (B, H, S, D) layout
+    with the forward kept, so that its backward can be timed alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    work = attention_work(b, s, h, hk, d, causal, window)
+    sets = []
+    for i in range(ROTATE_BYTES // min(n for n, _ in work.values()) + 1):
+        q, k, v, g = attention_inputs(b, s, h, hk, d, torch.bfloat16,
+                                      seed=seed + i)
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        st = dict(q=q, k=k, v=v, g=g, out=out, lse=lse,
+                  ops=fa._backward_operands(q, k, v, out, lse, g))
+        if with_library:
+            lib = [x.transpose(1, 2).detach().requires_grad_(True)
+                   for x in (q, k, v)]
+            st.update(lib=lib, lib_g=g.transpose(1, 2),
+                      lib_out=F.scaled_dot_product_attention(
+                          *lib, is_causal=causal))
+        sets.append(st)
+    return sets, kw, work
+
+
+def backward_kernels(kw, mma: bool):
+    """The two backward kernels of a route, each alone on a set's
+    operands."""
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    args = (kw["causal"], kw["window"], kw["scale"], mma)
+    return (lambda st: fa._launch_bwd_kv(st["ops"], *args),
+            lambda st: fa._launch_bwd_q(st["ops"], *args))
+
+
+def measure_attention_kernels(errors: dict, launches: dict):
     """The three attention kernels at the training shape: kernel, plain
-    version and the SDPA yardstick. The backward rows' plain version is
+    version and the SDPA yardstick, as ``kernels`` rows; and the
+    ``attention_backward`` summary. The backward rows' plain version is
     the whole plain backward (dq, dk and dv in one), and their library
-    call SDPA's backward alone, both backward kernels' work together."""
+    call SDPA's backward alone, both backward kernels' work together;
+    SDPA's backward computes D = rowsum(dO * out) itself, so the fair
+    comparison is the whole ``flash_attention_backward`` call, which the
+    summary times beside the two kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -1313,26 +1390,12 @@ def measure_attention_kernels(errors: dict, launches: dict) -> list:
 
     t = TIMED_ATTN
     b, s, h, hk, d = (t[k] for k in ("b", "s", "h", "hk", "d"))
-    kw = dict(causal=t["causal"], window=t["window"], scale=d ** -0.5)
-    work = attention_work(b, s, h, hk, d, t["causal"], t["window"])
-    # enough sets that the call reading the fewest bytes still rotates
-    # through more than the rotation floor
-    sets = []
-    for i in range(ROTATE_BYTES // min(n for n, _ in work.values()) + 1):
-        q, k, v, g = attention_inputs(b, s, h, hk, d, torch.bfloat16,
-                                      seed=200 + i)
-        out, lse = fa.flash_attention_forward(q, k, v, **kw)
-        ops = fa._backward_operands(q, k, v, out, lse, g)
-        # SDPA on the same tensors in its (B, H, S, D) layout, with the
-        # forward kept so that its backward can be timed alone
-        lib = [x.transpose(1, 2).detach().requires_grad_(True)
-               for x in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
-        sets.append(dict(q=q, k=k, v=v, g=g, out=out, lse=lse, ops=ops,
-                         lib=lib, lib_out=lib_out, lib_g=g.transpose(1, 2)))
+    sets, kw, work = backward_sets(b, s, h, hk, d, t["causal"], t["window"],
+                                   200, with_library=True)
+    arg_sets = [(st,) for st in sets]
 
     def timed(fn):
-        return time_ms(fn, [(st,) for st in sets])
+        return time_ms(fn, arg_sets)
 
     src = "mmlspark_tpu_torch/csrc/"
     jax_file = "mmlspark_tpu/ops/flash_attention.py"
@@ -1342,18 +1405,38 @@ def measure_attention_kernels(errors: dict, launches: dict) -> list:
         st["q"], st["k"], st["v"], st["out"], st["lse"], st["g"], **kw))
     lib_bwd = timed(lambda st: torch.autograd.grad(
         st["lib_out"], st["lib"], st["lib_g"], retain_graph=True))
+    kv, dq = backward_kernels(kw, mma=True)
+    kv_simt, dq_simt = backward_kernels(kw, mma=False)
+    kv_t, dq_t = timed(kv), timed(dq)
+    simt_t = {"bwd_kv": timed(kv_simt), "bwd_q": timed(dq_simt)}
+    profiled = {"bwd_kv": profiler_ms(kv, arg_sets, "flash_bwd_kv_mma"),
+                "bwd_q": profiler_ms(dq, arg_sets, "flash_bwd_q_mma")}
+    whole = timed(lambda st: fa.flash_attention_backward(
+        st["q"], st["k"], st["v"], st["out"], st["lse"], st["g"], **kw))
+    pair = timed(lambda st: (kv(st), dq(st)))
+    operands = timed(lambda st: fa._backward_operands(
+        st["q"], st["k"], st["v"], st["out"], st["lse"], st["g"]))
+    log(f"backward device times: dK/dV {kv_t.ms:.5f} ms (profiler "
+        f"{profiled['bwd_kv']:.5f}, simt {simt_t['bwd_kv'].ms:.5f}), dQ "
+        f"{dq_t.ms:.5f} (profiler {profiled['bwd_q']:.5f}, simt "
+        f"{simt_t['bwd_q'].ms:.5f}), whole call {whole.ms:.5f}, SDPA's "
+        f"backward {lib_bwd.ms:.5f}")
     bwd_notes = dict(
         plain="flash_attention_backward_reference: dq, dk and dv together",
         library="scaled_dot_product_attention's backward alone: both "
-                "backward kernels together")
+                "backward kernels together, and D = rowsum(dO * out)")
+
     def forward(st):
         return fa.flash_attention_forward(st["q"], st["k"], st["v"], **kw)
 
     fwd = timed(forward)
     # the event timer's device time against the profiler's, same launches
-    fwd_profiled = profiler_ms(forward, [(st,) for st in sets], "flash_fwd")
+    fwd_profiled = profiler_ms(forward, arg_sets, "flash_fwd")
     log(f"forward device time: events {fwd.ms:.5f} ms, profiler "
         f"{fwd_profiled:.5f} ms a launch (host-paced {fwd.call_ms:.5f})")
+    bwd_design = ("mma.sync m16n8k16 bf16 tensor cores, cp.async double "
+                  "buffer, P and dS fed back in registers (the bf16 route; "
+                  "f32 and other head dims keep flash_attention_bwd.cu)")
     rows = [
         kernel_row(
             "flash_attention_fwd", src + "flash_attention_fwd_mma.cu",
@@ -1369,22 +1452,69 @@ def measure_attention_kernels(errors: dict, launches: dict) -> list:
                    "flash_attention_fwd.cu)",
             profiler_ms=fwd_profiled),
         kernel_row(
-            "flash_attention_bwd_kv", src + "flash_attention_bwd.cu",
-            f"{jax_file}:285", launches["bwd_kv_launches"],
-            max(err["dk_abs"], err["dv_abs"]),
-            timed(lambda st: fa._launch_bwd_kv(st["ops"], kw["causal"],
-                                               kw["window"], kw["scale"])),
-            plain_bwd, lib_bwd, *work["flash_attention_bwd_kv"],
-            BF16_FLOPS_PER_S, shape, **bwd_notes),
+            "flash_attention_bwd_kv", src + "flash_attention_bwd_mma.cu",
+            f"{jax_file}:285", launches["bwd_kv_mma_launches"],
+            max(err["dk_abs"], err["dv_abs"]), kv_t, plain_bwd, lib_bwd,
+            *work["flash_attention_bwd_kv"], BF16_FLOPS_PER_S, shape,
+            design=bwd_design, profiler_ms=profiled["bwd_kv"],
+            simt_ms=simt_t["bwd_kv"].ms, **bwd_notes),
         kernel_row(
-            "flash_attention_bwd_q", src + "flash_attention_bwd.cu",
-            f"{jax_file}:330", launches["bwd_q_launches"], err["dq_abs"],
-            timed(lambda st: fa._launch_bwd_q(st["ops"], kw["causal"],
-                                              kw["window"], kw["scale"])),
-            plain_bwd, lib_bwd, *work["flash_attention_bwd_q"],
-            BF16_FLOPS_PER_S, shape, **bwd_notes),
+            "flash_attention_bwd_q", src + "flash_attention_bwd_mma.cu",
+            f"{jax_file}:330", launches["bwd_q_mma_launches"],
+            err["dq_abs"], dq_t, plain_bwd, lib_bwd,
+            *work["flash_attention_bwd_q"], BF16_FLOPS_PER_S, shape,
+            design=bwd_design, profiler_ms=profiled["bwd_q"],
+            simt_ms=simt_t["bwd_q"].ms, **bwd_notes),
     ]
-    return rows
+    del sets, arg_sets
+    timings = {"whole_call": whole, "operands_and_row_delta": operands,
+               "kernels_together": pair, "bwd_kv": kv_t, "bwd_q": dq_t,
+               "simt_bwd_kv": simt_t["bwd_kv"],
+               "simt_bwd_q": simt_t["bwd_q"], "sdpa_backward": lib_bwd}
+    summary = {
+        "shape": shape,
+        **{f"{name}_ms": tm.ms for name, tm in timings.items()},
+        **{f"{name}_profiler_ms": ms for name, ms in profiled.items()},
+        "whole_call_call_ms": whole.call_ms,
+        "whole_call_over_sdpa": whole.ms / lib_bwd.ms,
+        "kernels_over_sdpa": pair.ms / lib_bwd.ms,
+        "simt_over_mma": {
+            name: simt_t[name].ms / tm.ms
+            for name, tm in (("bwd_kv", kv_t), ("bwd_q", dq_t))},
+        "device_timer_covered": {name: tm.covered
+                                 for name, tm in timings.items()},
+        "gqa_window": measure_gqa_backward(),
+    }
+    return rows, summary
+
+
+#: the GQA training run's attention shape (SMALL_TRAIN_MODEL, batch 8):
+#: its dK/dV grid is 8 key tiles x 16 (row, kv head) = 128 blocks
+TIMED_GQA = dict(b=8, s=512, h=8, hk=2, d=64, causal=True, window=128)
+
+
+def measure_gqa_backward() -> dict:
+    """Both backward routes' kernels at the GQA run's shape, device
+    times (no one PyTorch call computes windowed GQA attention's
+    backward through a flash kernel, so no library time)."""
+    t = TIMED_GQA
+    sets, kw, work = backward_sets(*(t[k] for k in (
+        "b", "s", "h", "hk", "d", "causal", "window")), 300,
+        with_library=False)
+    arg_sets = [(st,) for st in sets]
+    out = {"shape": dict(t, dtype="bfloat16")}
+    for mma in (True, False):
+        for name, fn in zip(("bwd_kv", "bwd_q"), backward_kernels(kw, mma)):
+            tm = time_ms(fn, arg_sets)
+            route = "mma" if mma else "simt"
+            out[f"{route}_{name}_ms"] = tm.ms
+            out[f"{route}_{name}_covered"] = tm.covered
+    for name in ("bwd_kv", "bwd_q"):
+        n_bytes, n_flops = work[f"flash_attention_{name}"]
+        out[f"{name}_bound_ms"] = max(n_bytes / HBM_BYTES_PER_S,
+                                      n_flops / BF16_FLOPS_PER_S) * 1e3
+    log(f"GQA window backward: {out}")
+    return out
 
 
 ENGINE_KEYS = (
@@ -1452,8 +1582,9 @@ def main() -> int:
         "paged_q8_launches":
             header["header paged int8"]["counts"]["paged_q8_launches"],
     }
-    rows = measure_kernels(errors, launches) + measure_attention_kernels(
+    attn_rows, attn_backward = measure_attention_kernels(
         attn_errors, training["launch_counts"])
+    rows = measure_kernels(errors, launches) + attn_rows
     print(json.dumps({"kernel_errors": errors,
                       "attention_kernel_errors": attn_errors,
                       "model_f32_card_vs_cpu_max_abs_err": model_err,
@@ -1471,6 +1602,7 @@ def main() -> int:
                       "small_training": small_training}))
     print(json.dumps({"profile": profile_decode_block(graph, variables)}))
     print(json.dumps({"train_profile": profile_train_step(trained)}))
+    print(json.dumps({"attention_backward": attn_backward}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

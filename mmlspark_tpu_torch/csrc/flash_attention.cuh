@@ -1,6 +1,8 @@
 // flash_attention.cuh — what the cache-free attention kernels share
 // (flash_attention_fwd.cu: the forward; flash_attention_bwd.cu: dK/dV and
-// dQ): the masking geometry, tile staging and the two small products.
+// dQ): the masking geometry, tile staging and the two small products. The
+// tensor-core kernels (flash_attention_fwd_mma.cu,
+// flash_attention_bwd_mma.cu) share the geometry and the numerics.
 //
 // Layout. q, k, v and dO are (B, S, heads, D) tensors read through their
 // (batch, position, head) strides with the last dimension contiguous: q, k
@@ -31,10 +33,12 @@
 // 5-8 us at 3.35 TB/s and the causal products about 2-5 us at the tensor
 // cores' 989 TFLOP/s. The kernels built on these helpers are neither: their
 // products are scalar f32 FMAs fed from shared memory, with no overlap of
-// loads and compute. The bf16 forward at head dims 64 and 128 has left
-// them for the tensor cores (flash_attention_fwd_mma.cu, which reuses only
-// the masking geometry here). Left for later PRs: the same mma.sync
-// tiles and cp.async double buffering for the two backward kernels.
+// loads and compute. They serve float32 (whose card-vs-CPU checks need
+// f32 products) and the head dims the tensor-core kernels are not built
+// for; bf16 at head dims 64 and 128 takes the tensor-core forward
+// (flash_attention_fwd_mma.cu) and backward pair
+// (flash_attention_bwd_mma.cu), which reuse only the masking geometry
+// here.
 
 #pragma once
 

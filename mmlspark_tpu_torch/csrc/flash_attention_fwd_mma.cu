@@ -64,23 +64,6 @@ struct FwdArgs {
   int causal, window;  // window 0: none
 };
 
-// rows [row0, row0 + 64) of one head into a swizzled D-wide tile, 16 bytes
-// a cp.async; rows past S are zero-filled and read nothing
-template <int D>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      long long s_stride, int row0, int S) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < kBN * CPR; c += kThreadsMma) {
-    const int r = c / CPR;
-    const int col = (c - r * CPR) * 8;
-    const int pos = row0 + r;
-    const bool ok = pos < S;
-    mma::cp_async16(dst + mma::swz<D>(r, col),
-                    ok ? src + (long long)pos * s_stride + col : src,
-                    ok ? 16 : 0);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreadsMma)
     flash_fwd_mma_kernel(const FwdArgs a) {
@@ -113,9 +96,9 @@ __global__ void __launch_bounds__(kThreadsMma)
 
   int lo, hi;
   mfa::live_k_range(qi, causal, a.window, kBN, n_blk, &lo, &hi);
-  stage<D>(q_s, qp, a.q_ss, q0, a.S);
-  stage<D>(k_s, kp, a.k_ss, lo * kBN, a.S);
-  stage<D>(v_s, vp, a.v_ss, lo * kBN, a.S);
+  mma::stage_rows<D, kBN, kThreadsMma>(q_s, qp, a.q_ss, q0, a.S);
+  mma::stage_rows<D, kBN, kThreadsMma>(k_s, kp, a.k_ss, lo * kBN, a.S);
+  mma::stage_rows<D, kBN, kThreadsMma>(v_s, vp, a.v_ss, lo * kBN, a.S);
   mma::cp_async_commit();
 
   uint32_t qf[kQRegs ? NKS : 1][4];
@@ -133,8 +116,10 @@ __global__ void __launch_bounds__(kThreadsMma)
   for (int ki = lo; ki <= hi; ++ki) {
     const int buf = (ki - lo) & 1;
     if (ki < hi) {
-      stage<D>(k_s + (buf ^ 1) * kBN * D, kp, a.k_ss, (ki + 1) * kBN, a.S);
-      stage<D>(v_s + (buf ^ 1) * kBN * D, vp, a.v_ss, (ki + 1) * kBN, a.S);
+      mma::stage_rows<D, kBN, kThreadsMma>(k_s + (buf ^ 1) * kBN * D, kp,
+                                           a.k_ss, (ki + 1) * kBN, a.S);
+      mma::stage_rows<D, kBN, kThreadsMma>(v_s + (buf ^ 1) * kBN * D, vp,
+                                           a.v_ss, (ki + 1) * kBN, a.S);
       mma::cp_async_commit();
       mma::cp_async_wait<1>();
     } else {

@@ -1,7 +1,8 @@
 // mma_fragments.cuh — the Hopper building blocks of the tensor-core
-// attention forward (flash_attention_fwd_mma.cu): 16-byte cp.async staging,
-// ldmatrix loads of bf16 fragments from XOR-swizzled shared-memory tiles,
-// and the warp-level mma.sync.m16n8k16 product (bf16 in, f32 accumulate).
+// attention kernels (flash_attention_fwd_mma.cu, flash_attention_bwd_mma.cu):
+// cp.async staging, ldmatrix loads of bf16 fragments from XOR-swizzled
+// shared-memory tiles, and the warp-level mma.sync.m16n8k16 product (bf16
+// in, f32 accumulate).
 //
 // Fragment layout of mma.m16n8k16 for a lane with g = lane / 4 and
 // t = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k16"):
@@ -28,6 +29,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes, the same way (the 4-byte form goes through L1: .ca); for f32
+// rows whose starts need not sit on 16-byte boundaries
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
@@ -86,6 +96,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int W>
 __device__ __forceinline__ int swz(int row, int col) {
   return row * W + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+}
+
+// rows [row0, row0 + ROWS) of one head of a (B, S, heads, W) bf16 tensor
+// (src at the (b, head) base, s_stride elements between positions) into a
+// swizzled W-wide tile, by THREADS threads, one 16-byte cp.async each; rows
+// past S are zero-filled and read nothing
+template <int W, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long s_stride, int row0,
+                                           int S) {
+  constexpr int CPR = W / 8;  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR;
+    const int col = (c - r * CPR) * 8;
+    const int pos = row0 + r;
+    const bool ok = pos < S;
+    cp_async16(dst + swz<W>(r, col),
+               ok ? src + (long long)pos * s_stride + col : src, ok ? 16 : 0);
+  }
 }
 
 }  // namespace mma

@@ -12,9 +12,13 @@ kernel replacing the Pallas ``_fwd_kernel``: bf16 at head dims 64 and
 128 with 16-byte-aligned rows takes the tensor-core kernel
 ``csrc/flash_attention_fwd_mma.cu``, any other input
 ``csrc/flash_attention_fwd.cu`` (:func:`_fwd_route` picks before the
-launch); the backward launches ``csrc/flash_attention_bwd.cu``
-(replacing ``_bwd_kv_kernel`` and ``_bwd_q_kernel``). On a CPU tensor
-both run their plain versions, :func:`flash_attention_reference` and
+launch). The backward launches two kernels, dK/dV and dQ (replacing
+``_bwd_kv_kernel`` and ``_bwd_q_kernel``), on the same rule
+(:func:`_bwd_route`): the tensor-core pair
+``csrc/flash_attention_bwd_mma.cu`` for bf16 at head dims 64 and 128
+with 16-byte-aligned rows, ``csrc/flash_attention_bwd.cu`` for any other
+input. On a CPU tensor both run their plain versions,
+:func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`.
 
 The serving hot path decodes ONE query token per slot per step. Both
@@ -59,7 +63,9 @@ from mmlspark_tpu_torch.ops.attention import (
 #: ``paged_launches``: float paged; ``paged_q8_launches``: int8 paged;
 #: ``fwd_launches``: the attention forward (either route), of which
 #: ``fwd_mma_launches`` took the tensor-core kernel; ``bwd_kv_launches``
-#: and ``bwd_q_launches``: its two backward kernels
+#: and ``bwd_q_launches``: its two backward kernels (either route), of
+#: which ``bwd_kv_mma_launches`` and ``bwd_q_mma_launches`` took the
+#: tensor-core pair
 launches = 0
 q8_launches = 0
 paged_launches = 0
@@ -68,6 +74,8 @@ fwd_launches = 0
 fwd_mma_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
+bwd_kv_mma_launches = 0
+bwd_q_mma_launches = 0
 
 #: smallest page and the page unit: the paged pool's API contract
 #: (``serve/paging.py``), kept from the JAX package, where a page's
@@ -79,7 +87,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_HEAD_DIM = 128
 #: the widest head the attention kernels take (their shared-memory tiles)
 MAX_ATTENTION_HEAD_DIM = 256
-#: the head dims the tensor-core forward is built for
+#: the head dims the tensor-core forward and backward are built for
 MMA_HEAD_DIMS = (64, 128)
 #: positions one split-KV decode block reads: a multiple of every page
 #: size the engine uses (a page size that does not divide it gets chunks
@@ -180,15 +188,16 @@ def flash_attention_backward(q, k, v, out, lse, g, *, causal: bool, window,
                              scale: float):
     """(dq, dk, dv) from the forward's residuals and the cotangent ``g``
     (the JAX package's ``_flash_backward``). A CUDA tensor launches the
-    dK/dV and dQ kernels; a CPU tensor runs
-    :func:`flash_attention_backward_reference`."""
+    dK/dV and dQ kernels of the route :func:`_bwd_route` picks; a CPU
+    tensor runs :func:`flash_attention_backward_reference`."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(
             q, k, v, out, lse, g, causal=causal, window=window, scale=scale)
     _require_cuda(q, "flash_attention")
     ops = _backward_operands(q, k, v, out, lse, g)
-    dk, dv = _launch_bwd_kv(ops, causal, window, scale)
-    return _launch_bwd_q(ops, causal, window, scale), dk, dv
+    mma = _bwd_route(*ops[:4]) == "mma"
+    dk, dv = _launch_bwd_kv(ops, causal, window, scale, mma)
+    return _launch_bwd_q(ops, causal, window, scale, mma), dk, dv
 
 
 def _attention_live(s: int, causal: bool, window, device):
@@ -764,6 +773,13 @@ def _strides(*tensors):
     return [st for t in tensors for st in t.stride()[:3]]
 
 
+def _rows_16b(t) -> bool:
+    """Does every row of this (B, S, heads, D) tensor start on a 16-byte
+    boundary (its base and its batch, position and head strides)?"""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+
+
 def _fwd_route(q, k, v) -> str:
     """Which forward kernel takes these operands (last dims contiguous):
     ``"mma"``, the tensor-core kernel, for bf16 at a head dim it is built
@@ -773,11 +789,15 @@ def _fwd_route(q, k, v) -> str:
     dims. A choice by shape, made before the launch; nothing falls back."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in MMA_HEAD_DIMS:
         return "simt"
-    for t in (q, k, v):
-        if t.data_ptr() % 16 or any(
-                st * t.element_size() % 16 for st in t.stride()[:3]):
-            return "simt"
-    return "mma"
+    return "mma" if all(_rows_16b(t) for t in (q, k, v)) else "simt"
+
+
+def _bwd_route(q, k, v, g) -> str:
+    """Which backward pair takes these operands (``g`` is dO, in q's
+    dtype; last dims contiguous): the rule of :func:`_fwd_route`, with
+    dO's rows on 16-byte boundaries too (the pair stages its tiles as Q's
+    are staged)."""
+    return _fwd_route(q, k, v) if _rows_16b(g) else "simt"
 
 
 def _launch_attention_fwd(q, k, v, causal, window, scale, with_lse):
@@ -816,47 +836,52 @@ def _backward_operands(q, k, v, out, lse, g):
     return q, k, v, g, lse.contiguous(), _row_delta(out, g)
 
 
-def _bwd_call(fn, ops, outs, causal, window, scale) -> int:
-    q, k, v, g, lse, delta = ops
-    b, s, h, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        return fn(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outs), b, s, h, k.shape[2], d,
-            *_strides(q, k, v, g), scale, int(causal), window or 0, stream,
-        )
-
-
-def _launch_bwd_kv(ops, causal, window, scale):
-    """dK and dV, (B, S, Hkv, D) in k's and v's dtype."""
-    global bwd_kv_launches
+def _bwd_call(entry, label, mma, ops, outs, causal, window, scale):
+    """Launch the backward entry point ``entry`` (its ``_mma`` twin, which
+    takes no dtype code, on the tensor-core route); raises if refused."""
     from mmlspark_tpu_torch.ops.kernel_build import load
 
+    q, k, v, g, lse, delta = ops
+    b, s, h, d = q.shape
+    lib = _bind(load("flash_attention_bwd_mma" if mma
+                     else "flash_attention_bwd"))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b, s, h, k.shape[2], d, *_strides(q, k, v, g), scale,
+            int(causal), window or 0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if mma:
+            rc = getattr(lib, entry + "_mma")(*args, stream)
+        else:
+            rc = getattr(lib, entry)(_DTYPE_CODES[q.dtype], *args, stream)
+    _raise_on(rc, lib, label)
+
+
+def _launch_bwd_kv(ops, causal, window, scale, mma: bool):
+    """dK and dV, (B, S, Hkv, D) in k's and v's dtype."""
+    global bwd_kv_launches, bwd_kv_mma_launches
     k = ops[1]
-    lib = _bind(load("flash_attention_bwd"))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=ops[2].dtype, device=k.device)
-    rc = _bwd_call(lib.mml_flash_attention_bwd_kv, ops, (dk, dv), causal,
-                   window, scale)
-    _raise_on(rc, lib, "flash_attention dK/dV")
+    _bwd_call("mml_flash_attention_bwd_kv", "flash_attention dK/dV", mma,
+              ops, (dk, dv), causal, window, scale)
     bwd_kv_launches += 1
+    if mma:
+        bwd_kv_mma_launches += 1
     return dk, dv
 
 
-def _launch_bwd_q(ops, causal, window, scale):
+def _launch_bwd_q(ops, causal, window, scale, mma: bool):
     """dQ, (B, S, H, D) in q's dtype."""
-    global bwd_q_launches
-    from mmlspark_tpu_torch.ops.kernel_build import load
-
+    global bwd_q_launches, bwd_q_mma_launches
     q = ops[0]
-    lib = _bind(load("flash_attention_bwd"))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    rc = _bwd_call(lib.mml_flash_attention_bwd_q, ops, (dq,), causal,
-                   window, scale)
-    _raise_on(rc, lib, "flash_attention dQ")
+    _bwd_call("mml_flash_attention_bwd_q", "flash_attention dQ", mma, ops,
+              (dq,), causal, window, scale)
     bwd_q_launches += 1
+    if mma:
+        bwd_q_mma_launches += 1
     return dq
 
 
@@ -899,6 +924,14 @@ _SIGNATURES = {
     ),
     "mml_flash_attention_bwd_q": (
         [_I32] + [_PTR] * 7 + [_I32] * 5 + [_I64] * 12
+        + [ctypes.c_float, _I32, _I32, _PTR]
+    ),
+    "mml_flash_attention_bwd_kv_mma": (
+        [_PTR] * 8 + [_I32] * 5 + [_I64] * 12
+        + [ctypes.c_float, _I32, _I32, _PTR]
+    ),
+    "mml_flash_attention_bwd_q_mma": (
+        [_PTR] * 7 + [_I32] * 5 + [_I64] * 12
         + [ctypes.c_float, _I32, _I32, _PTR]
     ),
 }

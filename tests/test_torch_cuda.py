@@ -345,6 +345,8 @@ def test_small_model_trains_on_card_like_cpu(cuda):
     x = torch.randint(0, 64, (12, 48), generator=torch.Generator()
                       .manual_seed(0)).numpy()
     losses = {}
+    mma_before = (fa.fwd_mma_launches, fa.bwd_kv_mma_launches,
+                  fa.bwd_q_mma_launches)
     for dev in ("cpu", "cuda"):
         trainer = SPMDTrainer(graph, TrainConfig(
             batch_size=4, optimizer="sgd", learning_rate=0.1, log_every=1),
@@ -353,6 +355,9 @@ def test_small_model_trains_on_card_like_cpu(cuda):
                                                           device=dev))
         losses[dev] = [h["loss"] for h in trainer.history]
     assert len(losses["cuda"]) == 3
+    # float32 keeps the f32-FMA kernels, forward and backward
+    assert (fa.fwd_mma_launches, fa.bwd_kv_mma_launches,
+            fa.bwd_q_mma_launches) == mma_before
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4
 
@@ -391,6 +396,82 @@ def test_forward_routes_match_reference(cuda, b, s, h, hk, d, causal,
     # the inference-only forward writes the same output without an LSE
     out2, none = fa.flash_attention_forward(q, k, v, with_lse=False, **kw)
     assert none is None and torch.equal(out2, out)
+
+
+_BWD_COUNTERS = ("bwd_kv_launches", "bwd_q_launches", "bwd_kv_mma_launches",
+                 "bwd_q_mma_launches")
+
+
+def _backward_against_reference(q, k, v, g, kw, route):
+    """Both backward kernels on the plain forward's residuals against the
+    plain backward: the counters show the route, and each gradient is
+    within 1e-2 of the plain value's max (bf16: P and dS round at the
+    same places; the kernels sum a GQA group's dK/dV in f32, the plain
+    version rounds each head first)."""
+    out, lse = fa.flash_attention_reference(q, k, v, **kw)
+    before = [getattr(fa, name) for name in _BWD_COUNTERS]
+    grads = fa.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    mma = int(route == "mma")
+    assert [getattr(fa, name) for name in _BWD_COUNTERS] == [
+        before[0] + 1, before[1] + 1, before[2] + mma, before[3] + mma]
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _scaled_err(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,causal,window", [
+    (8, 512, 8, 8, 64, True, None),
+    (2, 500, 8, 2, 64, True, 128),
+    (2, 384, 8, 1, 128, False, None),
+    (1, 1, 4, 4, 64, True, None),
+    (2, 64, 4, 4, 256, True, None),
+    (2, 96, 4, 2, 40, True, None),
+    (1, 70, 4, 2, 128, True, 9),
+])
+def test_backward_routes_match_reference(cuda, b, s, h, hk, d, causal,
+                                         window):
+    """The bf16 backward at the smoke run's five shapes, a D = 40 one and
+    a D = 128 window narrower than a tile: head dims 64 and 128 take the
+    tensor-core pair, 256 and 40 the f32-FMA pair."""
+    q, k, v, g = _attention_inputs(b, s, h, hk, d, torch.bfloat16,
+                                   seed=s + d + 2)
+    route = "mma" if d in fa.MMA_HEAD_DIMS else "simt"
+    assert fa._bwd_route(q, k, v, g) == route
+    _backward_against_reference(
+        q, k, v, g, dict(causal=causal, window=window, scale=d ** -0.5),
+        route)
+
+
+def test_backward_misaligned_dO_takes_simt(cuda):
+    """dO whose positions are 136 bytes apart (a head of 64 inside rows of
+    68): the simt pair, as right as the mma pair would be."""
+    q, k, v, _ = _attention_inputs(2, 96, 4, 2, 64, torch.bfloat16, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(2, 96, 4, 68, generator=gen).bfloat16().cuda()[..., :64]
+    assert fa._bwd_route(q, k, v, g) == "simt"
+    _backward_against_reference(q, k, v, g, dict(causal=True, window=None,
+                                                 scale=0.125), "simt")
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,causal,window", [
+    (8, 512, 8, 8, 64, True, None),
+    (2, 500, 8, 2, 64, True, 128),
+    (2, 384, 8, 1, 128, False, None),
+])
+def test_backward_is_deterministic(cuda, b, s, h, hk, d, causal, window):
+    """Two backward calls on the same inputs give bit-equal dq, dk and dv:
+    no atomics, every sum in a fixed order."""
+    q, k, v, g = _attention_inputs(b, s, h, hk, d, torch.bfloat16, seed=6)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    assert fa._bwd_route(q, k, v, g) == "mma"
+    out, lse = fa.flash_attention_forward(q, k, v, **kw)
+    first = fa.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    second = fa.flash_attention_backward(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 def _decode_case(mode, b, L, lengths, seed, ps=16, h=8, hk=2, d=64):

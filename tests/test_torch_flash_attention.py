@@ -169,10 +169,12 @@ def test_validation_errors():
 
 def test_cpu_launches_no_kernel():
     q, k, v, g = _to_port(_inputs("causal_gqa_hkv2", "float32"), "float32")
-    counts = (fa.fwd_launches, fa.bwd_kv_launches, fa.bwd_q_launches)
+    names = ("fwd_launches", "fwd_mma_launches", "bwd_kv_launches",
+             "bwd_q_launches", "bwd_kv_mma_launches", "bwd_q_mma_launches")
+    counts = [getattr(fa, name) for name in names]
     q.requires_grad_(True)
     fa.flash_attention(q, k, v, causal=True).backward(g)
-    assert (fa.fwd_launches, fa.bwd_kv_launches, fa.bwd_q_launches) == counts
+    assert [getattr(fa, name) for name in names] == counts
 
 
 def test_auto_resolves_to_dense_without_a_gpu():

@@ -3,10 +3,12 @@
 
 - which forward kernel a call takes (``_fwd_route``): the tensor-core
   kernel for bf16 at head dims 64 and 128 with 16-byte-aligned rows, the
-  f32-FMA kernel for everything else;
+  f32-FMA kernel for everything else; and which backward pair
+  (``_bwd_route``), on the same rule with dO's rows aligned too;
 - the split-KV decode plan (``decode_plan``, ``decode_workspace_shape``):
   the chunk and split count follow the static cache length and the page
-  size alone, and a paged chunk is a whole number of pages.
+  size alone, and a paged chunk is a whole number of pages;
+- the ``ctypes`` signatures, against the C prototypes in ``csrc/``.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
 what surrounds them is plain Python and is held here.
@@ -14,10 +16,15 @@ what surrounds them is plain Python and is held here.
 
 from __future__ import annotations
 
+import ctypes
+import re
+
+import numpy as np
 import pytest
 import torch
 
 from mmlspark_tpu_torch.ops import flash_attention as fa
+from mmlspark_tpu_torch.ops import kernel_build
 
 
 def _qkv(d, dtype, b=2, s=8, h=4, hk=2):
@@ -53,6 +60,71 @@ def test_forward_route_needs_16_byte_rows():
     assert shifted.data_ptr() % 16
     assert fa._fwd_route(k, k, shifted) == "simt"
     assert fa._fwd_route(k, k, flat[8:].view(2, 8, 4, 64)) == "mma"
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A tensor of ``shape`` whose base sits one element past a 16-byte
+    boundary (its strides stay those of a contiguous tensor)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=dtype)
+    t = flat[1:1 + n].view(*shape)
+    assert t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.parametrize("d,want", [(24, "simt"), (40, "simt"),
+                                    (64, "mma"), (128, "mma"),
+                                    (256, "simt")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_route_by_dtype_and_head_dim(d, want, dtype):
+    q, k, v = _qkv(d, dtype)
+    g = torch.zeros(q.shape, dtype=dtype)
+    assert fa._bwd_route(q, k, v, g) == (
+        want if dtype == torch.bfloat16 else "simt")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "dO"])
+def test_backward_route_needs_every_row_aligned(which):
+    """One operand off a 16-byte boundary sends the pair to the simt
+    kernels, whichever it is; the same operands aligned take the mma."""
+    ops = dict(zip(("q", "k", "v"), _qkv(64, torch.bfloat16)))
+    ops["dO"] = torch.zeros(ops["q"].shape, dtype=torch.bfloat16)
+    assert fa._bwd_route(*ops.values()) == "mma"
+    ops[which] = _misaligned(tuple(ops[which].shape))
+    assert fa._bwd_route(*ops.values()) == "simt"
+
+
+def test_backward_route_misaligned_dO_view():
+    """dO as a view whose positions are 136 bytes apart (a head of 64
+    inside rows of 68), as a caller's slice may hand it: not a 16-byte
+    stride, so the simt pair, though q, k and v would take the mma."""
+    q, k, v = _qkv(64, torch.bfloat16)
+    g = torch.zeros(2, 8, 4, 68, dtype=torch.bfloat16)[..., :64]
+    assert g.stride(-1) == 1 and g.stride(2) * 2 % 16
+    assert fa._fwd_route(q, k, v) == "mma"
+    assert fa._bwd_route(q, k, v, g) == "simt"
+    # every other head of a wider tensor (the smoke run's dO) is aligned
+    wide = torch.zeros(2, 8, 8, 64, dtype=torch.bfloat16)
+    assert fa._bwd_route(q, k, v, wide[:, :, ::2]) == "mma"
+
+
+def test_bf16_cpu_backward_launches_no_kernel():
+    """A bf16 backward at head dim 64 (the mma route's shape) on CPU
+    tensors runs the plain version and launches nothing."""
+    q, k, v = (t.normal_() for t in _qkv(64, torch.bfloat16))
+    g = torch.randn(q.shape).bfloat16()
+    before = {name: getattr(fa, name) for name in (
+        "bwd_kv_launches", "bwd_q_launches", "bwd_kv_mma_launches",
+        "bwd_q_mma_launches")}
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True, window=None,
+                                          scale=0.125)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, g, causal=True,
+                                        window=None, scale=0.125)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, g,
+                                                 causal=True, scale=0.125)
+    for got, ref in zip(grads, want):
+        assert torch.equal(got, ref)
+    assert {name: getattr(fa, name) for name in before} == before
 
 
 def test_mma_head_dims_fit_the_route():
@@ -107,6 +179,50 @@ def test_int8_load_width_is_at_most_8_bytes():
     assert fa._load_width(6, (k, k), list(k.stride()[:3])) == 2
     k = torch.zeros(2, 16, 2, 12, dtype=torch.int8)
     assert fa._load_width(12, (k, k), list(k.stride()[:3])) == 4
+
+
+_C_TYPES = {"const void*": fa._PTR, "void*": fa._PTR, "int": fa._I32,
+            "long long": fa._I64, "float": ctypes.c_float}
+
+
+def _c_prototypes() -> dict:
+    """``{name: [ctypes type of each parameter]}`` of every
+    ``extern "C" int mml_*(...)`` entry point in ``csrc/*.cu``."""
+    protos = {}
+    for src in kernel_build.sources().values():
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (mml_\w+)\(([^)]*)\)', text):
+            types = []
+            for param in params.split(","):
+                ctype = " ".join(param.split()[:-1])
+                ctype += "*" * param.split()[-1].count("*")
+                types.append(_C_TYPES[ctype.replace(" *", "*")])
+            assert name not in protos, f"{name} defined twice"
+            protos[name] = types
+    return protos
+
+
+def test_signatures_match_the_c_prototypes():
+    """Every entry point a source exports has its ``ctypes`` signature,
+    parameter by parameter (a pointer declared as an int would be cut to
+    32 bits)."""
+    protos = _c_prototypes()
+    assert set(protos) == set(fa._SIGNATURES)
+    for name, types in protos.items():
+        assert fa._SIGNATURES[name] == types, name
+
+
+@pytest.mark.parametrize("name,pointers", [
+    ("mml_flash_attention_bwd_kv_mma", 9),  # q k v dO lse D dk dv stream
+    ("mml_flash_attention_bwd_q_mma", 8),   # q k v dO lse D dq stream
+])
+def test_backward_mma_signatures(name, pointers):
+    """The tensor-core pair takes the simt pair's arguments without the
+    leading dtype code (bf16 only)."""
+    sig = fa._SIGNATURES[name]
+    assert sig.count(fa._PTR) == pointers
+    assert sig == fa._SIGNATURES[name[:-len("_mma")]][1:]
 
 
 def test_decode_signatures_carry_the_workspace():
