@@ -50,7 +50,25 @@ Phases (each one fails the run with a non-zero exit on error):
    the same step on the CPU, in float32: over a dense cache (1e-3), a
    paged float32 cache (1e-3), and int8 dense and paged caches (1e-2),
    the caches built on the CPU and copied to the card;
-4. training, each run a main path with the counts set to 0 just before
+4. generation and weight-only int8, each a main path with the counts set
+   to 0 just before it and read just after, at full width: 8 seeded
+   prompts of 64 tokens (the ``generate`` line) — sampled decode at
+   temperature 0.8, top-k 50, top-p 0.9 for 128 tokens from a seeded
+   CUDA generator (the same seed repeats the stream; every drawn token
+   lies in the support recomputed in numpy from its step's logits), the
+   greedy recompute oracle ``kv_cache=False`` (the flash forward kernel)
+   against the cached path (tokens equal, or a row first differs at a
+   near tie under BF16_LOGIT_TOL; each cached step's logits within
+   BF16_LOGIT_TOL of a teacher-forced forward), and ``beam_search(beams=
+   4)`` for 32 tokens (beams=1 equals greedy, sorted scores, the best
+   score within 2 BF16_LOGIT_TOL a token of its teacher-forced log-prob
+   sum); then the random schedule through ``quantize_weights=True`` with
+   dense bf16 KV and with paged int8 KV (the ``quantized_weights`` line:
+   tokens/s, TTFT, the flip rate against the dense bf16 engine, weight
+   bytes against f32, the engine's peak memory, and the per-call
+   dequantization's device and host time). Each path fails the run if
+   its kernel was launched no time;
+5. training, each run a main path with the counts set to 0 just before
    it and read just after: the same model with ``attn_impl="flash"``
    under ``SPMDTrainer`` (adam, lr 1e-3, batch 8) for 8 steps over
    seeded rows of 512 tokens that are arithmetic progressions mod the
@@ -62,7 +80,7 @@ Phases (each one fails the run with a non-zero exit on error):
    CPU (the plain versions), on the same weights and batch, through the
    f32-FMA kernels: the loss within 1e-4 relative, every parameter's
    gradient within 1e-3 of that leaf's largest;
-5. numbers: each kernel's, its plain version's and (where one exists)
+6. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -172,6 +190,10 @@ TRAIN_MODEL = dict(SERVE_MODEL, attn_impl="flash")
 SMALL_TRAIN_MODEL = dict(SERVE_MODEL, depth=2, kv_heads=2, window=128,
                          pos_embedding="rope", attn_impl="flash")
 TRAIN_BATCH, TRAIN_STEPS, SMALL_TRAIN_STEPS = 8, 8, 4
+#: the generation phase: seeded prompts, the sampling filters, beams
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 128
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+BEAMS, BEAM_NEW = 4, 32
 
 
 def log(msg: str) -> None:
@@ -438,10 +460,6 @@ def drive(engine, prompts) -> dict:
     just after. Returns the results, the engine's metrics, the counts,
     the decode micro-steps and the ids of the requests that hit the
     prefix cache."""
-    import torch
-
-    import mmlspark_tpu_torch.ops.flash_attention as fa
-
     hits = set()
     by_prompt = {np.asarray(p, np.int32).tobytes(): i
                  for i, p in enumerate(prompts)}
@@ -457,9 +475,7 @@ def drive(engine, prompts) -> dict:
             return out
 
         engine._prefill = prefill
-    torch.cuda.synchronize()
-    for name in COUNTERS:
-        setattr(fa, name, 0)
+    zero_counts()
     submitted, results = 0, {}
     while submitted < len(prompts) or engine.busy:
         for _ in range(ARRIVALS_PER_TICK):
@@ -468,8 +484,7 @@ def drive(engine, prompts) -> dict:
                 submitted += 1
         for res in engine.step():
             results[res.id] = res
-    torch.cuda.synchronize()
-    counts = {name: getattr(fa, name) for name in COUNTERS}
+    counts = read_counts()
     micro_steps = sum(int(t) * n
                       for t, n in engine.metrics.decode_blocks.items())
     return dict(results=results, metrics=engine.metrics.to_dict(),
@@ -634,6 +649,303 @@ def check_header_engines(graph, variables) -> dict:
     log("flip rates against the dense bf16 streams: " + str({
         k: r["flip_rate_vs_dense_bf16"] for k, r in runs.items()}))
     return runs
+
+
+# -- generation and the weight-int8 engines --------------------------------------
+
+
+def zero_counts() -> None:
+    import torch
+
+    import mmlspark_tpu_torch.ops.flash_attention as fa
+
+    torch.cuda.synchronize()
+    for name in COUNTERS:
+        setattr(fa, name, 0)
+
+
+def read_counts() -> dict:
+    import torch
+
+    import mmlspark_tpu_torch.ops.flash_attention as fa
+
+    torch.cuda.synchronize()
+    return {name: getattr(fa, name) for name in COUNTERS}
+
+
+def timed_path(fn):
+    """One main path: the counts set to 0 just before ``fn()`` and read
+    just after; returns (its result, wall ms, the counts)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    counts = read_counts()
+    return out, (time.perf_counter() - t0) * 1e3, counts
+
+
+def numpy_support(logits: np.ndarray, temperature, top_k, top_p):
+    """The tokens JAX's ``generate`` may sample from ``logits`` (B, V):
+    its top-k and nucleus filter (``mmlspark_tpu/models/generate.py``
+    l.330-348) transcribed in numpy, independent of the port's code."""
+    x = logits.astype(np.float32) / np.float32(temperature)
+    kth = -np.sort(-x, axis=-1)[:, top_k - 1:top_k]
+    x = np.where(x < kth, -np.inf, x)
+    srt = -np.sort(-x, axis=-1)
+    z = np.exp(srt - srt[:, :1])
+    probs = z / z.sum(axis=-1, keepdims=True)
+    kept = np.cumsum(probs, axis=-1) - probs < top_p
+    thresh = np.min(np.where(kept, srt, np.inf), axis=-1, keepdims=True)
+    return x >= thresh
+
+
+def check_launches(label: str, counts: dict, counter: str, want: int):
+    if counts[counter] < want:
+        raise AssertionError(f"{label}: {counter} = {counts[counter]}, "
+                             f"wanted at least {want}: the path did not "
+                             "go through the kernel")
+
+
+def check_sampling(graph, variables, prompts) -> dict:
+    """Sampled generation twice from one seed: equal streams, and every
+    drawn token inside the support recomputed from its step's logits."""
+    import importlib
+
+    import torch
+
+    from mmlspark_tpu_torch.models import generate
+
+    gen_mod = importlib.import_module("mmlspark_tpu_torch.models.generate")
+    filter_logits = gen_mod.filter_logits
+    steps = []
+
+    def recorded(logits, *args):  # each step's logits, as sampled
+        steps.append(logits.float().cpu().numpy())
+        return filter_logits(logits, *args)
+
+    def run(seed):
+        return generate(graph, variables, prompts, GEN_NEW,
+                        rng=torch.Generator(device=DEVICE).manual_seed(seed),
+                        device=DEVICE, **SAMPLING)
+
+    gen_mod.filter_logits = recorded
+    try:
+        first, ms, counts = timed_path(lambda: run(0))
+        recorded_steps, steps[:] = list(steps), []
+        again = run(0)
+    finally:
+        gen_mod.filter_logits = filter_logits
+    depth = SERVE_MODEL["depth"]
+    check_launches("sampling", counts, "launches", depth * (GEN_NEW - 1))
+    if not torch.equal(first, again):
+        raise AssertionError("sampling: one seed gave two streams")
+    drawn = first[:, GEN_PROMPT:].cpu().numpy()
+    outside = 0
+    for t, logits in enumerate(recorded_steps):
+        support = numpy_support(logits, **SAMPLING)
+        outside += int((~support[np.arange(GEN_BATCH), drawn[:, t]]).sum())
+    kept = [int(numpy_support(lg, **SAMPLING).sum(axis=1).mean())
+            for lg in recorded_steps[::32]]
+    log(f"sampling: {GEN_BATCH} x {GEN_NEW} tokens in {ms:.1f} ms, counts "
+        f"{counts}, {outside} drawn outside the support, mean support "
+        f"{kept}")
+    if len(recorded_steps) != GEN_NEW or outside:
+        raise AssertionError(f"sampling: {len(recorded_steps)} steps, "
+                             f"{outside} tokens outside the support")
+    return {"wall_ms": ms, "launch_counts": counts, "equal_streams": True,
+            "tokens_outside_support": outside,
+            "mean_support_every_32_steps": kept, **SAMPLING}
+
+
+def check_recompute(graph, variables, prompts) -> dict:
+    """Greedy ``kv_cache=False`` (the flash forward over the whole
+    buffer) against the cached path (the decode kernel): tokens equal,
+    or a row's first difference at a near tie of the recompute logits;
+    and each cached step's logits against a teacher-forced forward over
+    the cached tokens, within BF16_LOGIT_TOL."""
+    import importlib
+
+    import torch
+
+    from mmlspark_tpu_torch.models import generate
+
+    gen_mod = importlib.import_module("mmlspark_tpu_torch.models.generate")
+    greedy_next = gen_mod.greedy_next
+    steps = []
+
+    def recorded(logits):
+        steps.append(logits.float())
+        return greedy_next(logits)
+
+    gen_mod.greedy_next = recorded
+    try:
+        cached, cached_ms, cached_counts = timed_path(lambda: generate(
+            graph, variables, prompts, GEN_NEW, device=DEVICE))
+    finally:
+        gen_mod.greedy_next = greedy_next
+    recompute, ms, counts = timed_path(lambda: generate(
+        graph, variables, prompts, GEN_NEW, kv_cache=False, device=DEVICE))
+    depth = SERVE_MODEL["depth"]
+    check_launches("cached greedy", cached_counts, "launches",
+                   depth * (GEN_NEW - 1))
+    check_launches("recompute", counts, "fwd_mma_launches", depth * GEN_NEW)
+    # the recompute path's logits of the cached tokens, every position
+    forced = graph.apply(variables, cached)[:, GEN_PROMPT - 1:-1].float()
+    step_logits = torch.stack(steps, dim=1)  # (B, N, V)
+    logit_err = (step_logits - forced).abs().max().item()
+    near_ties, diverged = 0, []
+    got, want = recompute.cpu().numpy(), cached.cpu().numpy()
+    for row in range(GEN_BATCH):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if not diff.size:
+            continue
+        i = int(diff[0])
+        top2 = forced[row, i - GEN_PROMPT].sort().values[-2:]
+        margin = float(top2[1] - top2[0])
+        diverged.append({"row": row, "token": i, "margin": margin})
+        if i < GEN_PROMPT or not margin < BF16_LOGIT_TOL:
+            raise AssertionError(f"recompute: row {row} differs from the "
+                                 f"cached path at token {i}, top-2 margin "
+                                 f"{margin}")
+        near_ties += 1
+    log(f"recompute: {ms:.1f} ms (cached {cached_ms:.1f} ms), counts "
+        f"{counts}, near ties {near_ties} {diverged}, cached step logits vs "
+        f"teacher-forced: max abs err {logit_err:.4g} (tolerance "
+        f"{BF16_LOGIT_TOL})")
+    if not logit_err <= BF16_LOGIT_TOL:
+        raise AssertionError(f"recompute: step logits differ by {logit_err}")
+    return {"wall_ms": ms, "launch_counts": counts,
+            "cached_wall_ms": cached_ms, "cached_launch_counts": cached_counts,
+            "near_ties": near_ties, "diverged": diverged,
+            "step_logits_max_abs_err": logit_err,
+            "tolerance": BF16_LOGIT_TOL}, cached
+
+
+def check_beam(graph, variables, prompts) -> dict:
+    """``beam_search(beams=4)``: beams=1 equals greedy ``generate``, the
+    ``return_all`` scores are sorted, and the best beam's score equals
+    the sum of its tokens' log-probs under a teacher-forced forward,
+    within 2 BF16_LOGIT_TOL a token (the chosen logit and a step's
+    log-sum-exp)."""
+    import torch
+
+    from mmlspark_tpu_torch.models import beam_search, generate
+
+    (seqs, scores), ms, counts = timed_path(lambda: beam_search(
+        graph, variables, prompts, BEAM_NEW, beams=BEAMS, return_all=True,
+        device=DEVICE))
+    check_launches("beam search", counts, "launches",
+                   SERVE_MODEL["depth"] * (BEAM_NEW - 1))
+    one = beam_search(graph, variables, prompts, BEAM_NEW, beams=1,
+                      device=DEVICE)
+    greedy = generate(graph, variables, prompts, BEAM_NEW, device=DEVICE)
+    if not torch.equal(one, greedy):
+        raise AssertionError("beam search: beams=1 differs from greedy")
+    if not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        raise AssertionError(f"beam search: scores not sorted: {scores}")
+    best = seqs[:, 0]
+    lp = torch.log_softmax(graph.apply(variables, best).float(), dim=-1)
+    tok = best[:, GEN_PROMPT:].long()
+    forced = lp[:, GEN_PROMPT - 1:-1].gather(-1, tok[..., None]).sum(
+        dim=(1, 2))
+    err = (forced - scores[:, 0]).abs().max().item()
+    tol = BEAM_NEW * 2 * BF16_LOGIT_TOL
+    log(f"beam search: {GEN_BATCH} x {BEAMS} beams x {BEAM_NEW} tokens in "
+        f"{ms:.1f} ms, counts {counts}, best scores "
+        f"{scores[:, 0].tolist()}, teacher-forced max abs err {err:.4g} "
+        f"(tolerance {tol})")
+    if not err <= tol:
+        raise AssertionError(f"beam search: best score differs from the "
+                             f"teacher-forced sum by {err}")
+    return {"wall_ms": ms, "launch_counts": counts, "beams": BEAMS,
+            "best_scores": scores[:, 0].tolist(),
+            "best_score_vs_teacher_forced_max_abs_err": err,
+            "tolerance": tol, "beams_1_equals_greedy": True}
+
+
+def check_generate(graph, variables) -> dict:
+    """The generation paths at full width on GEN_BATCH seeded prompts of
+    GEN_PROMPT tokens: sampling, the recompute oracle and beam search,
+    each a main path of its own."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(
+        0, SERVE_MODEL["vocab_size"], size=(GEN_BATCH, GEN_PROMPT)).astype(
+        np.int32)).to(DEVICE)
+    recompute, _ = check_recompute(graph, variables, prompts)
+    return {"sampling": check_sampling(graph, variables, prompts),
+            "recompute": recompute,
+            "beam_search": check_beam(graph, variables, prompts),
+            "batch": GEN_BATCH, "prompt_len": GEN_PROMPT,
+            "new_tokens": GEN_NEW, "beam_new_tokens": BEAM_NEW}
+
+
+def check_quantized_engines(graph, variables, dense: dict) -> dict:
+    """The random schedule through ``quantize_weights=True`` with dense
+    bf16 KV and with paged int8 KV: every request completes through the
+    decode kernels, the flip rate against the bf16 engine's streams, the
+    device-resident weight bytes against f32, the engine's peak device
+    memory over what was allocated before it, and no bf16 weight left
+    bound after a call. Then the per-call dequantization alone."""
+    import torch
+
+    from mmlspark_tpu_torch.ops.quantize import (
+        dequantize_weights,
+        quantized_bytes,
+    )
+
+    prompts = random_schedule()
+    paged = dict(paged=True, page_size=PAGE_SIZE,
+                 num_pages=paged_num_pages(), kv_dtype="int8")
+    runs = {}
+    for label, kw, counter in (
+        ("weight-int8 dense bf16 KV", {}, "launches"),
+        ("weight-int8 paged int8 KV", paged, "paged_q8_launches"),
+    ):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine = make_engine(graph, variables, quantize_weights=True, **kw)
+        run = drive(engine, prompts)
+        peak = torch.cuda.max_memory_allocated()
+        check_run(label, run, counter)
+        stored, f32 = quantized_bytes(engine.variables)
+        if not stored <= 0.3 * f32:
+            raise AssertionError(f"{label}: weights {stored} bytes of "
+                                 f"{f32} as f32")
+        if graph._bound is not None:
+            raise AssertionError(f"{label}: the graph kept bf16 weights")
+        run.update(flip_rate_vs_dense_bf16=flip_rate(dense["results"],
+                                                     run["results"]),
+                   weight_bytes=stored, weight_bytes_f32=f32,
+                   peak_memory_bytes=peak - base)
+        log(f"{label}: {run['metrics']['tokens_per_sec']:.1f} tokens/s, "
+            f"flip rate {run['flip_rate_vs_dense_bf16']:.3f}, weights "
+            f"{stored} of {f32} bytes as f32, peak {peak - base} bytes "
+            "over the baseline")
+        runs[label] = run
+        qvars = engine.variables
+        del engine
+    deq = time_ms(lambda v: dequantize_weights(v), [(qvars,)], reps=50)
+    # every kernel of a call, from the profiler: the event timer's spin
+    # may not outlast a host loop of ~100 launches a call
+    deq_profiled = profiler_ms(lambda v: dequantize_weights(v), [(qvars,)],
+                               "", reps=20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        graph.bind(dequantize_weights(qvars))
+        graph.unbind()
+    bind_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    n_leaves = sum(1 for b in qvars.values() for t in b.values()
+                   if isinstance(t, dict))
+    log(f"dequantize_weights: device {deq.ms:.4f} ms (covered "
+        f"{deq.covered}; profiler {deq_profiled:.4f} ms), host-paced "
+        f"{deq.call_ms:.4f} ms a call over {n_leaves} int8 leaves; with "
+        f"bind and unbind {bind_ms:.3f} ms of host time")
+    return runs, {"device_ms": deq.ms, "device_timer_covered": deq.covered,
+                  "profiler_ms": deq_profiled, "call_ms": deq.call_ms,
+                  "bind_unbind_host_ms": bind_ms, "int8_leaves": n_leaves}
 
 
 # -- the full-width model, card vs CPU ------------------------------------------
@@ -818,7 +1130,6 @@ def run_training(label: str, model: dict, steps: int, seed: int):
     trained variables."""
     import torch
 
-    import mmlspark_tpu_torch.ops.flash_attention as fa
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.models import transformer
 
@@ -837,11 +1148,9 @@ def run_training(label: str, model: dict, steps: int, seed: int):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for name in COUNTERS:
-            setattr(fa, name, 0)
+        zero_counts()
         trained = trainer.train(x, y, init_variables=variables)
-        torch.cuda.synchronize()
-        counts = {name: getattr(fa, name) for name in COUNTERS}
+        counts = read_counts()
     finally:
         transformer.dense_attention = dense
     peak = torch.cuda.max_memory_allocated()
@@ -1529,7 +1838,8 @@ def engine_summary(run: dict) -> dict:
     out = {k: run["metrics"][k] for k in ENGINE_KEYS}
     out.update(decode_micro_steps=run["micro_steps"],
                launch_counts=run["counts"])
-    for key in ("paging", "hits", "flip_rate_vs_dense_bf16", "diverged"):
+    for key in ("paging", "hits", "flip_rate_vs_dense_bf16", "diverged",
+                "weight_bytes", "weight_bytes_f32", "peak_memory_bytes"):
         if key in run:
             out[key] = run[key]
     return out
@@ -1563,6 +1873,11 @@ def main() -> int:
     dense = check_engine(graph, variables)
     header = check_header_engines(graph, variables)
     log(f"engine phases took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    generation = check_generate(graph, variables)
+    quantized, dequantize = check_quantized_engines(graph, variables, dense)
+    log(f"generation and weight-int8 phases took "
+        f"{time.perf_counter() - t0:.1f}s")
     model_err = check_model_vs_cpu()
     format_errs = check_cache_formats_vs_cpu()
     t0 = time.perf_counter()
@@ -1598,6 +1913,10 @@ def main() -> int:
         label: engine_summary(run) for label, run in header.items()},
         "page_size": PAGE_SIZE, "num_pages": paged_num_pages(),
         "header_len": HEADER_LEN}))
+    print(json.dumps({"generate": generation}))
+    print(json.dumps({"quantized_weights": {
+        label: engine_summary(run) for label, run in quantized.items()},
+        "dequantize_per_call": dequantize}))
     print(json.dumps({"training": training,
                       "small_training": small_training}))
     print(json.dumps({"profile": profile_decode_block(graph, variables)}))

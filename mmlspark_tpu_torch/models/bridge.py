@@ -15,7 +15,11 @@ blocks. The flax side is keyed as flax keys it, e.g. for
     z/params/head/kernel                -> z["head.weight"] (T)
 
 A flax Dense ``kernel`` is (in, out); the port's weight is (out, in), so
-it is transposed on the way in.
+it is transposed on the way in. Weight-quantized flax variables
+(``mmlspark_tpu/ops/quantize.py``: ``{__w8__: int8, __w8_scale__: f32}``
+in place of a float leaf) cross too: the int8 payload is transposed where
+the float leaf would be, and the scale keeps its values, shaped to
+broadcast against the port's payload (``ops/quantize.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 from mmlspark_tpu_torch.core.env import default_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.models.transformer import Dense
+from mmlspark_tpu_torch.ops.quantize import _Q8, _SCALE
 
 #: port leaf name -> flax leaf name, by the kind of module that owns it
 _LEAVES = {
@@ -44,10 +49,37 @@ def _owner_and_leaf(mod: nn.Module, key: str):
     return path, owner, leaf
 
 
+def flax_transposed(mod: nn.Module, key: str) -> bool:
+    """Whether block ``mod``'s parameter ``key`` is the transpose of its
+    flax leaf: a ``Dense`` weight, (out, in) here and (in, out) in flax."""
+    _, owner, leaf = _owner_and_leaf(mod, key)
+    return isinstance(owner, Dense) and leaf == "weight"
+
+
+def _quantized_leaf(node, transposed: bool, dev) -> dict:
+    """A flax ``{__w8__, __w8_scale__}`` leaf in the port's layout."""
+    q = np.array(node[_Q8], dtype=np.int8)
+    scale = np.array(node[_SCALE], dtype=np.float32).reshape(-1)
+    if q.ndim != 2 or scale.size != q.shape[-1]:
+        raise FriendlyError(
+            f"a quantized flax leaf of payload {q.shape} and scale "
+            f"{scale.shape} is not a 2-D per-output-channel leaf"
+        )
+    if transposed:
+        q, scale = q.T, scale[:, None]
+    else:
+        scale = scale[None, :]
+    return {
+        _Q8: torch.from_numpy(np.ascontiguousarray(q)).to(dev),
+        _SCALE: torch.from_numpy(np.ascontiguousarray(scale)).to(dev),
+    }
+
+
 def load_flax_variables(graph, variables, *, device=None) -> dict:
     """The port's parameters from the JAX package's ``variables`` (a
-    nested dict of numpy or numpy-convertible arrays), on ``device``
-    (``cuda`` unless the caller asks for ``"cpu"``)."""
+    nested dict of numpy or numpy-convertible arrays, float or
+    weight-quantized), on ``device`` (``cuda`` unless the caller asks for
+    ``"cpu"``)."""
     dev = default_device(device)
     out = {}
     for name, mod in graph.blocks:
@@ -71,17 +103,26 @@ def load_flax_variables(graph, variables, *, device=None) -> dict:
                         f"/{flax_leaf}' (port parameter '{name}.{key}')"
                     )
                 node = node[part]
+            transposed = flax_transposed(mod, key)
+            if isinstance(node, Mapping) and _Q8 in node and _SCALE in node:
+                block[key] = _quantized_leaf(node, transposed, dev)
+                _check_shape(name, key, block[key][_Q8].shape, ref)
+                continue
             arr = np.array(node, dtype=np.float32)  # an owned copy
-            if isinstance(owner, Dense) and leaf == "weight":
+            if transposed:
                 arr = arr.T
-            if tuple(arr.shape) != tuple(ref.shape):
-                raise FriendlyError(
-                    f"'{name}.{key}': flax shape {arr.shape} does not "
-                    f"match the port's {tuple(ref.shape)}"
-                )
+            _check_shape(name, key, arr.shape, ref)
             block[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
         out[name] = block
     return out
+
+
+def _check_shape(name: str, key: str, shape, ref) -> None:
+    if tuple(shape) != tuple(ref.shape):
+        raise FriendlyError(
+            f"'{name}.{key}': flax shape {tuple(shape)} does not match the "
+            f"port's {tuple(ref.shape)}"
+        )
 
 
 def init_variables(graph, seed: int = 0, *, device=None) -> dict:
@@ -114,12 +155,24 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
 
 def variables_to(variables: dict, device) -> dict:
     """``variables`` on ``device``: the same dict when every tensor is
-    already there (so a bound graph stays bound), else a moved copy."""
+    already there (so a bound graph stays bound), else a moved copy. A
+    weight-quantized leaf (a dict of tensors) moves as a whole."""
     dev = torch.device(device)
-    if all(_on(t, dev) for v in variables.values() for t in v.values()):
+    if all(_on(t, dev) for v in variables.values() for leaf in v.values()
+           for t in _tensors(leaf)):
         return variables
-    return {n: {k: t.to(dev) for k, t in v.items()}
+    return {n: {k: _leaf_to(leaf, dev) for k, leaf in v.items()}
             for n, v in variables.items()}
+
+
+def _tensors(leaf):
+    return leaf.values() if isinstance(leaf, dict) else (leaf,)
+
+
+def _leaf_to(leaf, dev):
+    if isinstance(leaf, dict):
+        return {k: t.to(dev) for k, t in leaf.items()}
+    return leaf.to(dev)
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:

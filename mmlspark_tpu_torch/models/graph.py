@@ -76,6 +76,15 @@ class NamedGraph:
                                 strict=True, assign=True)
         self._bound = variables
 
+    def unbind(self) -> None:
+        """Drop the bound variables' tensors from the blocks (their
+        parameters go back to the ``meta`` device), so the graph keeps no
+        reference to them: the weight-int8 engine's per-call bf16 weights
+        are freed once its call returns."""
+        for _, mod in self.blocks:
+            mod.to_empty(device="meta")
+        self._bound = None
+
     def apply(self, variables: dict, x, train: bool = False, mask=None,
               remat: bool = False):
         """Forward pass through every block.

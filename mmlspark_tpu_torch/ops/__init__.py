@@ -8,6 +8,8 @@
   ``paged_flash_decode``, the decode attention reads (float and int8
   K/V), wrapping ``csrc/flash_decode.cu`` and
   ``csrc/paged_flash_decode.cu``
-- :mod:`quantize` — KV-cache byte accounting for the int8 pools
+- :mod:`quantize` — weight-only int8 (``quantize_weights``,
+  ``dequantize_weights``, ``quantized_bytes``) and KV-cache byte
+  accounting for the int8 pools
 - :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use
 """

@@ -37,10 +37,17 @@ a linear cache, the remainder runs at ``pos=keep`` against it, and the
 prefix's pages are mapped shared into the slot (copy-on-extend when the
 slot's writes enter a shared page).
 
+Weight-only int8 (``quantize_weights=True``, ``ops/quantize.py``): the
+engine keeps per-output-channel int8 weights on the device and
+dequantizes them to bf16 once per program call — each prefill or resume
+forward and each decode block — then drops the bf16 copy, so between
+calls only the int8 weights are resident. It composes with both pools
+and both KV dtypes.
+
 Decode is greedy — the same tokens as ``generate()`` per request, which
-is the engine's correctness contract (int8 pools: within a token-flip
-budget of the bf16 streams). Not in this slice: meshes, fault injection,
-retries and the degradation ladder (page exhaustion raises
+is the engine's correctness contract (int8 pools and int8 weights:
+within a token-flip budget of the bf16 streams). Not in this slice:
+meshes, fault injection, retries and the degradation ladder (page exhaustion raises
 ``ResourceExhausted``), chunked prefill, the async host loop, snapshots,
 hand-offs and SLOs (ROADMAP.md Queue 1 items 8-9, 12-13).
 """
@@ -61,6 +68,10 @@ from mmlspark_tpu_torch.models.generate import (
     init_cache,
     make_decode_block,
 )
+from mmlspark_tpu_torch.ops.quantize import dequantize_weights
+from mmlspark_tpu_torch.ops.quantize import (
+    quantize_weights as _quantize_variables,
+)
 from mmlspark_tpu_torch.serve.cache_pool import SlotCachePool
 from mmlspark_tpu_torch.serve.metrics import ServeMetrics
 from mmlspark_tpu_torch.serve.paging import PagedCachePool
@@ -77,7 +88,8 @@ class ServeEngine:
                  pad_id: int = 0, decode_block: int = 32,
                  paged: bool = False, page_size: int | None = None,
                  num_pages: int | None = None, prefix_cache: bool = False,
-                 kv_dtype: str = "bf16", device=None):
+                 kv_dtype: str = "bf16", quantize_weights: bool = False,
+                 device=None):
         if not graph.extra.get("causal", False):
             raise FriendlyError(
                 f"serving needs a causal LM; '{graph.name}' has "
@@ -118,6 +130,15 @@ class ServeEngine:
         self.device = default_device(device)
         self.graph = graph
         self.variables = variables_to(variables, self.device)
+        # weight-only int8: EVERY projection goes int8 (min_size=0: at
+        # decode batch sizes each call streams the whole weight set for
+        # a handful of FLOPs); the engine keeps no reference to the float
+        # weights, and the pools size their buffers from the int8 qkv
+        # payloads (models.generate.cache_geometry)
+        self._quantized_weights = bool(quantize_weights)
+        if quantize_weights:
+            self.variables = _quantize_variables(graph, self.variables,
+                                                 min_size=0)
         self.pad_id = pad_id
         self.cache_len = cache_len
         # floor to a power of two: block sizes live on the ladder
@@ -343,7 +364,24 @@ class ServeEngine:
         padded = np.full((1, bucket), self.pad_id, np.int32)
         padded[0, :len(tokens)] = tokens
         ids = torch.from_numpy(padded).to(self.device)
-        return _cached_apply(self.graph, self.variables, ids, cache, pos)
+        try:
+            return _cached_apply(self.graph, self._call_variables(), ids,
+                                 cache, pos)
+        finally:
+            self._end_call()
+
+    def _call_variables(self) -> dict:
+        """The weights one program call runs on: the resident variables,
+        or — weight-int8 — a bf16 dequantization made for this call."""
+        if self._quantized_weights:
+            return dequantize_weights(self.variables)
+        return self.variables
+
+    def _end_call(self) -> None:
+        """After a weight-int8 call the graph drops its bound bf16
+        weights, so no bf16 copy outlives the call."""
+        if self._quantized_weights:
+            self.graph.unbind()
 
     def _decode_phase(self, tick: int, finished: list) -> int:
         """One fused decode BLOCK for all active slots, with ONE host
@@ -360,12 +398,16 @@ class ServeEngine:
             # pre-map every page this block can write; the page table is
             # read-only during the block (its one host sync)
             self.pool.ensure_decode_pages(pre_pos, t_block)
-        toks, live, _, positions = self._decode(
-            self.variables, self.pool.buffers, self.pool.positions,
-            self.pool.live, torch.from_numpy(tok).to(self.device),
-            torch.from_numpy(rem).to(self.device),
-            torch.from_numpy(eos).to(self.device), t_block,
-        )
+        try:
+            toks, live, _, positions = self._decode(
+                self._call_variables(), self.pool.buffers,
+                self.pool.positions, self.pool.live,
+                torch.from_numpy(tok).to(self.device),
+                torch.from_numpy(rem).to(self.device),
+                torch.from_numpy(eos).to(self.device), t_block,
+            )
+        finally:
+            self._end_call()
         # the buffers were written in place; the per-slot state is
         # rebound to the block's outputs
         self.pool.positions = positions

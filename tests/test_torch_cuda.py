@@ -556,3 +556,65 @@ def test_decode_is_batch_invariant(cuda, mode):
                                       pt[:1, :16].contiguous())
     torch.cuda.synchronize()
     assert torch.equal(alone[0], batch[0])
+
+
+def test_sampling_and_beam_search_on_card(cuda, monkeypatch):
+    """Sampling and beam search on the card, through the decode kernel:
+    a seeded CUDA generator gives the same stream twice, every drawn
+    token lies in the filtered support of its step's logits, a CPU
+    generator is refused; beams=1 is greedy decode, ``return_all`` is
+    sorted and led by the default output; the weight-int8 engine serves
+    the same model."""
+    import importlib
+
+    from mmlspark_tpu_torch.core.exceptions import FriendlyError
+    from mmlspark_tpu_torch.models import (
+        beam_search,
+        build_model,
+        generate,
+        init_variables,
+    )
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    gen_mod = importlib.import_module("mmlspark_tpu_torch.models.generate")
+    filter_logits = gen_mod.filter_logits
+    steps = []
+
+    def recorded(logits, *args):  # each step's logits, as sampled
+        steps.append(logits.clone())
+        return filter_logits(logits, *args)
+
+    monkeypatch.setattr(gen_mod, "filter_logits", recorded)
+
+    graph = build_model("transformer_lm", vocab_size=64, d_model=64,
+                        heads=2, depth=2, max_len=64)
+    variables = init_variables(graph, 7, device="cuda")
+    prompt = torch.randint(0, 64, (4, 12), generator=torch.Generator()
+                           .manual_seed(7), dtype=torch.int32).cuda()
+    kw = dict(temperature=0.8, top_k=10, top_p=0.9)
+    before = fa.launches
+    streams = [generate(graph, variables, prompt, 16,
+                        rng=torch.Generator(device="cuda").manual_seed(3),
+                        **kw) for _ in range(2)]
+    assert torch.equal(streams[0], streams[1])
+    assert fa.launches - before == 2 * 2 * 15  # 2 layers, 15 cached steps
+    for t, logits in enumerate(steps[:16]):  # the first stream's steps
+        kept = torch.isfinite(filter_logits(logits, 0.8, 10, 0.9))
+        drawn = streams[0][:, 12 + t].long()
+        assert kept[torch.arange(4), drawn].all()
+    with pytest.raises(FriendlyError, match="lives on cpu"):
+        generate(graph, variables, prompt, 4, rng=torch.Generator(), **kw)
+
+    greedy = generate(graph, variables, prompt, 10)
+    assert torch.equal(beam_search(graph, variables, prompt, 10, beams=1),
+                       greedy)
+    seqs, scores = beam_search(graph, variables, prompt, 10, beams=3,
+                               return_all=True)
+    assert (scores[:, :-1] >= scores[:, 1:]).all()
+    assert torch.equal(beam_search(graph, variables, prompt, 10, beams=3),
+                       seqs[:, 0])
+
+    engine = ServeEngine(graph, variables, slots=2, cache_len=64,
+                         decode_block=4, quantize_weights=True)
+    rid = engine.submit(prompt[0].cpu().numpy(), max_new_tokens=8)
+    assert engine.run()[rid].generated == 8
