@@ -24,9 +24,20 @@ Phases (each one fails the run with a non-zero exit on error):
    strided slices of one fused tensor and dO a strided view; the route
    each call took is read off the counters (bf16 at head dims 64 and 128:
    the tensor-core forward and backward pair; f32 and D = 256: the
-   f32-FMA kernels);
+   f32-FMA kernels); and the fused optimizer kernel against its plain
+   update at the full-width model's parameter shapes, bit-equal in f32
+   for adam, adamw, sgd and momentum with the quarantine's ``bad`` false
+   and true;
 3. the engines, each a main path of its own, with every launch count
-   set to 0 just before it and read just after:
+   set to 0 just before it and read just after. Every engine runs its
+   program ladder as CUDA graphs (prefill per bucket, resume per
+   remainder bucket, the decode block per ladder size), and then the
+   same schedule runs through its eager twin (programs counted, never
+   captured). Gates: every program count within its pin, one program
+   for every ladder size the run used, something captured, and every
+   kernel's launches counted on replay equal to the eager twin's (the
+   ``programs`` line: counts, pins, capture seconds, the graph pool's
+   reserved bytes, peak memory, tokens/s, TTFT and per-token ms of both):
    - dense bf16: ``transformer_lm(vocab_size=8192, d_model=512, heads=8,
      depth=8, max_len=512)`` with seeded random weights under
      ``ServeEngine(slots=8, cache_len=512, decode_block=32)``, 16
@@ -76,7 +87,9 @@ Phases (each one fails the run with a non-zero exit on error):
    and RoPE for 4 steps. Gates: every loss finite and the last below the
    first; each attention kernel launched ``depth`` times a step, every
    forward and every backward through the tensor-core kernels; no dense
-   attention ran. Then one training step of the float32 model, card vs
+   attention ran; one step program captured and one fused-optimizer
+   launch a step (step 0 runs eagerly, the rest replay the captured
+   step). Then one training step of the float32 model, card vs
    CPU (the plain versions), on the same weights and batch, through the
    f32-FMA kernels: the loss within 1e-4 relative, every parameter's
    gradient within 1e-3 of that leaf's largest;
@@ -85,10 +98,14 @@ Phases (each one fails the run with a non-zero exit on error):
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
    enqueues the timed loop, so the calls run back to back), ``call_ms``
-   the host-paced time an eager caller pays; the attention kernels'
-   device times also from ``torch.profiler``; the kernel's bound, the
+   the host-paced time an eager caller pays; ``graph_ms`` for the decode
+   kernels, the device time a call when the calls are replayed from one
+   CUDA graph; the attention kernels'
+   device times also from ``torch.profiler``; the fused optimizer's row
+   (adam over the 33.9 M parameters, against ``torch.optim.Adam(fused=
+   True).step()``); the kernel's bound, the
    engines' throughput, the training runs' step time, tokens/s and peak
-   memory, and one steady decode block and one
+   memory, and one steady (replayed) decode block and one replayed
    training step under ``torch.profiler`` (device busy share and the
    kernels that take its time). The ``attention_backward`` line: the
    whole ``flash_attention_backward`` call, its operands, the two kernels
@@ -103,6 +120,7 @@ for both, so the f32 comparisons are not loosened by it.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -411,6 +429,124 @@ def check_attention_kernels() -> dict:
     return errors
 
 
+# -- the fused optimizer ---------------------------------------------------------
+
+
+def optimizer_inputs(kind: str, seed: int):
+    """The full-width training model's parameter tensors (33.9 M f32
+    elements in 102 tensors) as seeded parameters, gradients and the
+    kind's moments (``nu`` positive), on the card."""
+    import torch
+
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.ops.fused_optim import moment_names
+
+    graph = build_model("transformer_lm", **TRAIN_MODEL)  # on "meta"
+    shapes = [t.shape for _, mod in graph.blocks
+              for t in mod.state_dict().values()]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def make(scale=1.0, positive=False):
+        out = [torch.randn(sh, generator=gen, device=DEVICE) * scale
+               for sh in shapes]
+        return [t.abs() for t in out] if positive else out
+
+    moments = [make(0.01, positive=(name == "nu"))
+               for name in moment_names(kind)]
+    return make(), make(), moments
+
+
+def optimizer_scalars(count: int, bad: bool):
+    """-lr, adam's bias corrections at ``count`` and ``bad``, on the card
+    (what ``ops/fused_optim.optimizer_update`` computes for a step)."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    n = torch.full((), count, dtype=torch.int32, device=DEVICE)
+    return (-torch.full((), 1e-3, device=DEVICE),
+            1 - torch.pow(fo.ADAM_B1, n), 1 - torch.pow(fo.ADAM_B2, n),
+            torch.tensor(bad, device=DEVICE))
+
+
+def check_fused_optimizer() -> dict:
+    """The fused optimizer kernel against its plain version on the same
+    CUDA tensors at the full-width model's parameter shapes: bit-equal
+    parameters and moments in f32 for adam, adamw, sgd and momentum, with
+    the quarantine's ``bad`` false and true (nothing moves then)."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    equal = {}
+    for kind in fo.KINDS:
+        for bad in (False, True):
+            params, grads, moments = optimizer_inputs(kind, seed=9)
+            plain_p = [p.clone() for p in params]
+            plain_m = [[t.clone() for t in m] for m in moments]
+            before = [p.clone() for p in params[:3]]
+            args = optimizer_scalars(7, bad)
+            kw = dict(weight_decay=0.1, momentum=0.9)
+            fo._launch(kind, params, grads, moments, *args, **kw)
+            fo.optimizer_update_reference(kind, plain_p, grads, plain_m,
+                                          *args, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(
+                params + sum(moments, []), plain_p + sum(plain_m, [])))
+            if bad:
+                same = same and all(torch.equal(a, b)
+                                    for a, b in zip(params, before))
+            equal[f"{kind}/bad={bad}"] = same
+            del params, grads, moments, plain_p, plain_m
+    log(f"fused optimizer vs plain, bit-equal: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"fused optimizer differs from its plain "
+                             f"version: {equal}")
+    return equal
+
+
+def measure_fused_optimizer(equal: dict, launches: int) -> dict:
+    """The fused optimizer's ``kernels`` row: adam over the full-width
+    model's 33.9 M parameters; the plain version on the same tensors; and
+    as the library yardstick ``torch.optim.Adam(fused=True).step()`` on
+    the same tensors (no quarantine). Bound: 7 f32 a parameter (read p,
+    g, m, v; write p, m, v) at the card's memory rate."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    params, grads, moments = optimizer_inputs("adam", seed=10)
+    args = optimizer_scalars(7, False)
+    kernel_t = time_ms(lambda: fo._launch(
+        "adam", params, grads, moments, *args, weight_decay=0.0,
+        momentum=0.9), [()], reps=50)
+    plain_t = time_ms(lambda: fo.optimizer_update_reference(
+        "adam", params, grads, moments, *args), [()], reps=20)
+    lib_params = [p.clone() for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    adam = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+    library_t = time_ms(adam.step, [()], reps=50)
+    n = sum(p.numel() for p in params)
+    log(f"fused optimizer, adam over {n} parameters: device {kernel_t.ms:.4f}"
+        f" ms, plain {plain_t.ms:.4f} ms, torch.optim.Adam(fused=True) "
+        f"{library_t.ms:.4f} ms")
+    return kernel_row(
+        "fused_optim", "mmlspark_tpu_torch/csrc/fused_optim.cu",
+        "mmlspark_tpu/train/trainer.py:575 (optax update inside the jitted "
+        "step; no TPU kernel: XLA fusion in the reference)",
+        launches, 0.0, kernel_t, plain_t,
+        library_t, 7 * 4 * n, 13 * n, F32_FLOPS_PER_S,
+        dict(parameters=n, tensors=len(params), optimizer="adam",
+             dtype="float32"),
+        library="torch.optim.Adam(fused=True).step(), which computes no "
+                "quarantine",
+        design="one multi-tensor launch: a grid over 4096-element chunks "
+               "of every tensor, each element read and written once, "
+               "__f*_rn arithmetic (bit-equal to the eager update)",
+        bit_equal=equal)
+
+
 # -- the engines ---------------------------------------------------------------
 
 
@@ -569,6 +705,131 @@ def flip_rate(want: dict, got: dict) -> float:
     return flips / max(total, 1)
 
 
+def program_summary(engine, peak: int) -> dict:
+    """An engine's program ladder after a run: each family's program
+    count beside its pin, the ladder sizes the run used, the captures'
+    wall time, the shared graph pool's reserved bytes and the run's peak
+    device memory over what was allocated before the engine."""
+    return {
+        "decode_compile_count": engine.decode_compile_count,
+        "num_decode_blocks": engine.num_decode_blocks,
+        "decode_block_sizes_run": sorted(
+            int(t) for t in engine.metrics.decode_blocks),
+        "prefill_compile_count": engine.prefill_compile_count,
+        "resume_compile_count": engine.resume_compile_count,
+        "num_prefill_buckets": engine.num_prefill_buckets,
+        "capture_s": engine.capture_seconds,
+        "graph_pool_bytes": engine.graph_pool_bytes(),
+        "peak_memory_bytes": peak,
+    }
+
+
+def eager_twin(graph, variables, prompts, **kw) -> dict:
+    """The same schedule through an engine whose programs are counted
+    but never captured, so every call runs eagerly: the eager path's
+    launch counts and speed beside the captured run's."""
+    from mmlspark_tpu_torch.serve import engine as engine_mod
+    from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
+
+    class EagerPrograms(ProgramCountingGraph):
+        def _capture(self, args):
+            return None
+
+    engine_mod.ProgramCountingGraph = EagerPrograms
+    try:
+        engine = make_engine(graph, variables, **kw)
+    finally:
+        engine_mod.ProgramCountingGraph = ProgramCountingGraph
+    return drive(engine, prompts)
+
+
+def check_programs(label: str, run: dict, eager: dict) -> None:
+    """The captured run's programs within their pins, one program for
+    every ladder size it ran, and each kernel's launches counted on
+    replay equal to the eager path's on the same schedule."""
+    pr = run["programs"]
+    over = [k for k, pin in (("decode_compile_count", "num_decode_blocks"),
+                             ("prefill_compile_count", "num_prefill_buckets"),
+                             ("resume_compile_count", "num_prefill_buckets"),
+                             ("warm_resume_compile_count",
+                              "num_prefill_buckets"))
+            if pr[k] > pr[pin]]
+    if over:
+        raise AssertionError(f"{label}: {over} over their pins: {pr}")
+    if pr["decode_compile_count"] != len(pr["decode_block_sizes_run"]) or \
+            pr["prefill_compile_count"] < 1:
+        raise AssertionError(f"{label}: a ladder size ran without its "
+                             f"captured program: {pr}")
+    if DEVICE == "cuda" and not (pr["capture_s"] > 0
+                                 and pr["graph_pool_bytes"] > 0):
+        raise AssertionError(f"{label}: nothing was captured: {pr}")
+    if eager["counts"] != run["counts"] or \
+            eager["micro_steps"] != run["micro_steps"]:
+        raise AssertionError(
+            f"{label}: launches counted on replay {run['counts']} over "
+            f"{run['micro_steps']} micro-steps, eager {eager['counts']} "
+            f"over {eager['micro_steps']}")
+    m, e = run["metrics"], eager["metrics"]
+    pr.update({k: m[k] for k in WARM_KEYS})
+    pr.update(launch_counts=run["counts"], eager_launch_counts=eager["counts"],
+              **{f"eager_{k}": e[k] for k in WARM_KEYS})
+    log(f"{label}: programs " + str({
+        k: v for k, v in pr.items() if not k.endswith("launch_counts")}))
+
+
+def fresh_metrics(engine) -> None:
+    """Give ``engine`` new, empty serving metrics, wired as its own."""
+    from mmlspark_tpu_torch.serve import ServeMetrics
+
+    old = engine.metrics
+    engine.metrics = ServeMetrics(
+        old.model, old.slots, decode_block=old.decode_block,
+        cache_pool_bytes_per_device=old.cache_pool_bytes_per_device,
+        kv_dtype=old.kv_dtype)
+    if old._paging_provider is not None:
+        engine.metrics.attach_paging(old._paging_provider)
+
+
+WARM_KEYS = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
+             "per_token_ms_p50")
+
+
+def graphed_run(label: str, graph, variables, prompts, counter: str,
+                **kw):
+    """One engine's main path on its captured programs, checked; then the
+    same schedule again on the warm engine (every decode and prefill
+    program already captured: none may be added; the prefix cache may
+    send a request to a resume bucket the first pass did not use), and
+    through its eager twin (``check_programs``). Returns the first run
+    (with its ``programs`` summary, the warm pass's speed included) and
+    the engine."""
+    import torch
+
+    from mmlspark_tpu_torch.testing import compile_guard
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(graph, variables, **kw)
+    run = drive(engine, prompts)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_run(label, run, counter)
+    run["programs"] = program_summary(engine, peak)
+    fresh_metrics(engine)
+    with compile_guard(lambda: engine.decode_compile_count, max_programs=0,
+                       label=f"{label} warm decode"), \
+            compile_guard(lambda: engine.prefill_compile_count,
+                          max_programs=0, label=f"{label} warm prefill"):
+        warm = drive(engine, prompts)
+    check_run(f"{label} warm", warm, counter)
+    run["programs"].update(
+        {f"warm_{k}": warm["metrics"][k] for k in WARM_KEYS},
+        warm_resume_compile_count=engine.resume_compile_count)
+    check_programs(label, run, eager_twin(graph, variables, prompts, **kw))
+    gc.collect()
+    return run, engine
+
+
 def check_engine(graph, variables) -> dict:
     """The dense bf16 engine on the random schedule (the first slice's
     main path)."""
@@ -578,12 +839,14 @@ def check_engine(graph, variables) -> dict:
     warm.submit(prompts[0], 4)
     warm.run()
     del warm
+    gc.collect()
 
-    run = drive(make_engine(graph, variables), prompts)
-    check_run("dense bf16", run, "launches")
+    run, _ = graphed_run("dense bf16", graph, variables, prompts,
+                         "launches")
     ids = np.linspace(0, N_REQUESTS - 1, N_CHECKED).astype(int)
     check_streams(graph, variables, prompts, run["results"], ids,
                   "dense bf16", exact=True)
+    gc.collect()
     return run
 
 
@@ -601,11 +864,11 @@ def check_header_engines(graph, variables) -> dict:
         ("header paged int8", dict(paged, kv_dtype="int8"),
          "paged_q8_launches"),
     ):
-        engine = make_engine(graph, variables, **kw)
-        runs[label] = drive(engine, prompts)
-        check_run(label, runs[label], counter)
+        runs[label], engine = graphed_run(label, graph, variables, prompts,
+                                          counter, **kw)
         pools[label] = engine.pool
         del engine
+        gc.collect()
 
     dense = runs["header dense bf16"]
     for label in ("header paged bf16", "header paged int8"):
@@ -658,19 +921,23 @@ def zero_counts() -> None:
     import torch
 
     import mmlspark_tpu_torch.ops.flash_attention as fa
+    import mmlspark_tpu_torch.ops.fused_optim as fo
 
     torch.cuda.synchronize()
     for name in COUNTERS:
         setattr(fa, name, 0)
+    fo.launches = 0
 
 
 def read_counts() -> dict:
     import torch
 
     import mmlspark_tpu_torch.ops.flash_attention as fa
+    import mmlspark_tpu_torch.ops.fused_optim as fo
 
     torch.cuda.synchronize()
-    return {name: getattr(fa, name) for name in COUNTERS}
+    return {**{name: getattr(fa, name) for name in COUNTERS},
+            "fused_optim_launches": fo.launches}
 
 
 def timed_path(fn):
@@ -902,13 +1169,9 @@ def check_quantized_engines(graph, variables, dense: dict) -> dict:
         ("weight-int8 dense bf16 KV", {}, "launches"),
         ("weight-int8 paged int8 KV", paged, "paged_q8_launches"),
     ):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        engine = make_engine(graph, variables, quantize_weights=True, **kw)
-        run = drive(engine, prompts)
-        peak = torch.cuda.max_memory_allocated()
-        check_run(label, run, counter)
+        run, engine = graphed_run(label, graph, variables, prompts, counter,
+                                  quantize_weights=True, **kw)
+        peak = run["programs"]["peak_memory_bytes"]
         stored, f32 = quantized_bytes(engine.variables)
         if not stored <= 0.3 * f32:
             raise AssertionError(f"{label}: weights {stored} bytes of "
@@ -918,14 +1181,16 @@ def check_quantized_engines(graph, variables, dense: dict) -> dict:
         run.update(flip_rate_vs_dense_bf16=flip_rate(dense["results"],
                                                      run["results"]),
                    weight_bytes=stored, weight_bytes_f32=f32,
-                   peak_memory_bytes=peak - base)
+                   peak_memory_bytes=peak)
         log(f"{label}: {run['metrics']['tokens_per_sec']:.1f} tokens/s, "
             f"flip rate {run['flip_rate_vs_dense_bf16']:.3f}, weights "
-            f"{stored} of {f32} bytes as f32, peak {peak - base} bytes "
-            "over the baseline")
+            f"{stored} of {f32} bytes as f32, peak {peak} bytes over the "
+            f"baseline, graph pool {run['programs']['graph_pool_bytes']} "
+            "bytes")
         runs[label] = run
         qvars = engine.variables
         del engine
+        gc.collect()
     deq = time_ms(lambda v: dequantize_weights(v), [(qvars,)], reps=50)
     # every kernel of a call, from the profiler: the event timer's spin
     # may not outlast a host loop of ~100 launches a call
@@ -1154,6 +1419,8 @@ def run_training(label: str, model: dict, steps: int, seed: int):
     finally:
         transformer.dense_attention = dense
     peak = torch.cuda.max_memory_allocated()
+    programs = trainer.telemetry.counter("retrace.train.step").value
+    capture_s = trainer.telemetry.gauge("train.step_capture_s").value
     losses = [h["loss"] for h in trainer.history]
     # log_every=1: the trainer syncs on each step's loss, so the gaps
     # between its step events are the steps' wall times (steps 2+)
@@ -1164,7 +1431,8 @@ def run_training(label: str, model: dict, steps: int, seed: int):
     tokens = TRAIN_BATCH * SERVE_MODEL["max_len"]
     want = model["depth"] * steps
     log(f"training {label}: losses {losses}, counts {counts}, dense "
-        f"attention calls {len(dense_calls)}, step {step_ms:.2f} ms")
+        f"attention calls {len(dense_calls)}, step {step_ms:.2f} ms, "
+        f"{programs} step program captured in {capture_s} s")
     if len(losses) != steps or not all(np.isfinite(losses)) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"training {label}: losses {losses}")
@@ -1180,9 +1448,17 @@ def run_training(label: str, model: dict, steps: int, seed: int):
     if dense_calls:
         raise AssertionError(f"training {label}: dense attention ran "
                              f"{len(dense_calls)} times")
+    # one step program, captured, and one fused optimizer pass a step
+    # (the CPU, in a rehearsal, captures nothing and runs the plain update)
+    if programs != 1 or DEVICE == "cuda" and not (
+            capture_s > 0 and counts["fused_optim_launches"] == steps):
+        raise AssertionError(f"training {label}: {programs} step programs "
+                             f"(capture {capture_s} s), fused optimizer "
+                             f"launches {counts['fused_optim_launches']}")
     return {
         "model": model, "steps": steps, "batch": TRAIN_BATCH,
         "losses": losses, "launch_counts": counts,
+        "step_programs": programs, "step_capture_s": capture_s,
         "dense_attention_calls": len(dense_calls),
         "step_ms_median_steps_2_on": step_ms,
         "tokens_per_sec": tokens / (step_ms / 1e3),
@@ -1299,7 +1575,9 @@ def profile_train_step(trained: dict) -> dict:
         trainer.train(x, y, init_variables=trained)
     stamps = [e["t"] for e in recorder.events() if e["name"] == "step"]
     return dict(device_profile(prof, (stamps[2] - stamps[1]) * 1e3),
-                batch=TRAIN_BATCH, seq=SERVE_MODEL["max_len"], step=2)
+                batch=TRAIN_BATCH, seq=SERVE_MODEL["max_len"], step=2,
+                step_programs=trainer.telemetry.counter(
+                    "retrace.train.step").value)
 
 
 def profile_decode_block(graph, variables) -> dict:
@@ -1314,7 +1592,7 @@ def profile_decode_block(graph, variables) -> dict:
     for _ in range(SLOTS):
         engine.submit(rng.integers(0, SERVE_MODEL["vocab_size"], size=32),
                       1 + 2 * DECODE_BLOCK)
-    engine.step()  # admissions and a first block, outside the window
+    engine.step()  # admissions and a first block (eager, then captured)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1323,7 +1601,9 @@ def profile_decode_block(graph, variables) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return dict(device_profile(prof, wall_ms), block=DECODE_BLOCK,
-                slots_live=SLOTS)
+                slots_live=SLOTS,
+                decode_compile_count=engine.decode_compile_count,
+                replayed=engine.decode_compile_count == 1)
 
 
 # -- timing ----------------------------------------------------------------------
@@ -1409,6 +1689,32 @@ def time_ms(fn, arg_sets, reps: int = 200) -> Timing:
             break
     ms = statistics.median(s.elapsed_time(e) for s, e in events)
     return Timing(ms, call_ms, covered)
+
+
+def graph_ms(fn, arg_sets, replays: int = 20) -> float:
+    """Device ms a call of ``fn`` when one CUDA graph holds a call on each
+    of ``arg_sets`` (rotating through more memory than the L2) and is
+    replayed back to back: the kernels' time with no launch gap between
+    calls, as a captured decode block runs them."""
+    import torch
+
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in arg_sets:
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(arg_sets))
 
 
 def profiler_ms(fn, arg_sets, name: str, reps: int = 50) -> float:
@@ -1534,17 +1840,20 @@ def measure_kernels(errors: dict, launches: dict) -> list:
 
     kernel_t = time_ms(dense, sets)
     # the event timer's device time against the profiler's: the kernels
-    # of one call (split-KV partials and their combine), summed
+    # of one call (split-KV partials and their combine), summed; and the
+    # calls replayed from one CUDA graph
     profiled = profiler_ms(dense, sets, "decode_")
+    graphed = graph_ms(dense, sets)
     log(f"flash_decode device time: events {kernel_t.ms:.5f} ms, profiler "
-        f"{profiled:.5f} ms a call (host-paced {kernel_t.call_ms:.5f})")
+        f"{profiled:.5f} ms, in a CUDA graph {graphed:.5f} ms a call "
+        f"(host-paced {kernel_t.call_ms:.5f})")
     rows.append(decode_row(
         "flash_decode", src + "flash_decode.cu", f"{jax_file}:586",
         launches["launches"], errors["slice/bfloat16"], kernel_t,
         time_ms(lambda q, k, v: flash_decode_reference(q, k, v, lens), sets),
         time_ms(F.scaled_dot_product_attention, lib_sets),
         io_bytes(2), "bfloat16", "scaled_dot_product_attention",
-        profiler_ms=profiled))
+        profiler_ms=profiled, graph_ms=graphed))
     del sets, lib_sets
 
     # int8 dense: no single PyTorch call attends over int8 K/V with scales
@@ -1554,14 +1863,17 @@ def measure_kernels(errors: dict, launches: dict) -> list:
         k8, ks = int8_kv((b, L, hk, d), (b, hk), gen)
         v8, vs = int8_kv((b, L, hk, d), (b, hk), gen)
         sets.append((q, k8, v8, ks, vs))
+    def q8(q, k, v, ks, vs):
+        return flash_decode(q, k, v, lens, k_scale=ks, v_scale=vs)
+
     rows.append(decode_row(
         "flash_decode_q8", src + "flash_decode.cu", f"{jax_file}:640",
         launches["q8_launches"], errors["q8_slice/bfloat16"],
-        time_ms(lambda q, k, v, ks, vs: flash_decode(
-            q, k, v, lens, k_scale=ks, v_scale=vs), sets),
+        time_ms(q8, sets),
         time_ms(lambda q, k, v, ks, vs: flash_decode_reference(
             q, k, v, lens, k_scale=ks, v_scale=vs), sets),
-        None, io_bytes(1) + 2 * b * hk * 4, "int8"))
+        None, io_bytes(1) + 2 * b * hk * 4, "int8",
+        graph_ms=graph_ms(q8, sets)))
     del sets
 
     # paged: shuffled tables, 16 live pages a row
@@ -1589,32 +1901,37 @@ def measure_kernels(errors: dict, launches: dict) -> list:
 
     lib_sets = [(q.transpose(1, 2).contiguous(), gathered(kp, pt),
                  gathered(vp, pt)) for q, kp, vp, pt in sets]
+    def paged(q, k, v, pt):
+        return paged_flash_decode(q, k, v, lens, pt)
+
     rows.append(decode_row(
         "paged_flash_decode", src + "paged_flash_decode.cu",
         f"{jax_file}:894", launches["paged_launches"],
         errors["paged_slice/bfloat16"],
-        time_ms(lambda q, k, v, pt: paged_flash_decode(q, k, v, lens, pt),
-                sets),
+        time_ms(paged, sets),
         time_ms(lambda q, k, v, pt: paged_flash_decode_reference(
             q, k, v, lens, pt), sets),
         time_ms(F.scaled_dot_product_attention, lib_sets),
         io_bytes(2) + table_bytes, "bfloat16",
         "scaled_dot_product_attention on the gathered live K/V (a "
-        "yardstick without the page indirection)"))
+        "yardstick without the page indirection)",
+        graph_ms=graph_ms(paged, sets)))
     del sets, lib_sets
 
     sets = [paged_set(True) for _ in range(ROTATE_BYTES // (per_set // 2)
                                            + 1)]
+    def paged_q8(q, k, v, pt, ks, vs):
+        return paged_flash_decode(q, k, v, lens, pt, k_scale=ks, v_scale=vs)
+
     rows.append(decode_row(
         "paged_flash_decode_q8", src + "paged_flash_decode.cu",
         f"{jax_file}:942", launches["paged_q8_launches"],
         errors["paged_q8_slice/bfloat16"],
-        time_ms(lambda q, k, v, pt, ks, vs: paged_flash_decode(
-            q, k, v, lens, pt, k_scale=ks, v_scale=vs), sets),
+        time_ms(paged_q8, sets),
         time_ms(lambda q, k, v, pt, ks, vs: paged_flash_decode_reference(
             q, k, v, lens, pt, k_scale=ks, v_scale=vs), sets),
         None, io_bytes(1) + table_bytes + 2 * b * live_pages * hk * 4,
-        "int8"))
+        "int8", graph_ms=graph_ms(paged_q8, sets)))
     return rows
 
 
@@ -1839,7 +2156,8 @@ def engine_summary(run: dict) -> dict:
     out.update(decode_micro_steps=run["micro_steps"],
                launch_counts=run["counts"])
     for key in ("paging", "hits", "flip_rate_vs_dense_bf16", "diverged",
-                "weight_bytes", "weight_bytes_f32", "peak_memory_bytes"):
+                "weight_bytes", "weight_bytes_f32", "peak_memory_bytes",
+                "programs"):
         if key in run:
             out[key] = run[key]
     return out
@@ -1866,6 +2184,7 @@ def main() -> int:
     build_kernels()
     errors = check_kernels()
     attn_errors = check_attention_kernels()
+    optim_equal = check_fused_optimizer()
 
     graph = build_model("transformer_lm", **SERVE_MODEL)
     variables = init_variables(graph, 0, device=DEVICE)
@@ -1899,9 +2218,12 @@ def main() -> int:
     }
     attn_rows, attn_backward = measure_attention_kernels(
         attn_errors, training["launch_counts"])
-    rows = measure_kernels(errors, launches) + attn_rows
+    rows = measure_kernels(errors, launches) + attn_rows + [
+        measure_fused_optimizer(
+            optim_equal, training["launch_counts"]["fused_optim_launches"])]
     print(json.dumps({"kernel_errors": errors,
                       "attention_kernel_errors": attn_errors,
+                      "fused_optimizer_bit_equal": optim_equal,
                       "model_f32_card_vs_cpu_max_abs_err": model_err,
                       "model_f32_cache_formats_card_vs_cpu": format_errs,
                       "train_step_f32_card_vs_cpu": step_vs_cpu}))
@@ -1917,6 +2239,9 @@ def main() -> int:
     print(json.dumps({"quantized_weights": {
         label: engine_summary(run) for label, run in quantized.items()},
         "dequantize_per_call": dequantize}))
+    print(json.dumps({"programs": {
+        label: run["programs"] for label, run in (
+            ("dense bf16", dense), *header.items(), *quantized.items())}}))
     print(json.dumps({"training": training,
                       "small_training": small_training}))
     print(json.dumps({"profile": profile_decode_block(graph, variables)}))

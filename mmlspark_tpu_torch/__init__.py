@@ -2,7 +2,7 @@
 
 The package mirrors the JAX package's subpackage layout so each module
 has one counterpart (``core``, ``data``, ``ops``, ``models``, ``serve``,
-``train``). It imports ``torch`` and never ``jax``, ``flax`` or
+``testing``, ``train``). It imports ``torch`` and never ``jax``, ``flax`` or
 ``mmlspark_tpu``: what it needs of the JAX package's jax-free modules it
 keeps as its own copy.
 
@@ -13,7 +13,11 @@ pool with its prefix cache, the int8 KV mode of both, and
 ``flash_attention`` with its gradient, the graph's train mode and
 ``SPMDTrainer``. Every attention kernel is hand-written CUDA
 (``csrc/flash_decode.cu``, ``csrc/paged_flash_decode.cu``,
-``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_fwd*.cu``, ``csrc/flash_attention_bwd*.cu``), and
+so is the trainer's fused optimizer pass (``csrc/fused_optim.cu``). On
+the card the engine's programs and the trainer's step run as CUDA graphs,
+counted as the JAX package counts its compiled programs
+(``testing/compile_guard.py``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -42,6 +42,16 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """A host numpy array on ``device``. To the card it goes through pinned
+    memory, a copy that does not wait for the stream (a program's per-call
+    inputs add no host sync); on the CPU it is the array's own memory."""
+    t = torch.from_numpy(array)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @dataclass(frozen=True)
 class CardInfo:
     """Name and compute capability of one CUDA device."""

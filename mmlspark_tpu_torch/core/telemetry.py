@@ -9,9 +9,13 @@ serving metrics use.
 - :class:`FlightRecorder`: a bounded ring buffer of structured events,
   dumped as JSON-lines when a :class:`FriendlyError` escapes a guarded
   block — the post-mortem of what happened right before a failure.
+- :class:`RetraceWatchdog` / :func:`watch_retrace`: log every NEW program
+  a counting callable makes (``testing/compile_guard.py``'s
+  ``ProgramCountingGraph``: one CUDA graph per static signature), with
+  the signature that made it.
 
-Spans, the Prometheus exposition, snapshots and the retrace watchdog are
-not ported (ROADMAP.md Queue 1 item 12).
+Spans, the Prometheus exposition and snapshots are not ported (ROADMAP.md
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import math
 import threading
 import time
 from collections import deque
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
@@ -211,3 +215,121 @@ class FlightRecorder:
             _log.error("flight recorder dump on %s (last %d events):\n%s",
                        type(e).__name__, len(self._events), self.dump())
             raise
+
+
+# --------------------------------------------------------------------------
+# retrace watchdog
+# --------------------------------------------------------------------------
+
+
+def _describe_abstract(args: tuple, kwargs: dict, limit: int = 12) -> str:
+    """``bfloat16[4,64,2,16]``-style rendering of a call's tensor leaves
+    (and the repr of its other leaves) — the static signature that decides
+    whether a call reuses a program. A copy of the JAX package's
+    formatter over PyTorch's containers."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            leaves.append(x)
+
+    walk((args, kwargs))
+    parts = []
+    for leaf in leaves[:limit]:
+        shape = getattr(leaf, "shape", None)
+        if shape is None:
+            parts.append(repr(leaf)[:32])
+            continue
+        dtype = str(getattr(leaf, "dtype", "?")).replace("torch.", "")
+        parts.append(f"{dtype}[{','.join(str(d) for d in shape)}]")
+    if len(leaves) > limit:
+        parts.append(f"... +{len(leaves) - limit} leaves")
+    return ", ".join(parts)
+
+
+class RetraceWatchdog:
+    """Wrap a program-counting callable; log every NEW program.
+
+    Counting reads the ``_cache_size()`` contract that
+    ``testing/compile_guard.py`` pins invariants with
+    (:func:`~mmlspark_tpu_torch.testing.compile_guard.program_count`): the
+    count is sampled after each call, and growth means the call's static
+    signature made a new program. Programs within the
+    ``expected_programs`` budget log at INFO (the expected warm-up: 1 for
+    a training step, the ladder or bucket count for the serve engine's
+    program families), every later one at WARNING, both with the
+    triggering signature. Optionally mirrors into a registry counter
+    (``retrace.<label>``) and a flight-recorder ``retrace`` event.
+    """
+
+    def __init__(self, fn: Callable, label: str, *,
+                 registry: MetricRegistry | None = None,
+                 recorder: FlightRecorder | None = None,
+                 expected_programs: int = 1):
+        from mmlspark_tpu_torch.testing.compile_guard import program_count
+
+        self._fn = fn
+        self._size_of = program_count
+        self.label = label
+        self.compilations = 0  # programs seen by THIS wrapper
+        self.expected_programs = max(1, expected_programs)
+        self._counter = (
+            registry.counter(f"retrace.{label}")
+            if registry is not None else None
+        )
+        self._recorder = recorder
+        self._seen = max(0, program_count(fn))
+
+    @property
+    def retraces(self) -> int:
+        """Programs beyond the expected budget."""
+        return max(0, self.compilations - self.expected_programs)
+
+    @property
+    def capture_seconds(self) -> float:
+        """The wrapped callable's capture time, where it keeps one."""
+        return getattr(self._fn, "capture_seconds", 0.0)
+
+    def _cache_size(self) -> int:
+        """compile_guard-compatible counting passthrough."""
+        return self._size_of(self._fn)
+
+    def __call__(self, *args, **kwargs):
+        out = self._fn(*args, **kwargs)
+        n = self._size_of(self._fn)
+        if n > self._seen:
+            new = n - self._seen
+            self.compilations += new
+            self._seen = n
+            sig = _describe_abstract(args, kwargs)
+            level = (
+                _log.info
+                if self.compilations <= self.expected_programs
+                else _log.warning
+            )
+            level(
+                "retrace[%s]: %d new program(s) made (total %d) for "
+                "signature (%s)",
+                self.label, new, n, sig,
+            )
+            if self._counter is not None:
+                self._counter.inc(new)
+            if self._recorder is not None:
+                self._recorder.record(
+                    "retrace", label=self.label, new_programs=new,
+                    total_programs=n, signature=sig,
+                )
+        return out
+
+
+def watch_retrace(fn: Callable, label: str, *,
+                  registry: MetricRegistry | None = None,
+                  recorder: FlightRecorder | None = None) -> RetraceWatchdog:
+    """Functional spelling of :class:`RetraceWatchdog`."""
+    return RetraceWatchdog(fn, label, registry=registry, recorder=recorder)

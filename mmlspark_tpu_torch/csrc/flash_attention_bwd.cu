@@ -257,10 +257,16 @@ __global__ void __launch_bounds__(mfa::kThreads)
 template <typename T, int MAXD, int BT>
 int launch_kv(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = mfa::smem_bytes(BT, MAXD, 4, 2, 2);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<T, MAXD, BT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  // set once a process (per instantiation): the size is a constant of
+  // the template, and a captured CUDA graph records only the launch
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_kv_kernel<T, MAXD, BT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
   const dim3 grid((a.S + BT - 1) / BT, a.B * a.Hkv);
   flash_bwd_kv_kernel<T, MAXD, BT><<<grid, mfa::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -269,10 +275,16 @@ int launch_kv(const BwdArgs& a, cudaStream_t stream) {
 template <typename T, int MAXD, int BT>
 int launch_q(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = mfa::smem_bytes(BT, MAXD, 4, 1, 2);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_q_kernel<T, MAXD, BT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  // set once a process (per instantiation): the size is a constant of
+  // the template, and a captured CUDA graph records only the launch
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_q_kernel<T, MAXD, BT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
   const dim3 grid((a.S + BT - 1) / BT, a.B * a.H);
   flash_bwd_q_kernel<T, MAXD, BT><<<grid, mfa::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();

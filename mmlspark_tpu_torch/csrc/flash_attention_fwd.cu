@@ -147,10 +147,16 @@ __global__ void __launch_bounds__(mfa::kThreads)
 template <typename T, int MAXD, int BT>
 int launch(const FwdArgs& a, cudaStream_t stream) {
   const size_t smem = mfa::smem_bytes(BT, MAXD, 3, 1, 0);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, MAXD, BT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  // set once a process (per instantiation): the size is a constant of
+  // the template, and a captured CUDA graph records only the launch
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, MAXD, BT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
   const dim3 grid((a.S + BT - 1) / BT, a.B * a.H);
   flash_fwd_kernel<T, MAXD, BT><<<grid, mfa::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();

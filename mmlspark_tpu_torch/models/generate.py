@@ -96,8 +96,9 @@ def init_cache(graph, variables, batch: int, total: int) -> dict:
 def _cached_apply(graph, variables, ids, cache, pos, rolled=False,
                   step=False, live=None):
     """One forward over ``ids`` (B, T) starting at absolute position
-    ``pos`` (an int, or a (B,) tensor of per-row positions), reading and
-    writing the K/V cache in place. Returns (logits (B, T, V), cache).
+    ``pos`` (an int, a 0-d tensor — a captured program's position, which
+    the host never reads — or a (B,) tensor of per-row positions), reading
+    and writing the K/V cache in place. Returns (logits (B, T, V), cache).
     ``step`` marks a DECODE step (vs the prefill call), which routes a
     one-token step to ``flash_decode``; ``live`` ((B,) bool, the fused
     decode block's carry) zeroes dead rows' live lengths."""

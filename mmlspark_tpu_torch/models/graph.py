@@ -109,8 +109,11 @@ class NamedGraph:
             params = self._block_variables(variables, block_name)
             kwargs = _mask_kwarg(mod, mask)
             if remat:
+                # the blocks draw no random numbers, so no RNG state is
+                # kept for the recompute (which also keeps a captured
+                # training step free of generator-state reads)
                 x = checkpoint(_call_block, mod, params, x, kwargs,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = _call_block(mod, params, x, kwargs)
         return x, variables

@@ -130,6 +130,33 @@ class TokenPosEmbed(nn.Module):
         return tok + self.pos[pos + steps][None]
 
 
+def compute_dtype_variables(graph, variables: dict) -> dict:
+    """``variables`` with every ``Dense`` leaf (weight and bias) cast once
+    to the compute dtype its caller passes (the ``dtype`` of the module
+    that owns the Dense): a new dict, the other leaves the same tensors.
+    ``Dense.forward`` casts its parameters to that dtype on every call, and
+    a cast to the dtype a tensor already has returns it unchanged, so the
+    model's outputs are bit-equal on either dict. The serving engine keeps
+    the cast copy in place of the f32 leaves, which it then never reads."""
+    out = {}
+    for name, mod in graph.blocks:
+        block = dict(variables[name])
+        for path, owner in mod.named_modules():
+            dtype = getattr(owner, "dtype", None)
+            if not isinstance(dtype, torch.dtype):
+                continue
+            for child, sub in owner.named_children():
+                if not isinstance(sub, Dense):
+                    continue
+                for leaf in ("weight", "bias"):
+                    key = ".".join(filter(None, (path, child, leaf)))
+                    t = block.get(key)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point():
+                        block[key] = t.to(dtype)
+        out[name] = block
+    return out
+
+
 class SelfAttention(nn.Module):
     """Multi-head (or grouped-query) self-attention. Without a cache it
     runs ``attn_impl`` (``flash`` or ``dense``, resolved by
@@ -218,10 +245,14 @@ class SelfAttention(nn.Module):
             # linear: the write index IS the absolute position; rolled:
             # slot pos % W (every written slot lies inside the window,
             # ops/attention.rolled_window_attention). In place, where the
-            # JAX package's dynamic_update_slice returns a new buffer
-            idx = pos % ck.shape[1] if rolled else pos
-            ck[:, idx:idx + t] = k.to(ck.dtype)
-            cv[:, idx:idx + t] = v.to(cv.dtype)
+            # JAX package's dynamic_update_slice returns a new buffer.
+            # ``pos`` is an int or a 0-d device tensor (the engine's
+            # resume program, where the host never reads it)
+            idx = pos + torch.arange(t, device=q.device)
+            if rolled:
+                idx = idx % ck.shape[1]
+            ck.index_copy_(1, idx, k.to(ck.dtype))
+            cv.index_copy_(1, idx, v.to(cv.dtype))
         if rolled:
             return rolled_window_attention(q, ck, cv, pos)
         if decode and t == 1 and (

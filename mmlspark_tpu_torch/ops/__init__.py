@@ -11,5 +11,8 @@
 - :mod:`quantize` — weight-only int8 (``quantize_weights``,
   ``dequantize_weights``, ``quantized_bytes``) and KV-cache byte
   accounting for the int8 pools
-- :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use
+- :mod:`fused_optim` — the trainer's optimizer update and quarantine as
+  one multi-tensor pass, wrapping ``csrc/fused_optim.cu``
+- :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use,
+  and holds the C signature of every entry point
 """

@@ -46,14 +46,23 @@ other route and no fallback between the two.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch.autograd.function import once_differentiable
 
 from mmlspark_tpu_torch.ops.attention import (
     KERNEL_NEG_INF,
     _validate_and_expand_gqa,
+)
+from mmlspark_tpu_torch.ops.kernel_build import bind as _bind
+
+# the C signature table of every kernel library lives beside the builder
+# (ops/kernel_build.py); its names stay importable here, where the
+# kernel-plan tests read the attention entry points' signatures
+from mmlspark_tpu_torch.ops.kernel_build import (  # noqa: unused
+    I32 as _I32,
+    I64 as _I64,
+    PTR as _PTR,
+    SIGNATURES as _SIGNATURES,
 )
 
 #: launches of each CUDA kernel in this process — added to where its
@@ -76,6 +85,12 @@ bwd_kv_launches = 0
 bwd_q_launches = 0
 bwd_kv_mma_launches = 0
 bwd_q_mma_launches = 0
+#: every counter above, for whoever resets or adds to them (a captured
+#: program adds its launches on each replay, ``testing/compile_guard.py``)
+COUNTERS = ("launches", "q8_launches", "paged_launches",
+            "paged_q8_launches", "fwd_launches", "fwd_mma_launches",
+            "bwd_kv_launches", "bwd_q_launches", "bwd_kv_mma_launches",
+            "bwd_q_mma_launches")
 
 #: smallest page and the page unit: the paged pool's API contract
 #: (``serve/paging.py``), kept from the JAX package, where a page's
@@ -891,62 +906,3 @@ def _raise_on(rc: int, lib, name: str) -> None:
             f"{name} kernel launch failed: CUDA error {rc} "
             f"({lib.mml_cuda_error_string(rc).decode()})"
         )
-
-
-_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: the C signatures: every pointer and the stream as ``c_void_p`` (an
-#: undeclared argument would pass as a 32-bit int and cut the pointer),
-#: strides as 64-bit
-_SIGNATURES = {
-    "mml_flash_decode": (
-        [_I32] + [_PTR] * 6 + [_I32] * 7 + [_I64] * 8
-        + [ctypes.c_float, _PTR]
-    ),
-    "mml_flash_decode_q8": (
-        [_I32] + [_PTR] * 8 + [_I32] * 8 + [_I64] * 8
-        + [ctypes.c_float, _PTR]
-    ),
-    "mml_paged_flash_decode": (
-        [_I32] * 2 + [_PTR] * 9 + [_I32] * 10 + [_I64] * 2
-        + [ctypes.c_float, _PTR]
-    ),
-    "mml_flash_attention_fwd": (
-        [_I32] + [_PTR] * 5 + [_I32] * 5 + [_I64] * 9
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-    "mml_flash_attention_fwd_mma": (
-        [_PTR] * 5 + [_I32] * 5 + [_I64] * 9
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-    "mml_flash_attention_bwd_kv": (
-        [_I32] + [_PTR] * 8 + [_I32] * 5 + [_I64] * 12
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-    "mml_flash_attention_bwd_q": (
-        [_I32] + [_PTR] * 7 + [_I32] * 5 + [_I64] * 12
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-    "mml_flash_attention_bwd_kv_mma": (
-        [_PTR] * 8 + [_I32] * 5 + [_I64] * 12
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-    "mml_flash_attention_bwd_q_mma": (
-        [_PTR] * 7 + [_I32] * 5 + [_I64] * 12
-        + [ctypes.c_float, _I32, _I32, _PTR]
-    ),
-}
-
-
-def _bind(lib):
-    """Declare the C signatures of the entry points ``lib`` exports, once
-    per library."""
-    err = lib.mml_cuda_error_string
-    if err.argtypes is None:
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name, None)
-            if fn is not None:
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-    return lib

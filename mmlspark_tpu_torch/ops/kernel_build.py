@@ -142,3 +142,68 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(paths[name]))
             _libs[name] = lib
         return lib
+
+
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C signatures: every pointer and the stream as ``c_void_p`` (an
+#: undeclared argument would pass as a 32-bit int and cut the pointer),
+#: strides as 64-bit
+SIGNATURES = {
+    "mml_flash_decode": (
+        [I32] + [PTR] * 6 + [I32] * 7 + [I64] * 8
+        + [ctypes.c_float, PTR]
+    ),
+    "mml_flash_decode_q8": (
+        [I32] + [PTR] * 8 + [I32] * 8 + [I64] * 8
+        + [ctypes.c_float, PTR]
+    ),
+    "mml_paged_flash_decode": (
+        [I32] * 2 + [PTR] * 9 + [I32] * 10 + [I64] * 2
+        + [ctypes.c_float, PTR]
+    ),
+    "mml_flash_attention_fwd": (
+        [I32] + [PTR] * 5 + [I32] * 5 + [I64] * 9
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    "mml_flash_attention_fwd_mma": (
+        [PTR] * 5 + [I32] * 5 + [I64] * 9
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    "mml_flash_attention_bwd_kv": (
+        [I32] + [PTR] * 8 + [I32] * 5 + [I64] * 12
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    "mml_flash_attention_bwd_q": (
+        [I32] + [PTR] * 7 + [I32] * 5 + [I64] * 12
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    "mml_flash_attention_bwd_kv_mma": (
+        [PTR] * 8 + [I32] * 5 + [I64] * 12
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    "mml_flash_attention_bwd_q_mma": (
+        [PTR] * 7 + [I32] * 5 + [I64] * 12
+        + [ctypes.c_float, I32, I32, PTR]
+    ),
+    # the optimizer's kind and tensor count, the p/g/m/v pointer tables
+    # and the numel table (host arrays), the four scalar pointers, the
+    # seven f32 constants, the stream
+    "mml_fused_optim": (
+        [I32] * 2 + [PTR] * 9 + [ctypes.c_float] * 7 + [PTR]
+    ),
+}
+
+
+def bind(lib):
+    """Declare the C signatures of the entry points ``lib`` exports (and
+    of its ``mml_cuda_error_string``), once per library."""
+    err = lib.mml_cuda_error_string
+    if err.argtypes is None:
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return lib

@@ -96,7 +96,10 @@ class SlotCachePool:
     owns the DEVICE-resident per-slot decode state that the fused decode
     block advances between host syncs: ``positions`` ((S,) int32, each
     slot's next write position) and ``live`` ((S,) bool, True = active
-    tenant). Free-slot convention: (pos 0, dead).
+    tenant). Free-slot convention: (pos 0, dead). Every buffer and both
+    state vectors keep their addresses for the pool's life: the engine's
+    captured programs read and write them in place (the decode program
+    advances ``positions`` and ``live`` from the block's outputs).
     """
 
     def __init__(self, graph, variables, slots: int, cache_len: int, *,

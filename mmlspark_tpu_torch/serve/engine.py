@@ -11,6 +11,20 @@ once, to read the block's ``(S, T)`` tokens and the live vector. Every
 micro-step reads each slot's cache through a hand-written CUDA decode
 kernel.
 
+The program ladder: as the JAX engine runs each serving program as one
+compiled XLA program, the port runs each as one CUDA graph
+(``testing/compile_guard.ProgramCountingGraph``): the prefill (one
+program per prefill bucket), the prefix-cache resume (one per remainder
+bucket; ``pos`` and ``last`` are device tensors, so the program does not
+depend on them) and the fused decode block (one per ladder size T). A
+program is captured after its signature's first, eager call and replayed
+after that; all of an engine's programs share one graph memory pool. The
+counts are ``decode_compile_count``, ``prefill_compile_count`` and
+``resume_compile_count``, under the JAX engine's pins, each program
+family behind a ``RetraceWatchdog``. On the CPU (``device="cpu"``) the
+programs run eagerly and are counted the same way. A program that fails to
+capture raises; there is no eager fallback.
+
 Prefill is bucketed by prompt length: prompts right-pad to power-of-two
 buckets (causality makes the pads invisible). Block sizes clamp to a
 power-of-two ladder and to the smallest remaining budget, so budget
@@ -37,30 +51,42 @@ a linear cache, the remainder runs at ``pos=keep`` against it, and the
 prefix's pages are mapped shared into the slot (copy-on-extend when the
 slot's writes enter a shared page).
 
-Weight-only int8 (``quantize_weights=True``, ``ops/quantize.py``): the
-engine keeps per-output-channel int8 weights on the device and
-dequantizes them to bf16 once per program call — each prefill or resume
-forward and each decode block — then drops the bf16 copy, so between
-calls only the int8 weights are resident. It composes with both pools
-and both KV dtypes.
+Weights: the bf16 engine casts each ``Dense`` leaf to its compute dtype
+once, when it is built (``models.transformer.compute_dtype_variables``),
+on its own copy of the variables; the caller's are untouched and the
+streams are bit-equal. Weight-only int8 (``quantize_weights=True``,
+``ops/quantize.py``): the engine keeps per-output-channel int8 weights on
+the device and dequantizes them to bf16 inside every program — each
+prefill or resume forward and each decode block — as the JAX engine runs
+``_deq`` inside each of its programs; the graph drops its binding after
+each call. No bf16 copy is reachable between calls, but the shared graph
+pool keeps the memory one call's bf16 workspace needs reserved
+(``graph_pool_bytes``). It composes with both pools and both KV dtypes.
 
 Decode is greedy — the same tokens as ``generate()`` per request, which
 is the engine's correctness contract (int8 pools and int8 weights:
 within a token-flip budget of the bf16 streams). Not in this slice:
 meshes, fault injection, retries and the degradation ladder (page exhaustion raises
-``ResourceExhausted``), chunked prefill, the async host loop, snapshots,
-hand-offs and SLOs (ROADMAP.md Queue 1 items 8-9, 12-13).
+``ResourceExhausted``), chunked prefill and its ``chunk`` programs, the
+async host loop, snapshots, hand-offs and SLOs (ROADMAP.md Queue 1 items
+8-9, 12-13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.core.env import default_device
+from mmlspark_tpu_torch.core.env import default_device, host_to_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
+from mmlspark_tpu_torch.core.telemetry import (
+    FlightRecorder,
+    MetricRegistry,
+    RetraceWatchdog,
+)
 from mmlspark_tpu_torch.models.bridge import variables_to
 from mmlspark_tpu_torch.models.generate import (
     _cached_apply,
@@ -68,6 +94,7 @@ from mmlspark_tpu_torch.models.generate import (
     init_cache,
     make_decode_block,
 )
+from mmlspark_tpu_torch.models.transformer import compute_dtype_variables
 from mmlspark_tpu_torch.ops.quantize import dequantize_weights
 from mmlspark_tpu_torch.ops.quantize import (
     quantize_weights as _quantize_variables,
@@ -79,6 +106,11 @@ from mmlspark_tpu_torch.serve.scheduler import (
     ContinuousBatchScheduler,
     RequestResult,
     ServeRequest,
+)
+from mmlspark_tpu_torch.testing.compile_guard import (
+    GraphPool,
+    ProgramCountingGraph,
+    program_count,
 )
 
 
@@ -139,6 +171,10 @@ class ServeEngine:
         if quantize_weights:
             self.variables = _quantize_variables(graph, self.variables,
                                                  min_size=0)
+        else:
+            # every Dense leaf in its compute dtype once, in place of the
+            # f32 leaf Dense.forward would cast on every call
+            self.variables = compute_dtype_variables(graph, self.variables)
         self.pad_id = pad_id
         self.cache_len = cache_len
         # floor to a power of two: block sizes live on the ladder
@@ -175,7 +211,66 @@ class ServeEngine:
                                                max_queue=max_queue)
         self._vocab = graph.extra.get("vocab_size")
         self._next_id = 0
-        self._decode = make_decode_block(graph, pad_id)
+        self._block = make_decode_block(graph, pad_id)
+        self.registry = MetricRegistry()
+        self.recorder = FlightRecorder()
+        # the program ladder: each family behind the retrace watchdog,
+        # with the JAX engine's budgets; the weights (argument 0) and the
+        # decode block's pool state (1-3) are read and written at their
+        # own addresses, everything else is copied into a program's
+        # static inputs
+        self._graph_pool = GraphPool()
+        self._prefill_program = self._program(
+            self._prefill_body, "serve.prefill", self.num_prefill_buckets,
+            state_argnums=(0,))
+        self._resume = None
+        if self._prefix_cache:
+            self._resume = self._program(
+                self._resume_body, "serve.resume", self.num_prefill_buckets,
+                state_argnums=(0,))
+        self._decode = self._program(
+            self._decode_body, "serve.decode", self.num_decode_blocks,
+            state_argnums=(0, 1, 2, 3))
+
+    def _program(self, fn, label: str, expected: int,
+                 state_argnums) -> RetraceWatchdog:
+        return RetraceWatchdog(
+            ProgramCountingGraph(fn, state_argnums=state_argnums,
+                                 pool=self._graph_pool, label=label),
+            label, registry=self.registry, recorder=self.recorder,
+            expected_programs=expected,
+        )
+
+    # -- the programs --------------------------------------------------------
+
+    def _prefill_body(self, variables, ids, last):
+        """(1, bucket) padded prompt -> (the first greedy token, read at
+        position ``last``, the true prompt end; a bucket-long linear
+        cache)."""
+        cache = init_cache(self.graph, variables, 1, ids.shape[1])
+        return self._resume_body(variables, ids, cache, 0, last)
+
+    def _resume_body(self, variables, ids, cache, pos, last):
+        """``ids`` at absolute position ``pos`` (0 for a prefill, a 0-d
+        device tensor for the prefix-cache remainder) against the linear
+        ``cache``."""
+        with self._weights(variables) as weights:
+            logits, cache = _cached_apply(self.graph, weights, ids, cache,
+                                          pos)
+        return greedy_next(_row(logits, last)), cache
+
+    def _decode_body(self, variables, buffers, positions, live, tok, rem,
+                     eos, t):
+        """One fused decode block of ``t`` micro-steps. The pool's
+        buffers are written in place, and its per-slot positions and live
+        mask advance in place from the block's outputs (the JAX engine
+        donates them); returns the (S, t) tokens."""
+        with self._weights(variables) as weights:
+            toks, new_live, _, new_pos = self._block(
+                weights, buffers, positions, live, tok, rem, eos, t)
+        positions.copy_(new_pos)
+        live.copy_(new_live)
+        return toks
 
     # -- prefill buckets ---------------------------------------------------
 
@@ -212,6 +307,43 @@ class ServeEngine:
         """How many distinct block sizes CAN run — one per ladder size T
         in {1, 2, 4, ..., decode_block}."""
         return self.decode_block.bit_length()
+
+    # -- program counts ------------------------------------------------------
+
+    @property
+    def decode_compile_count(self) -> int:
+        """How many DISTINCT decode-block programs exist — one per ladder
+        size actually run, never more than ``num_decode_blocks`` (the
+        micro-steps inside a block do not count)."""
+        return program_count(self._decode)
+
+    @property
+    def prefill_compile_count(self) -> int:
+        """How many prefill programs exist — bounded by
+        ``num_prefill_buckets``, however many distinct prompt lengths
+        arrive."""
+        return program_count(self._prefill_program)
+
+    @property
+    def resume_compile_count(self) -> int:
+        """How many prefix-resume programs exist — keyed by the REMAINDER
+        bucket, so bounded by ``num_prefill_buckets``; 0 without the
+        prefix cache."""
+        if self._resume is None:
+            return 0
+        return program_count(self._resume)
+
+    @property
+    def capture_seconds(self) -> float:
+        """Wall seconds the engine's programs took to capture (0 on the
+        CPU)."""
+        return sum(w.capture_seconds for w in (
+            self._prefill_program, self._resume, self._decode)
+            if w is not None)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the programs' shared graph pool holds reserved."""
+        return self._graph_pool.reserved_bytes()
 
     # -- introspection -----------------------------------------------------
 
@@ -338,49 +470,52 @@ class ServeEngine:
             r = p - keep
             bucket = self.prefill_bucket(r)
             lin = self.pool.gather_prefix(entry, keep)
-            logits, cache = self._forward(prompt[keep:], bucket, lin, keep)
+            tok, cache = self._resume(
+                self.variables, self._padded(prompt[keep:], bucket), lin,
+                self._scalar(keep), self._scalar(r - 1))
             # map the shared pages FIRST (the slot's references keep them
             # alive through any eviction the remainder write triggers),
             # then scatter only the remainder [keep, p)
             if self.pool.map_prefix(slot, entry, keep):
                 self.pool.write_prefill(slot, cache, p, start=keep)
-                return int(greedy_next(logits[0, r - 1])), bucket
+                return int(tok), bucket
             # the entry was evicted since the lookup: its pages may be
             # free or reallocated, so fall back to the full prefill
         bucket = self.prefill_bucket(p)
-        cache = init_cache(self.graph, self.variables, 1, bucket)
-        logits, cache = self._forward(prompt, bucket, cache, 0)
+        tok, cache = self._prefill_program(
+            self.variables, self._padded(prompt, bucket),
+            self._scalar(p - 1))
         # only the REAL prompt's K/V enter the slot; the pad tail of the
-        # bucket cache is dropped here
+        # bucket cache is dropped here (the program's outputs are consumed
+        # before any other program replays)
         self.pool.write_prefill(slot, cache, p)
         if self._prefix_cache:
             self.pool.prefix_insert(slot, prompt)
-        return int(greedy_next(logits[0, p - 1])), bucket
+        return int(tok), bucket
 
-    def _forward(self, tokens: np.ndarray, bucket: int, cache: dict,
-                 pos: int):
-        """``tokens`` right-padded to ``bucket`` through the model at
-        absolute position ``pos`` of the linear ``cache``."""
+    def _padded(self, tokens: np.ndarray, bucket: int):
+        """``tokens`` right-padded to (1, ``bucket``) on the device."""
         padded = np.full((1, bucket), self.pad_id, np.int32)
         padded[0, :len(tokens)] = tokens
-        ids = torch.from_numpy(padded).to(self.device)
+        return host_to_device(padded, self.device)
+
+    def _scalar(self, value: int):
+        """An int32 0-d device tensor (a fill, no host copy): a program's
+        position input."""
+        return torch.full((), value, dtype=torch.int32, device=self.device)
+
+    @contextlib.contextmanager
+    def _weights(self, variables: dict):
+        """The weights one program runs on: the resident variables, or —
+        weight-int8 — a bf16 dequantization made inside the program,
+        which the graph drops when the call ends (no bf16 copy outlives
+        it)."""
+        if not self._quantized_weights:
+            yield variables
+            return
         try:
-            return _cached_apply(self.graph, self._call_variables(), ids,
-                                 cache, pos)
+            yield dequantize_weights(variables)
         finally:
-            self._end_call()
-
-    def _call_variables(self) -> dict:
-        """The weights one program call runs on: the resident variables,
-        or — weight-int8 — a bf16 dequantization made for this call."""
-        if self._quantized_weights:
-            return dequantize_weights(self.variables)
-        return self.variables
-
-    def _end_call(self) -> None:
-        """After a weight-int8 call the graph drops its bound bf16
-        weights, so no bf16 copy outlives the call."""
-        if self._quantized_weights:
             self.graph.unbind()
 
     def _decode_phase(self, tick: int, finished: list) -> int:
@@ -398,23 +533,15 @@ class ServeEngine:
             # pre-map every page this block can write; the page table is
             # read-only during the block (its one host sync)
             self.pool.ensure_decode_pages(pre_pos, t_block)
-        try:
-            toks, live, _, positions = self._decode(
-                self._call_variables(), self.pool.buffers,
-                self.pool.positions, self.pool.live,
-                torch.from_numpy(tok).to(self.device),
-                torch.from_numpy(rem).to(self.device),
-                torch.from_numpy(eos).to(self.device), t_block,
-            )
-        finally:
-            self._end_call()
-        # the buffers were written in place; the per-slot state is
-        # rebound to the block's outputs
-        self.pool.positions = positions
-        self.pool.live = live
+        # the buffers, positions and live mask advance in place
+        toks = self._decode(
+            self.variables, self.pool.buffers, self.pool.positions,
+            self.pool.live, *(host_to_device(a, self.device)
+                              for a in (tok, rem, eos)), t_block,
+        )
         # the ONE host sync per block: (S, T) tokens + the live vector
         toks_h = toks.cpu().numpy()
-        live_h = live.cpu().numpy()
+        live_h = self.pool.live.cpu().numpy()
         decode_s = time.perf_counter() - td
         blk_finished, consumed = self._sched.consume(toks_h, tick)
         n_tokens = sum(consumed.values())
@@ -463,3 +590,9 @@ class ServeEngine:
             for res in self.step():
                 results[res.id] = res
         return results
+
+
+def _row(logits, last):
+    """Row ``last`` (a 0-d device tensor) of batch-1 ``logits`` (1, B, V):
+    a gather, so the host never reads the position."""
+    return torch.index_select(logits[0], 0, last.reshape(1).long())[0]

@@ -119,6 +119,13 @@ class PagedCachePool:
     FIRST write (prefill slice amax, or the first decode token's amax, +
     headroom), later writes into the page quantize against it, and
     copy-on-extend copies it with the page.
+
+    The page stores, the one device page table (refreshed by an in-place
+    copy from its host mirror), ``positions`` and ``live`` keep their
+    addresses for the pool's life: the engine's captured decode program
+    reads them there, and advances ``positions`` and ``live`` in place.
+    :meth:`gather_prefix` returns fixed ``(1, cache_len, Hkv, D)``
+    caches, the resume program's static inputs.
     """
 
     def __init__(self, graph, variables, slots: int, cache_len: int, *,

@@ -7,18 +7,34 @@ the graph in train mode, a mask-weighted mean loss, ``backward()``, the
 global gradient norm, the optimizer update and the in-graph anomaly
 quarantine: a non-finite loss or gradient norm, or a norm past
 ``max_grad_norm``, keeps the old parameters and optimizer state
-(its step count included) through ``torch.where``, so a skipped step is
-a pure data advance and costs no host sync. The quarantine's streak and
-total stay on the device; the host reads them at the ``log_every``
-cadence, when it already syncs for the loss, and aborts after
-``anomaly_limit`` consecutive bad steps.
+(its step count included), so a skipped step is a pure data advance and
+costs no host sync. The quarantine's streak and total stay on the
+device; the host reads them at the ``log_every`` cadence, when it already
+syncs for the loss, and aborts after ``anomaly_limit`` consecutive bad
+steps.
 
-The optimizers are optax's, written as plain tensor updates on the
-trainer's own leaf tensors: ``adam`` (b1 0.9, b2 0.999, eps 1e-8,
+The step is one program, as the JAX trainer jits it: on the card the
+first step runs eagerly (a real step of the trajectory, and the
+warm-up), then the whole step — forward, backward, gradient norm, update
+and quarantine — is captured once as a CUDA graph
+(``testing/compile_guard.ProgramCountingGraph``, behind a
+``RetraceWatchdog`` labelled ``train.step`` with one expected program)
+and replayed for every later step, each batch copied into its static
+inputs. All state — parameters, gradients, moments, the count and the
+quarantine's carries — is updated in place, at the addresses the program
+reads. ``steps_per_dispatch`` K steps are K replays with no host sync
+between them. The blocks draw no random numbers in train mode, so the
+captured step reads no generator state (``remat``'s recompute keeps
+none either). On the CPU the step runs eagerly.
+
+The optimizers are optax's: ``adam`` (b1 0.9, b2 0.999, eps 1e-8,
 bias-corrected), ``adamw`` (adam plus the decoupled ``weight_decay * p``
 before the learning rate), ``sgd`` and ``momentum`` (a trace, not
 Nesterov), with a constant, a linear-warmup or a warmup-cosine-decay
 learning rate read at the optimizer's count before it is incremented.
+The update and the quarantine's select are one pass
+(``ops/fused_optim.py``): one multi-tensor CUDA launch on the card, the
+plain tensor updates on the CPU.
 
 Ported here for one device; left out, each a ``ParamError`` naming its
 ROADMAP item when asked for: checkpoints and resume
@@ -41,12 +57,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mmlspark_tpu_torch.core.env import default_device
+from mmlspark_tpu_torch.core.env import default_device, host_to_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError, ParamError
-from mmlspark_tpu_torch.core.telemetry import FlightRecorder, MetricRegistry
+from mmlspark_tpu_torch.core.telemetry import (
+    FlightRecorder,
+    MetricRegistry,
+    RetraceWatchdog,
+)
 from mmlspark_tpu_torch.data.dataset import Dataset
 from mmlspark_tpu_torch.data.feed import MASK_COL, batch_iterator
 from mmlspark_tpu_torch.models import bridge
+from mmlspark_tpu_torch.ops.fused_optim import moment_names, optimizer_update
+from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
 
 _log = logging.getLogger("mmlspark_tpu_torch.train")
 
@@ -71,9 +93,9 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 50
     shuffle: bool = True
-    # K steps per dispatch in the JAX package (one compiled scan); here
-    # the K steps run one by one, and the log cadence coarsens to the
-    # K-step group as there
+    # K steps per dispatch: one compiled scan in the JAX package; here K
+    # replays of the captured step with no host sync between them. The
+    # log cadence coarsens to the K-step group as there
     steps_per_dispatch: int = 1
     # recompute each block's activations in the backward
     remat: bool = False
@@ -157,8 +179,8 @@ def _lr_schedule(cfg: TrainConfig, total_steps: int) -> Callable:
 class _Optimizer:
     """One of optax's ``adam``/``adamw``/``sgd``/``momentum`` on a list of
     tensors: ``init`` makes the state (``count`` and the moments or the
-    trace), ``update`` returns new parameters and state without touching
-    the old ones, so the quarantine can keep either."""
+    trace), ``update`` advances parameters and state in place unless the
+    step is bad (``ops/fused_optim.optimizer_update``)."""
 
     def __init__(self, cfg: TrainConfig, total_steps: int):
         if cfg.optimizer not in ("adam", "adamw", "sgd", "momentum"):
@@ -169,38 +191,17 @@ class _Optimizer:
         self.momentum = float(cfg.momentum)
 
     def init(self, params: list) -> dict:
-        count = torch.zeros((), dtype=torch.int32, device=params[0].device)
-        zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        if self.kind in ("adam", "adamw"):
-            return {"count": count, "mu": zeros(), "nu": zeros()}
-        if self.kind == "momentum":
-            return {"count": count, "trace": zeros()}
-        return {"count": count}
+        state = {"count": torch.zeros((), dtype=torch.int32,
+                                      device=params[0].device)}
+        for name in moment_names(self.kind):
+            state[name] = [torch.zeros_like(p) for p in params]
+        return state
 
-    def update(self, params: list, grads: list, state: dict):
-        count = state["count"]
-        step_size = -self.lr(count)
-        new = {"count": count + 1}
-        if self.kind in ("adam", "adamw"):
-            b1, b2, eps = 0.9, 0.999, 1e-8
-            new["mu"] = [(1 - b1) * g + b1 * m
-                         for g, m in zip(grads, state["mu"])]
-            new["nu"] = [(1 - b2) * g * g + b2 * n
-                         for g, n in zip(grads, state["nu"])]
-            c1 = 1 - torch.pow(b1, new["count"])
-            c2 = 1 - torch.pow(b2, new["count"])
-            updates = [(m / c1) / (torch.sqrt(n / c2) + eps)
-                       for m, n in zip(new["mu"], new["nu"])]
-            if self.kind == "adamw":
-                updates = [u + self.weight_decay * p
-                           for u, p in zip(updates, params)]
-        elif self.kind == "momentum":
-            new["trace"] = [g + self.momentum * t
-                            for g, t in zip(grads, state["trace"])]
-            updates = new["trace"]
-        else:
-            updates = grads
-        return [p + step_size * u for p, u in zip(params, updates)], new
+    def update(self, params: list, grads: list, state: dict, bad) -> None:
+        optimizer_update(self.kind, params, grads, state,
+                         self.lr(state["count"]), bad,
+                         weight_decay=self.weight_decay,
+                         momentum=self.momentum)
 
 
 def masked_loss(kind: str, logits, labels, mask):
@@ -295,7 +296,8 @@ class SPMDTrainer:
         seen_anoms = 0
 
         def to_dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            # no host sync: K steps a dispatch run back to back
+            return host_to_device(np.ascontiguousarray(a), dev)
 
         def loss_of(bx, by, bm):
             out, _ = self.graph.apply(variables, bx, train=True, mask=bm,
@@ -303,7 +305,6 @@ class SPMDTrainer:
             return masked_loss(cfg.loss, out, by, bm)
 
         def step(bx, by, bm):
-            nonlocal opt_state, streak, anoms
             for p in params:
                 p.grad = None
             if accum == 1:
@@ -330,18 +331,21 @@ class SPMDTrainer:
                          else (p.grad if denom is None else p.grad / denom)
                          for p in params]
                 gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-                new_params, new_state = opt.update(params, grads, opt_state)
                 bad = ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
                 if cfg.max_grad_norm > 0.0:
                     bad = bad | (gnorm > cfg.max_grad_norm)
-                for p, q in zip(params, new_params):
-                    p.copy_(torch.where(bad, p, q))
-                opt_state = {k: _keep(bad, old, new_state[k])
-                             for k, old in opt_state.items()}
-                streak = torch.where(bad, streak + 1, torch.zeros_like(streak))
-                anoms = anoms + bad.int()
+                # the update and the quarantine's select, in place
+                opt.update(params, grads, opt_state, bad)
+                streak.copy_(torch.where(bad, streak + 1,
+                                         torch.zeros_like(streak)))
+                anoms.add_(bad.int())
             return loss.detach(), gnorm
 
+        program = RetraceWatchdog(
+            ProgramCountingGraph(step, label="train.step"), "train.step",
+            registry=self.telemetry, recorder=self.recorder,
+            expected_programs=1,
+        )
         k_steps = max(int(cfg.steps_per_dispatch), 1)
         log_every = max(cfg.log_every, 1)
         tokens_per_step = batch * (x.shape[1] if np.ndim(x) == 2 else 1)
@@ -354,8 +358,8 @@ class SPMDTrainer:
             while group := list(itertools.islice(it, k_steps)):
                 t_group = time.perf_counter()
                 for b in group:
-                    loss, gnorm = step(to_dev(b["x"]), to_dev(b["y"]),
-                                       to_dev(b[MASK_COL]))
+                    loss, gnorm = program(to_dev(b["x"]), to_dev(b["y"]),
+                                          to_dev(b[MASK_COL]))
                 # log once if any step of the group hits the cadence,
                 # with the group's last loss (the JAX chunk rule)
                 next_log = step_no + (-step_no) % log_every
@@ -373,6 +377,8 @@ class SPMDTrainer:
                                      **metrics})
         # the end-of-run sweep: a bad streak that never met the cadence
         self._check_anomalies(streak, anoms, seen_anoms, step_no - 1)
+        self.telemetry.gauge("train.step_capture_s").set(
+            program.capture_seconds)
         return _detached(variables)
 
     def _log_step(self, at_step: int, epoch: int, loss, gnorm,
@@ -419,13 +425,6 @@ class SPMDTrainer:
                 "quarantine kept params and optimizer state at their last "
                 "healthy values"
             )
-
-
-def _keep(bad, old, new):
-    """The quarantine's select: ``old`` where the step was bad."""
-    if isinstance(old, list):
-        return [torch.where(bad, o, n) for o, n in zip(old, new)]
-    return torch.where(bad, old, new)
 
 
 def _detached(variables: dict) -> dict:

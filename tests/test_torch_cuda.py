@@ -22,6 +22,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -618,3 +619,218 @@ def test_sampling_and_beam_search_on_card(cuda, monkeypatch):
                          decode_block=4, quantize_weights=True)
     rid = engine.submit(prompt[0].cpu().numpy(), max_new_tokens=8)
     assert engine.run()[rid].generated == 8
+
+
+# -- the program ladder: CUDA graphs -------------------------------------------
+
+
+def _small_lm():
+    from mmlspark_tpu_torch.models import build_model, init_variables
+
+    graph = build_model("transformer_lm", vocab_size=64, d_model=64,
+                        heads=2, depth=2, max_len=64)
+    return graph, init_variables(graph, 11, device="cuda")
+
+
+def _clone_state(pool):
+    bufs = {n: tuple(t.clone() for t in e) for n, e in pool.buffers.items()}
+    return bufs, pool.positions.clone(), pool.live.clone()
+
+
+def _counts():
+    return {n: getattr(fa, n) for n in fa.COUNTERS}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(kv_dtype="int8"),
+    dict(paged=True, page_size=16, prefix_cache=True),
+    dict(paged=True, page_size=16, kv_dtype="int8"),
+    dict(quantize_weights=True),
+], ids=["dense", "dense_int8", "paged", "paged_int8", "weight_int8"])
+def test_captured_decode_block_matches_eager(cuda, kw):
+    """A captured decode block replayed on a pool's state emits the same
+    tokens and leaves the same KV bytes, positions and live mask as the
+    eager ``make_decode_block`` on a copy of that state, and its replay
+    adds the eager call's kernel launches to the counters."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    engine = ServeEngine(graph, variables, slots=4, cache_len=64,
+                         decode_block=4, **kw)
+    rng = np.random.default_rng(3)
+    for n in (5, 12, 9):
+        engine.submit(rng.integers(0, 64, size=n), 30)
+    engine.step()  # prefills, and the T=4 program's eager call and capture
+    assert engine.decode_compile_count == 1
+    tok, rem, eos, _ = engine._sched.decode_block_inputs(engine.pad_id)
+    if engine._paged:
+        engine.pool.ensure_decode_pages(
+            {s: st.pos for s, st in engine._sched.active.items()}, 4)
+    args = [torch.from_numpy(a).cuda() for a in (tok, rem, eos)]
+    bufs, pos, live = _clone_state(engine.pool)
+    before = _counts()
+    with engine._weights(engine.variables) as weights:
+        want_toks, want_live, _, want_pos = engine._block(
+            weights, bufs, pos, live, *args, 4)
+    torch.cuda.synchronize()
+    eager = {n: v - before[n] for n, v in _counts().items()}
+    before = _counts()
+    got = engine._decode(engine.variables, engine.pool.buffers,
+                         engine.pool.positions, engine.pool.live, *args, 4)
+    torch.cuda.synchronize()
+    replay = {n: v - before[n] for n, v in _counts().items()}
+    assert engine.decode_compile_count == 1  # a replay, no new program
+    assert torch.equal(got, want_toks)
+    assert torch.equal(engine.pool.positions, want_pos)
+    assert torch.equal(engine.pool.live, want_live)
+    for name, entry in engine.pool.buffers.items():
+        for a, b in zip(entry, bufs[name]):
+            assert torch.equal(a, b), name
+    assert replay == eager and sum(eager.values()) == 2 * 4  # 2 layers
+
+
+def test_program_counts_hold_on_a_short_schedule(cuda):
+    """Mixed-length joiners through the dense and the paged prefix-cache
+    engines: streams equal ``generate()`` on the card, the programs stay
+    within their pins and were captured (capture time and pool bytes)."""
+    from mmlspark_tpu_torch.models import generate
+    from mmlspark_tpu_torch.serve import ServeEngine
+    from mmlspark_tpu_torch.testing import serve_compile_guard
+
+    graph, variables = _small_lm()
+    rng = np.random.default_rng(4)
+    head = rng.integers(0, 64, size=20)
+    prompts = [np.concatenate([head, rng.integers(0, 64, size=n)])
+               for n in (3, 7, 1, 12)] + [rng.integers(0, 64, size=n)
+                                         for n in (4, 17)]
+    for kw in (dict(), dict(paged=True, page_size=16, prefix_cache=True)):
+        engine = ServeEngine(graph, variables, slots=2, cache_len=64,
+                             decode_block=8, **kw)
+        with serve_compile_guard(engine, min_decode=1, min_prefill=1):
+            rids = [engine.submit(p, 9) for p in prompts]
+            results = engine.run()
+        for rid, p in zip(rids, prompts):
+            want = generate(graph, variables, p[None], 9)[0].cpu().numpy()
+            np.testing.assert_array_equal(results[rid].tokens, want)
+        assert engine.resume_compile_count <= engine.num_prefill_buckets
+        if kw:
+            assert engine.pool.prefix_hits >= 1
+            assert engine.resume_compile_count >= 1
+        assert engine.capture_seconds > 0
+        assert engine.graph_pool_bytes() > 0
+
+
+def _optimizer_tensors(kind, n_tensors, seed):
+    from mmlspark_tpu_torch.ops.fused_optim import moment_names
+
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(4096 * 3 + 17,), (64, 65), (1,), (5000,)]
+    shapes = [shapes[i % len(shapes)] for i in range(n_tensors)]
+
+    def make(scale=1.0, positive=False):
+        out = [torch.randn(s, generator=gen) * scale for s in shapes]
+        return [(t.abs() if positive else t).cuda() for t in out]
+
+    params, grads = make(), make()
+    moments = [make(0.1, positive=(name == "nu"))
+               for name in moment_names(kind)]
+    return params, grads, moments
+
+
+@pytest.mark.parametrize("bad", [False, True])
+@pytest.mark.parametrize("kind", ["adam", "adamw", "sgd", "momentum"])
+def test_fused_optimizer_is_bit_equal_to_plain(cuda, kind, bad):
+    """The fused kernel against the plain update on the same CUDA
+    tensors: bit-equal parameters and moments in f32, nothing written
+    where ``bad``; 130 tensors take two launches (128 a table)."""
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    for n_tensors in (4, 130):
+        params, grads, moments = _optimizer_tensors(kind, n_tensors, 5)
+        plain = ([p.clone() for p in params],
+                 [[t.clone() for t in m] for m in moments])
+        step_size = torch.full((), -3e-3, device=cuda)
+        count = torch.full((), 7, dtype=torch.int32, device=cuda)
+        c1 = 1 - torch.pow(fo.ADAM_B1, count)
+        c2 = 1 - torch.pow(fo.ADAM_B2, count)
+        flag = torch.tensor(bad, device=cuda)
+        args = (step_size, c1, c2, flag)
+        kw = dict(weight_decay=0.1, momentum=0.8)
+        before = fo.launches
+        fo._launch(kind, params, grads, moments, *args, **kw)
+        assert fo.launches - before == -(-n_tensors // fo.MAX_TENSORS)
+        fo.optimizer_update_reference(kind, plain[0], grads, plain[1],
+                                      *args, **kw)
+        torch.cuda.synchronize()
+        for got, want in zip(params + sum(moments, []),
+                             plain[0] + sum(plain[1], [])):
+            assert torch.equal(got, want)
+        if bad:
+            assert torch.equal(params[0], _optimizer_tensors(
+                kind, n_tensors, 5)[0][0])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(remat=True),
+                                dict(grad_accum=2)],
+                         ids=["plain", "remat", "grad_accum2"])
+def test_captured_training_step_matches_eager(cuda, kw, monkeypatch):
+    """Four adam steps through the trainer, whose step is captured after
+    step 0 and replayed, against the same four steps run eagerly on the
+    card (the program wrapper swapped for a plain call): the same losses
+    and parameters within 1e-6 (f32), one program, one fused-optimizer
+    launch a step."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+    from mmlspark_tpu_torch.train import trainer as trainer_mod
+
+    graph = build_model("transformer_lm", vocab_size=64, d_model=64,
+                        heads=4, kv_heads=2, depth=2, max_len=48,
+                        attn_impl="flash")
+    for _, mod in graph.blocks:
+        for m in mod.modules():
+            if hasattr(m, "dtype"):
+                m.dtype = torch.float32
+    x = torch.randint(0, 64, (16, 48), generator=torch.Generator()
+                      .manual_seed(0)).numpy()
+    weights = init_variables(graph, 2, device="cuda")
+
+    def run():
+        trainer = SPMDTrainer(graph, TrainConfig(
+            batch_size=4, learning_rate=1e-3, log_every=1, **kw))
+        before = fo.launches
+        out = trainer.train(x, x, init_variables=weights)
+        torch.cuda.synchronize()
+        return trainer, out, fo.launches - before
+
+    graphed, got, launches = run()
+    assert launches == 4
+    assert graphed.telemetry.counter("retrace.train.step").value == 1
+
+    class Eager:
+        def __init__(self, fn, **_):
+            self.fn = fn
+
+        def __call__(self, *args):
+            return self.fn(*args)
+
+    monkeypatch.setattr(trainer_mod, "ProgramCountingGraph", Eager)
+    eager, want, _ = run()
+    for a, b in zip(graphed.history, eager.history):
+        assert abs(a["loss"] - b["loss"]) <= 1e-6
+    for block, leaves in want.items():
+        for name, w in leaves.items():
+            assert (got[block][name] - w).abs().max().item() <= 1e-6
+
+
+def test_capture_that_syncs_the_host_raises(cuda):
+    """A program that reads a device value on the host cannot be
+    captured: the wrapper raises, after the first (eager) call ran."""
+    from mmlspark_tpu_torch.testing import ProgramCountingGraph
+
+    prog = ProgramCountingGraph(lambda x: x * x.sum().item(),
+                                label="syncing")
+    with pytest.raises(RuntimeError, match="syncing: the program failed"):
+        prog(torch.ones(4, device=cuda))
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0

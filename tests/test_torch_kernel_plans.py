@@ -233,3 +233,43 @@ def test_decode_signatures_carry_the_workspace():
     assert sig["mml_flash_decode_q8"].count(fa._PTR) == 9
     assert sig["mml_paged_flash_decode"].count(fa._PTR) == 10
     assert "mml_flash_attention_fwd_mma" in sig
+
+
+# -- the fused optimizer's route --------------------------------------------------
+
+
+def test_fused_optimizer_route_by_device():
+    """A CPU tensor takes the plain update, a CUDA tensor the kernel;
+    any other device raises."""
+    from types import SimpleNamespace
+
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    assert fo.fused_update_route(torch.zeros(2)) == "plain"
+    assert fo.fused_update_route(
+        SimpleNamespace(device=torch.device("cuda", 0))) == "cuda"
+    with pytest.raises(ValueError, match="cuda .the kernel. or cpu"):
+        fo.fused_update_route(torch.zeros(2, device="meta"))
+
+
+@pytest.mark.parametrize("route", ["plain", "cuda"])
+def test_fused_optimizer_dispatch_follows_the_route(route, monkeypatch):
+    """``optimizer_update`` calls the plain version on the plain route
+    and launches the kernel on the cuda route, never both; the count
+    advances either way."""
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+
+    called = []
+    monkeypatch.setattr(fo, "fused_update_route", lambda t: route)
+    monkeypatch.setattr(fo, "_launch",
+                        lambda *a, **k: called.append("cuda"))
+    reference = fo.optimizer_update_reference
+    monkeypatch.setattr(fo, "optimizer_update_reference",
+                        lambda *a, **k: (called.append("plain"),
+                                         reference(*a, **k)))
+    params = [torch.ones(3)]
+    state = {"count": torch.zeros((), dtype=torch.int32),
+             "mu": [torch.zeros(3)], "nu": [torch.zeros(3)]}
+    fo.optimizer_update("adam", params, [torch.ones(3)], state,
+                        torch.full((), 0.1), torch.tensor(False))
+    assert called == [route] and int(state["count"]) == 1
