@@ -57,6 +57,35 @@ Phases (each one fails the run with a non-zero exit on error):
      dense pool, and 4 of its streams (2 prefix hits) equal
      ``generate()`` or first differ at a near tie. The int8 flip rates
      are reported, not gated;
+   then chunked prefill and the async host loop (the ``chunked_async``
+   line), each run a main path of its own: 16 requests, 2 a tick, 64 new
+   tokens, even ones 240-440-token prompts and odd ones 8-64, through the
+   dense bf16 engine (a) sync and monolithic, (b) ``prefill_chunk=64``
+   (the chunk ladder 8-64: 4 programs), (c) ``async_host=True``, (d)
+   both; then (d) on the paged prefix-cache engines, bf16 and int8, over
+   the shared-header schedule, each with a warm pass. Gates: every
+   request completes; (c) bit-equal to (a); (b), (d) and the paged runs
+   equal to their sync monolithic twins or first differing at a near
+   tie (the twin's top-2 margin under the full forward below
+   BF16_LOGIT_TOL), and every emitted token within BF16_LOGIT_TOL of the
+   full forward's best; every program count within its pin; at most one
+   fetch a block; on the async runs, overlapped dispatches and at least
+   one fetch that returned while the next block was still running; the
+   decode kernel launched ``depth`` times a micro-step. Reported: warm
+   tokens/s, the short requests' TTFT p50/p99, per-token ms,
+   ``host_idle_fraction``, capture seconds, and one steady T=32 block's
+   wall time, busy share and host dispatch/fetch ms, sync against async.
+   Then the resilience layer (the ``resilience`` line): the async
+   chunked engine under a transient and two OOMs at ``serve.decode`` and
+   a poisoned block for slot 1 — every request terminal, exactly the
+   poisoned one failed (its tokens the real pre-fault ones), the rest
+   equal to the fault-free (d) or first differing at a near tie, not
+   degraded at the end, decode programs within the pin; a 2^46-element
+   allocation raising an error ``is_resource_exhausted`` accepts; the
+   crash drill (snapshots every tick, a kill at ``serve.prefill`` while
+   fills are open, a restore from ``last_snapshot``, the streams against
+   (d)'s); and a bit-flipped snapshot refused with
+   ``SnapshotCorruption``;
    plus the full-width model's cached decode step on the card against
    the same step on the CPU, in float32: over a dense cache (1e-3), a
    paged float32 cache (1e-3), and int8 dense and paged caches (1e-2),
@@ -147,6 +176,9 @@ N_CHECKED = 4
 #: the paged engine and the shared-header schedule: a 72-token header
 #: ends mid-page (72 = 4.5 pages of 16)
 PAGE_SIZE, HEADER_LEN = 16, 72
+#: the chunked/async phase: the chunk width (the ladder 8-64: 4 buckets);
+#: the crash drill's kill tick (while long fills are open)
+CHUNK, KILL_TICK = 64, 3
 #: the bf16 logit tolerance of tests/test_torch_model.py: a stream may
 #: first differ from generate() only where the top-2 margin is below it
 BF16_LOGIT_TOL = 6.25e-2
@@ -603,9 +635,9 @@ def drive(engine, prompts) -> dict:
         # note which admissions the prefix cache served
         inner = engine._prefill
 
-        def prefill(slot, prompt):
+        def prefill(slot, prompt, *rest):
             before = engine.pool.prefix_hits
-            out = inner(slot, prompt)
+            out = inner(slot, prompt, *rest)
             if engine.pool.prefix_hits > before:
                 hits.add(by_prompt[np.asarray(prompt, np.int32).tobytes()])
             return out
@@ -785,7 +817,8 @@ def fresh_metrics(engine) -> None:
     engine.metrics = ServeMetrics(
         old.model, old.slots, decode_block=old.decode_block,
         cache_pool_bytes_per_device=old.cache_pool_bytes_per_device,
-        kv_dtype=old.kv_dtype)
+        kv_dtype=old.kv_dtype, prefill_chunk=old.prefill_chunk,
+        async_host=old.async_host)
     if old._paging_provider is not None:
         engine.metrics.attach_paging(old._paging_provider)
 
@@ -912,6 +945,400 @@ def check_header_engines(graph, variables) -> dict:
     log("flip rates against the dense bf16 streams: " + str({
         k: r["flip_rate_vs_dense_bf16"] for k, r in runs.items()}))
     return runs
+
+
+# -- chunked prefill, the async host loop, the resilience layer ------------------
+
+
+def long_short_schedule() -> list:
+    """The chunked/async schedule: 16 prompts arriving 2 a tick, even ones
+    long (240-440 tokens: 4-7 chunks of 64), odd ones short (8-64)."""
+    rng = np.random.default_rng(7)
+    vocab = SERVE_MODEL["vocab_size"]
+    return [rng.integers(0, vocab, size=int(
+        rng.integers(240, 441) if i % 2 == 0 else rng.integers(8, 65)))
+        for i in range(N_REQUESTS)]
+
+
+def watch_fetches(engine) -> dict:
+    """Count the engine's block fetches, and those that returned while the
+    block dispatched after the fetched one was still running on the card
+    (its staging event not yet complete): the async loop's overlap."""
+    seen = {"fetches": 0, "overlapped_fetches": 0}
+    inner = engine._fetch
+
+    def fetch(inflight):
+        out = inner(inflight)
+        seen["fetches"] += 1
+        nxt = engine._inflight
+        if nxt is not None and nxt["event"] is not None and \
+                not nxt["event"].query():
+            seen["overlapped_fetches"] += 1
+        return out
+
+    engine._fetch = fetch
+    return seen
+
+
+def forced_logits(graph, variables, tokens):
+    """The full forward's next-token logits over a stream: row t predicts
+    token t + 1 (teacher forcing, f32)."""
+    import torch
+
+    ids = torch.from_numpy(np.asarray(tokens[:-1], np.int32)[None])
+    return graph.apply(variables, ids.to(DEVICE))[0].float()
+
+
+def check_near_ties(graph, variables, label: str, got: dict, want: dict,
+                    exact: bool) -> dict:
+    """Each stream of ``got`` against its twin in ``want``: equal, or —
+    unless ``exact`` — first differing at a near tie (the twin's top-2
+    margin under the full forward below BF16_LOGIT_TOL); and every token
+    each stream emitted within BF16_LOGIT_TOL of the best logit of the
+    full forward over that stream (checked on the differing streams and
+    on 4 others). Returns the divergences and the largest per-step gap."""
+    import torch
+
+    diverged, worst = [], 0.0
+    checked = sorted(got)[::max(1, len(got) // N_CHECKED)]
+    for rid in sorted(got):
+        g, w = got[rid], want[rid]
+        same = g.tokens.shape == w.tokens.shape and \
+            np.array_equal(g.tokens, w.tokens)
+        if same and rid not in checked:
+            continue
+        logits = forced_logits(graph, variables, g.tokens)
+        p = g.prompt_len
+        steps = logits[p - 1:]
+        picked = steps.gather(1, torch.from_numpy(
+            g.tokens[p:].astype(np.int64))[:, None].to(DEVICE))[:, 0]
+        gap = float((steps.max(dim=1).values - picked).max())
+        worst = max(worst, gap)
+        if gap > BF16_LOGIT_TOL:
+            raise AssertionError(f"{label} request {rid}: an emitted token "
+                                 f"is {gap} below the full forward's best")
+        if same:
+            continue
+        n = min(len(g.tokens), len(w.tokens))
+        first = int(np.argmax(g.tokens[:n] != w.tokens[:n])) if \
+            (g.tokens[:n] != w.tokens[:n]).any() else n
+        top2 = logits[first - 1].sort().values[-2:]
+        margin = float(top2[1] - top2[0])
+        if exact or first < p or not margin < BF16_LOGIT_TOL:
+            raise AssertionError(
+                f"{label} request {rid}: differs from its twin at token "
+                f"{first} (prompt {p}), top-2 margin {margin}")
+        diverged.append({"request": int(rid), "token": first,
+                         "margin": margin})
+    log(f"{label}: streams equal their twin's or first differ at a near "
+        f"tie: {diverged}; largest emitted-token gap to the full forward's "
+        f"best {worst:.4g}")
+    return {"diverged": diverged, "max_emitted_gap": worst}
+
+
+def short_ttft(metrics, results: dict, prompts) -> dict:
+    """TTFT p50/p99 (ms) of the short requests of a pass."""
+    short = {rid for rid in results
+             if len(prompts[rid % len(prompts)]) <= 64}
+    ttft = sorted(t * 1e3 for rid, t in zip(metrics.ttft_req_ids,
+                                            metrics.ttft_s) if rid in short)
+    if not ttft:
+        return {"short_ttft_ms_p50": None, "short_ttft_ms_p99": None}
+    return {"short_ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "short_ttft_ms_p99": float(np.percentile(ttft, 99))}
+
+
+CHUNKED_KEYS = ("tokens_per_sec", "per_token_ms", "host_idle_fraction",
+                "host_sync_wait_s", "overlapped_dispatches_total",
+                "chunked_prefills_total", "decode_blocks")
+
+
+def chunked_async_run(label, graph, variables, prompts, counter, **kw):
+    """One engine mode's main path (the counts zeroed just before, read
+    just after) and a warm pass of the same schedule on it. Gates: every
+    request completes; the decode kernel launched ``depth`` times a
+    micro-step; every program family within its pin; at most one fetch a
+    dispatched block. Returns (the first pass's results, the summary)."""
+    engine = make_engine(graph, variables, **kw)
+    seen = watch_fetches(engine)
+    run = drive(engine, prompts)
+    check_run(label, run, counter)
+    blocks = sum(engine.metrics.decode_blocks.values())
+    first_seen = dict(seen)
+    fresh_metrics(engine)
+    warm = drive(engine, prompts)
+    check_run(f"{label} warm", warm, counter)
+    pins = {
+        "decode_compile_count": (engine.decode_compile_count,
+                                 engine.num_decode_blocks),
+        "prefill_compile_count": (engine.prefill_compile_count,
+                                  engine.num_prefill_buckets),
+        "resume_compile_count": (engine.resume_compile_count,
+                                 engine.num_prefill_buckets),
+    }
+    over = {k: v for k, v in pins.items() if v[0] > v[1]}
+    if over:
+        raise AssertionError(f"{label}: programs over their pins: {over}")
+    if first_seen["fetches"] > blocks:
+        raise AssertionError(f"{label}: {first_seen['fetches']} fetches for "
+                             f"{blocks} blocks")
+    m = warm["metrics"]
+    out = {k: m[k] for k in CHUNKED_KEYS}
+    out.update(short_ttft(engine.metrics, warm["results"], prompts),
+               programs={k: v[0] for k, v in pins.items()},
+               pins={k: v[1] for k, v in pins.items()},
+               capture_s=engine.capture_seconds,
+               launch_counts=run["counts"], decode_micro_steps=run[
+                   "micro_steps"], blocks=blocks, **first_seen)
+    log(f"{label}: {out}")
+    del engine
+    gc.collect()
+    return run["results"], out
+
+
+def host_timed(acc: dict, key: str, fn):
+    """``fn``, adding the host's wall ms in each call to ``acc[key]``."""
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            acc[key] += (time.perf_counter() - t0) * 1e3
+    return timed
+
+
+def profile_block_modes(graph, variables) -> dict:
+    """Wall time and device busy share of steady T=32 blocks, sync against
+    async: all 8 slots live, the programs captured, then 4 ticks under
+    ``torch.profiler`` from an idle card to a synchronize; with the host's
+    ms a block in the dispatch (inputs, the replay, the staging) and in
+    the fetch (the wait included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, kw in (("sync", {}), ("async", dict(async_host=True))):
+        engine = make_engine(graph, variables, **kw)
+        rng = np.random.default_rng(1)
+        for _ in range(SLOTS):
+            engine.submit(rng.integers(0, SERVE_MODEL["vocab_size"],
+                                       size=32), 1 + 8 * DECODE_BLOCK)
+        for _ in range(3):
+            engine.step()  # admissions, the T=32 program's eager call
+        torch.cuda.synchronize()
+        host = {"dispatch_ms": 0.0, "fetch_ms": 0.0}
+        for name, attr in (("dispatch_ms", "_dispatch_block"),
+                           ("fetch_ms", "_fetch_inflight")):
+            setattr(engine, attr, host_timed(host, name,
+                                             getattr(engine, attr)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof_out = device_profile(prof, wall_ms)
+        out[label] = dict(prof_out, block_wall_ms=wall_ms / 4, blocks=4,
+                          host_dispatch_ms=host["dispatch_ms"] / 4,
+                          host_fetch_ms=host["fetch_ms"] / 4,
+                          decode_compile_count=engine.decode_compile_count)
+        del engine
+        gc.collect()
+    log("block wall, busy share, host dispatch and fetch ms, sync vs "
+        "async: " + str({k: (v["block_wall_ms"], v["device_busy_share"],
+                             v["host_dispatch_ms"], v["host_fetch_ms"])
+                         for k, v in out.items()}))
+    return out
+
+
+def check_chunked_async(graph, variables, header: dict) -> tuple:
+    """The chunked/async phase: the long/short schedule through the dense
+    bf16 engine sync and monolithic (a), chunked (b), async (c) and both
+    (d); then chunked+async on the paged prefix-cache engines, bf16 and
+    int8, over the shared-header schedule, against the header phase's
+    sync monolithic runs. Gates: (c) bit-equal to (a); the others equal
+    to their twin or first differing at a near tie; the async runs
+    overlapped a fetch with a running block. Returns (the line, (d)'s
+    results)."""
+    prompts = long_short_schedule()
+    chunk = dict(prefill_chunk=CHUNK)
+    runs, results = {}, {}
+    for key, kw in (("a_sync", {}), ("b_chunked", chunk),
+                    ("c_async", dict(async_host=True)),
+                    ("d_chunked_async", dict(chunk, async_host=True))):
+        results[key], runs[key] = chunked_async_run(
+            f"chunked_async {key}", graph, variables, prompts, "launches",
+            **kw)
+    check_near_ties(graph, variables, "chunked_async c_async",
+                    results["c_async"], results["a_sync"], exact=True)
+    for key in ("b_chunked", "d_chunked_async"):
+        runs[key].update(check_near_ties(
+            graph, variables, f"chunked_async {key}", results[key],
+            results["a_sync"], exact=False))
+    paged = dict(paged=True, page_size=PAGE_SIZE,
+                 num_pages=paged_num_pages(), prefix_cache=True,
+                 async_host=True, **chunk)
+    hprompts = header_schedule()
+    for key, kw, counter, twin in (
+        ("paged_bf16_chunked_async", paged, "paged_launches",
+         "header paged bf16"),
+        ("paged_int8_chunked_async", dict(paged, kv_dtype="int8"),
+         "paged_q8_launches", "header paged int8"),
+    ):
+        got, runs[key] = chunked_async_run(
+            f"chunked_async {key}", graph, variables, hprompts, counter,
+            **kw)
+        runs[key].update(check_near_ties(
+            graph, variables, f"chunked_async {key}", got,
+            header[twin]["results"], exact=False))
+    for key, run in runs.items():
+        if "async" in key and not (run["overlapped_dispatches_total"] > 0
+                                   and run["overlapped_fetches"] > 0):
+            raise AssertionError(f"chunked_async {key}: no pipelined "
+                                 f"overlap: {run}")
+    line = {"runs": runs, "block_modes": profile_block_modes(graph,
+                                                             variables),
+            "prefill_chunk": CHUNK, "long_prompts": [240, 440],
+            "short_prompts": [8, 64]}
+    return line, results["d_chunked_async"]
+
+
+def drive_until_killed(engine, prompts, submitted: int, results: dict):
+    """``drive``'s arrivals from request ``submitted`` on, until the
+    engine drains or is killed; returns (submitted, killed)."""
+    from mmlspark_tpu_torch.core.faults import EngineKilled
+
+    while submitted < len(prompts) or engine.busy:
+        for _ in range(ARRIVALS_PER_TICK):
+            if submitted < len(prompts):
+                engine.submit(prompts[submitted], MAX_NEW)
+                submitted += 1
+        try:
+            for res in engine.step():
+                results[res.id] = res
+        except EngineKilled:
+            return submitted, True
+    return submitted, False
+
+
+def check_resilience(graph, variables, clean: dict) -> dict:
+    """The resilience phase on the async chunked dense engine: a fault
+    schedule (a transient and two OOMs at ``serve.decode``, the first
+    fetched block holding slot 1 poisoned at ``serve.device_get``)
+    against the fault-free run
+    (``clean``); a real allocation failure; the crash drill (a kill at
+    ``serve.prefill`` mid-fill, restore from ``last_snapshot``); and a
+    bit-flipped snapshot."""
+    import torch
+
+    from mmlspark_tpu_torch.core import integrity
+    from mmlspark_tpu_torch.core.faults import (
+        Fault,
+        FaultInjector,
+        is_resource_exhausted,
+    )
+    from mmlspark_tpu_torch.core.integrity import SnapshotCorruption
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    prompts = long_short_schedule()
+    kw = dict(prefill_chunk=CHUNK, async_host=True, retry_backoff_s=0.0,
+              degrade_recover_ticks=4)
+    inj = FaultInjector([
+        Fault("serve.decode", "transient"),
+        Fault("serve.decode", "oom", times=2),
+        Fault("serve.device_get", "poison", slot=1),
+    ])
+    engine = make_engine(graph, variables, faults=inj, **kw)
+    zero_counts()
+    results = {}
+    drive_until_killed(engine, prompts, 0, results)
+    counts = read_counts()
+    failed = [rid for rid, r in results.items() if r.status == "failed"]
+    if len(results) != N_REQUESTS or len(failed) != 1 or \
+            inj.counts != {"transient": 1, "oom": 2, "poison": 1}:
+        raise AssertionError(f"resilience: results {len(results)}, failed "
+                             f"{failed}, faults {inj.counts}")
+    bad = results[failed[0]]
+    if not np.array_equal(bad.tokens,
+                          clean[failed[0]].tokens[:len(bad.tokens)]):
+        raise AssertionError("resilience: the quarantined request's "
+                             "tokens are not its real pre-fault tokens")
+    ok = {rid: r for rid, r in results.items() if rid != failed[0]}
+    ties = check_near_ties(graph, variables, "resilience", ok, clean,
+                           exact=False)
+    if engine.degraded or engine.decode_compile_count > \
+            engine.num_decode_blocks or counts["launches"] <= 0:
+        raise AssertionError(
+            f"resilience: degraded {engine.degraded}, decode programs "
+            f"{engine.decode_compile_count}, counts {counts}")
+    faulted = {"faults": dict(inj.counts), "failed_request": failed[0],
+               "retries_total": engine.metrics.retries_total,
+               "quarantined_total": engine.metrics.quarantined_total,
+               "decode_blocks": engine.metrics.decode_blocks,
+               "decode_compile_count": engine.decode_compile_count,
+               "degraded_at_end": engine.degraded, "launch_counts": counts,
+               **ties}
+    del engine
+    gc.collect()
+
+    try:
+        torch.empty(1 << 46, device=DEVICE)
+        raise AssertionError("a 256 TiB allocation succeeded")
+    except AssertionError:
+        raise
+    except Exception as e:  # noqa: BLE001 — classified just below
+        oom = {"type": type(e).__name__,
+               "is_resource_exhausted": is_resource_exhausted(e)}
+    if not oom["is_resource_exhausted"]:
+        raise AssertionError(f"resilience: a real OOM classified {oom}")
+
+    # the crash drill: snapshots every tick, a kill at the prefill site
+    # while fills are open, a restore from the last complete snapshot
+    inj = FaultInjector([Fault("serve.prefill", "kill", tick=KILL_TICK)])
+    engine = make_engine(graph, variables, faults=inj,
+                         snapshot_every_ticks=1, **kw)
+    zero_counts()
+    results = {}
+    _, killed = drive_until_killed(engine, prompts, 0, results)
+    snap = engine.last_snapshot
+    filling = len(engine._sched.filling)
+    del engine
+    gc.collect()
+    if not killed or not filling:
+        raise AssertionError(f"resilience: the kill did not land mid-fill "
+                             f"(killed {killed}, fills open {filling})")
+    rebuilt = ServeEngine.restore(snap, graph, variables, slots=SLOTS,
+                                  decode_block=DECODE_BLOCK,
+                                  max_queue=N_REQUESTS, device=DEVICE, **kw)
+    # requests submitted after the snapshot died with the engine: they
+    # arrive again, and take the same ids
+    drive_until_killed(rebuilt, prompts, snap["next_id"], results)
+    counts = read_counts()
+    if len(results) != N_REQUESTS or any(
+            r.status != "completed" for r in results.values()):
+        raise AssertionError("resilience crash drill: not every request "
+                             "completed")
+    drill = {"kill_tick": KILL_TICK, "snapshot_tick": snap["tick"],
+             "restored_active": len(snap["active"]),
+             "restored_queued": len(snap["queued"]),
+             "launch_counts": counts,
+             **check_near_ties(graph, variables, "crash drill", results,
+                               clean, exact=False)}
+    del rebuilt
+    gc.collect()
+
+    flipped = integrity.flip_bit_json(snap, 11)
+    try:
+        ServeEngine.restore(flipped, graph, variables, device=DEVICE)
+        raise AssertionError("a bit-flipped snapshot restored")
+    except SnapshotCorruption as e:
+        corrupt = {"raised": type(e).__name__, "expected": e.expected,
+                   "actual": e.actual}
+    log(f"resilience: faulted run {faulted}; OOM {oom}; crash drill "
+        f"{drill}; corrupt snapshot {corrupt}")
+    return {"faulted": faulted, "real_oom": oom, "crash_drill": drill,
+            "corrupt_snapshot": corrupt}
 
 
 # -- generation and the weight-int8 engines --------------------------------------
@@ -2193,6 +2620,12 @@ def main() -> int:
     header = check_header_engines(graph, variables)
     log(f"engine phases took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    chunked, clean = check_chunked_async(graph, variables, header)
+    resilience = check_resilience(graph, variables, clean)
+    del clean
+    log(f"chunked/async and resilience phases took "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     generation = check_generate(graph, variables)
     quantized, dequantize = check_quantized_engines(graph, variables, dense)
     log(f"generation and weight-int8 phases took "
@@ -2247,6 +2680,8 @@ def main() -> int:
     print(json.dumps({"profile": profile_decode_block(graph, variables)}))
     print(json.dumps({"train_profile": profile_train_step(trained)}))
     print(json.dumps({"attention_backward": attn_backward}))
+    print(json.dumps({"chunked_async": chunked}))
+    print(json.dumps({"resilience": resilience}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -145,6 +145,12 @@ class SlotCachePool:
         # assignment deterministic for the parity tests
         self._free = list(range(slots - 1, -1, -1))
         self._leased: set[int] = set()
+        # the deferred-free window (the async engine): the dispatch
+        # generation frees are stamped with while it is open, and the
+        # (generation, slot) frees waiting for their block's fetch
+        self._defer_gen: int | None = None
+        self._deferred: list[tuple[int, int]] = []
+        self._deferred_slots: set[int] = set()
         self.positions = torch.zeros((slots,), dtype=torch.int32,
                                      device=self.device)
         self.live = torch.zeros((slots,), dtype=torch.bool,
@@ -158,6 +164,11 @@ class SlotCachePool:
     def leased_count(self) -> int:
         return len(self._leased)
 
+    def leased_slots(self) -> list[int]:
+        """Leased slot ids, ascending — what the engine's kill-parking
+        walks to return every held slot deterministically."""
+        return sorted(self._leased)
+
     def lease(self) -> int:
         if not self._free:
             raise FriendlyError(
@@ -169,17 +180,47 @@ class SlotCachePool:
         self._leased.add(slot)
         return slot
 
+    def defer_frees(self, gen: int) -> None:
+        """Open (or advance) a deferred-free window: until
+        :meth:`flush_frees` passes ``gen``, a freed slot resets its device
+        row state at once but stays OFF the free list — no new lease can
+        collide with a decode block dispatched before the free (the async
+        engine's protection of a row still in flight)."""
+        self._defer_gen = gen
+
+    def flush_frees(self, completed_gen: int | None = None) -> None:
+        """Return every deferred slot whose stamped dispatch generation is
+        ``<= completed_gen`` (all of them when None) to the free list, and
+        close the window when None."""
+        if completed_gen is None:
+            self._defer_gen = None
+        keep = []
+        for gen, slot in self._deferred:
+            if completed_gen is None or gen <= completed_gen:
+                self._deferred_slots.discard(slot)
+                self._leased.discard(slot)
+                self._free.append(slot)
+            else:
+                keep.append((gen, slot))
+        self._deferred = keep
+
     def free(self, slot: int) -> None:
-        if slot not in self._leased:
+        if slot not in self._leased or slot in self._deferred_slots:
             raise FriendlyError(
                 f"slot {slot} is not leased (double free, or never "
                 f"leased from this pool of {self.num_slots})"
             )
-        self._leased.remove(slot)
-        self._free.append(slot)
+        if self._defer_gen is not None:
+            self._deferred.append((self._defer_gen, slot))
+            self._deferred_slots.add(slot)
+        else:
+            self._leased.remove(slot)
+            self._free.append(slot)
         # restore the free-slot convention (pos 0, dead) so the fused
         # decode block keeps this row's writes at position 0 and its
-        # flash-decode length reads as zero
+        # flash-decode length reads as zero. The writes go on the
+        # engine's one stream after any block in flight, which keeps the
+        # row state it was dispatched with
         self.positions[slot] = 0
         self.live[slot] = False
         if self.kv_dtype == "int8":

@@ -3,27 +3,28 @@
 
 Requests of different prompt lengths and arrival times share the slot
 pool's fixed-shape buffers. Each tick admits queued requests into free
-slots (one bucketed prefill each), runs ONE fused decode block of up to
-``decode_block`` greedy micro-steps for every active slot
-(``models.generate.make_decode_block``: sampling, position advance and
-the live/EOS/budget mask stay on the device), and then syncs the host
-once, to read the block's ``(S, T)`` tokens and the live vector. Every
-micro-step reads each slot's cache through a hand-written CUDA decode
-kernel.
+slots (one bucketed prefill each, or the start of a chunked fill), runs
+ONE fused decode block of up to ``decode_block`` greedy micro-steps for
+every active slot (``models.generate.make_decode_block``: sampling,
+position advance and the live/EOS/budget mask stay on the device), and
+fetches the block's ``(S, T)`` tokens and live vector with one host sync.
+Every micro-step reads each slot's cache through a hand-written CUDA
+decode kernel.
 
 The program ladder: as the JAX engine runs each serving program as one
 compiled XLA program, the port runs each as one CUDA graph
 (``testing/compile_guard.ProgramCountingGraph``): the prefill (one
 program per prefill bucket), the prefix-cache resume (one per remainder
 bucket; ``pos`` and ``last`` are device tensors, so the program does not
-depend on them) and the fused decode block (one per ladder size T). A
-program is captured after its signature's first, eager call and replayed
-after that; all of an engine's programs share one graph memory pool. The
-counts are ``decode_compile_count``, ``prefill_compile_count`` and
+depend on them), the chunked fill (one per chunk bucket) and the fused
+decode block (one per ladder size T). A program is captured after its
+signature's first, eager call and replayed after that; all of an engine's
+programs share one graph memory pool. The counts are
+``decode_compile_count``, ``prefill_compile_count`` and
 ``resume_compile_count``, under the JAX engine's pins, each program
 family behind a ``RetraceWatchdog``. On the CPU (``device="cpu"``) the
-programs run eagerly and are counted the same way. A program that fails to
-capture raises; there is no eager fallback.
+programs run eagerly and are counted the same way. A program that fails
+to capture raises; there is no eager fallback.
 
 Prefill is bucketed by prompt length: prompts right-pad to power-of-two
 buckets (causality makes the pads invisible). Block sizes clamp to a
@@ -32,10 +33,67 @@ exhaustion only ever lands on a block boundary. The pool's buffers and
 its per-slot positions and live mask are updated in place where the JAX
 engine donates them.
 
+**Chunked prefill** (``prefill_chunk=N``, a power of two >= 8): admission
+only starts a fill; every tick advances each open fill by ONE chunk
+program over a window of its sequence against the fill's carry — a
+batch-1 linear cache of the full ``cache_len``, in a tensor of its own
+outside the graph pool. Intermediate chunks are exactly N wide and sync
+nothing; the chunk program's static output carry is copied back into the
+fill's tensor before any other program replays. The final chunk pads to
+its ladder bucket (window trick: ``start = min(filled, cache_len -
+bucket)``, the overlap recomputed to the same values), lands the carry in
+the slot with ``write_prefill(start=keep)`` and pays the fill's one sync,
+for the first token. A long prompt can then never hold every co-resident
+stream behind one monolithic prefill. With chunking on,
+``prefill_compile_count`` counts the chunk programs (at most
+``num_chunk_buckets``).
+
+**The async host loop** (``async_host=True``): block N+1 is dispatched
+before block N is fetched, so the host's scheduling and bookkeeping
+overlap N's device time. Right after each replay the block's tokens and
+live vector are copied (non-blocking) into pinned host buffers owned by
+its in-flight record, its last tokens are copied on the device, and a
+CUDA event is recorded: the static outputs are overwritten by later
+replays, and the fetch waits on that event only, never on block N+1.
+Block N+1's inputs come from the device (the in-flight last tokens
+selected on the device) and from budgets and page frontiers advanced by
+N's block size; the fetch's identity fence drops every row whose slot
+changed hands after dispatch; frees are DEFERRED (a freed slot is not
+re-leased, and a paged slot's pages not released) until the block that
+saw it live has been fetched. Every device write — per-slot resets, page
+tables, prefill scatters — is enqueued on the one stream after the block
+in flight. Streams are bit-equal to the synchronous loop, which is the
+same dispatch and fetch with nothing in between.
+
+**The resilience layer**: a ``faults`` injector (``core/faults.py``) fires
+at ``serve.prefill``, ``serve.decode``, ``serve.device_get`` and
+``serve.snapshot`` before the guarded call. Transient errors retry behind
+a capped deterministic backoff (``retry_limit``, ``retry_backoff_s``);
+resource exhaustion — injected, the paged allocator's, or a real
+``torch.cuda.OutOfMemoryError``, even one raised inside a capture —
+halves the decode-block cap down the existing ladder (no new program),
+preempts the youngest request at the floor (its emitted tokens fold into
+a resume prefix; it re-prefills ``prompt + prefix`` later and its stream
+is unchanged) and tightens the admission cap; ``degrade_recover_ticks``
+clean blocks re-escalate one notch. A decode call that failed after its
+first, eager run wrote the pool's positions and live mask gets them
+restored before the retry. A request whose dispatch stays impossible, or
+whose token is out of the vocabulary (a poison), is QUARANTINED: status
+``"failed"``, its slot freed, everyone else unharmed. ``cancel`` removes a
+request without a result. ``snapshot`` is a JSON-able checkpoint of the
+host's request state (no device state; checksummed, the JAX engine's keys
+and ``version`` 1, so snapshots cross between the frameworks);
+``restore`` re-hashes it first (``SnapshotCorruption`` names both
+hashes) and re-queues every request with its emitted tokens as a resume
+prefix. ``snapshot_every_ticks`` keeps ``last_snapshot`` fresh through
+``checkpoint``; an injected ``kill`` (``EngineKilled``) parks every held
+slot and the dead engine refuses further steps.
+
 Usage::
 
     engine = ServeEngine(graph, variables, slots=8)    # on cuda
-    # or: ServeEngine(..., paged=True, prefix_cache=True, kv_dtype="int8")
+    # or: ServeEngine(..., paged=True, prefix_cache=True, kv_dtype="int8",
+    #                 prefill_chunk=64, async_host=True)
     rid = engine.submit(prompt_ids, max_new_tokens=32)
     results = engine.run()
     results[rid].tokens                                # prompt + generated
@@ -57,19 +115,15 @@ on its own copy of the variables; the caller's are untouched and the
 streams are bit-equal. Weight-only int8 (``quantize_weights=True``,
 ``ops/quantize.py``): the engine keeps per-output-channel int8 weights on
 the device and dequantizes them to bf16 inside every program — each
-prefill or resume forward and each decode block — as the JAX engine runs
-``_deq`` inside each of its programs; the graph drops its binding after
-each call. No bf16 copy is reachable between calls, but the shared graph
-pool keeps the memory one call's bf16 workspace needs reserved
-(``graph_pool_bytes``). It composes with both pools and both KV dtypes.
+prefill, resume or chunk forward and each decode block — as the JAX
+engine runs ``_deq`` inside each of its programs; the graph drops its
+binding after each call. It composes with both pools and both KV dtypes.
 
 Decode is greedy — the same tokens as ``generate()`` per request, which
 is the engine's correctness contract (int8 pools and int8 weights:
 within a token-flip budget of the bf16 streams). Not in this slice:
-meshes, fault injection, retries and the degradation ladder (page exhaustion raises
-``ResourceExhausted``), chunked prefill and its ``chunk`` programs, the
-async host loop, snapshots, hand-offs and SLOs (ROADMAP.md Queue 1 items
-8-9, 12-13).
+meshes (ROADMAP.md Queue 1 item 13); spans, SLOs, replicas, the
+prefill/decode roles and KV hand-offs (item 12).
 """
 
 from __future__ import annotations
@@ -80,8 +134,16 @@ import time
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core import integrity
 from mmlspark_tpu_torch.core.env import default_device, host_to_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
+from mmlspark_tpu_torch.core.faults import (
+    EngineKilled,
+    FaultInjector,
+    is_resource_exhausted,
+    is_transient,
+)
+from mmlspark_tpu_torch.core.integrity import SnapshotCorruption
 from mmlspark_tpu_torch.core.telemetry import (
     FlightRecorder,
     MetricRegistry,
@@ -118,10 +180,15 @@ class ServeEngine:
     def __init__(self, graph, variables, *, slots: int = 4,
                  cache_len: int | None = None, max_queue: int = 16,
                  pad_id: int = 0, decode_block: int = 32,
+                 faults: FaultInjector | None = None,
+                 retry_limit: int = 3, retry_backoff_s: float = 0.02,
+                 degrade_recover_ticks: int = 8,
                  paged: bool = False, page_size: int | None = None,
                  num_pages: int | None = None, prefix_cache: bool = False,
+                 snapshot_every_ticks: int | None = None,
                  kv_dtype: str = "bf16", quantize_weights: bool = False,
-                 device=None):
+                 prefill_chunk: int | None = None,
+                 async_host: bool = False, device=None):
         if not graph.extra.get("causal", False):
             raise FriendlyError(
                 f"serving needs a causal LM; '{graph.name}' has "
@@ -159,6 +226,52 @@ class ServeEngine:
                 "(1 = per-token dispatch, larger fuses T micro-steps "
                 "into one block)"
             )
+        # chunked prefill: chunk widths live on the prefill bucket
+        # ladder {8, 16, ..., prefill_chunk}, one program per width
+        if prefill_chunk is not None:
+            if (
+                prefill_chunk < 8
+                or prefill_chunk & (prefill_chunk - 1)
+            ):
+                raise FriendlyError(
+                    f"prefill_chunk must be a power of two >= 8 (the "
+                    f"prefill bucket ladder's floor), got {prefill_chunk}"
+                )
+            if prefill_chunk > cache_len:
+                raise FriendlyError(
+                    f"prefill_chunk ({prefill_chunk}) exceeds cache_len "
+                    f"({cache_len}); a chunk wider than the KV buffers "
+                    "can never be dispatched — drop the flag or shrink "
+                    "the chunk"
+                )
+            if graph.extra.get("n_experts"):
+                raise FriendlyError(
+                    f"'{graph.name}' is a MoE model, which prefills at "
+                    "exact length (expert-capacity routing is not "
+                    "causal, so padded chunk windows could change real "
+                    "tokens' expert assignment); chunked prefill "
+                    "requires bucketed prefill — drop prefill_chunk"
+                )
+        if retry_limit < 0:
+            raise FriendlyError(
+                f"retry_limit must be >= 0, got {retry_limit}"
+            )
+        if snapshot_every_ticks is not None and snapshot_every_ticks < 1:
+            raise FriendlyError(
+                f"snapshot_every_ticks must be >= 1, got "
+                f"{snapshot_every_ticks}"
+            )
+        self._prefill_chunk = prefill_chunk
+        self._async_host = bool(async_host)
+        #: the in-flight decode block's record (async mode): set at
+        #: dispatch, consumed by the NEXT tick's fetch
+        self._inflight: dict | None = None
+        #: monotone dispatch generation stamping the pools' deferred
+        #: frees
+        self._dispatch_gen = 0
+        #: when the previously fetched block's outputs were in hand: the
+        #: anchor of the next pipelined block's queued time
+        self._prev_block_done = 0.0
         self.device = default_device(device)
         self.graph = graph
         self.variables = variables_to(variables, self.device)
@@ -200,10 +313,15 @@ class ServeEngine:
             self.pool = SlotCachePool(graph, self.variables, slots,
                                       cache_len, device=self.device,
                                       kv_dtype=kv_dtype)
+        self._snapshot_every = snapshot_every_ticks
+        self._last_snapshot: dict | None = None
+        #: set once an EngineKilled escaped and the slots were parked
+        self._dead = False
         self.metrics = ServeMetrics(
             graph.name, slots, decode_block=self.decode_block,
             cache_pool_bytes_per_device=self.pool.device_bytes_per_device(),
-            kv_dtype=kv_dtype,
+            kv_dtype=kv_dtype, prefill_chunk=prefill_chunk or 0,
+            async_host=self._async_host,
         )
         if paged:
             self.metrics.attach_paging(self.pool.paging_stats)
@@ -214,6 +332,23 @@ class ServeEngine:
         self._block = make_decode_block(graph, pad_id)
         self.registry = MetricRegistry()
         self.recorder = FlightRecorder()
+        # the resilience layer; faults=None keeps every hook one
+        # attribute check
+        self._faults = faults
+        self._retry_limit = retry_limit
+        self._retry_backoff_s = retry_backoff_s
+        self._degrade_recover_ticks = max(1, degrade_recover_ticks)
+        #: memory-pressure degradation: the decode-block ceiling (walks
+        #: DOWN the existing ladder) and the concurrent-admission cap
+        self._block_cap = self.decode_block
+        self._admit_cap = slots
+        self._ok_ticks = 0
+        if self._faults is not None and self._faults.listener is None:
+            def _on_fault(kind: str, site: str) -> None:
+                self.metrics.record_fault(kind)
+                self.recorder.record("fault_injected", tick=self.tick,
+                                     kind=kind, site=site)
+            self._faults.listener = _on_fault
         # the program ladder: each family behind the retrace watchdog,
         # with the JAX engine's budgets; the weights (argument 0) and the
         # decode block's pool state (1-3) are read and written at their
@@ -221,16 +356,28 @@ class ServeEngine:
         # static inputs
         self._graph_pool = GraphPool()
         self._prefill_program = self._program(
-            self._prefill_body, "serve.prefill", self.num_prefill_buckets,
+            self._prefill_body, "serve.prefill",
+            len({self.prefill_bucket(p) for p in range(1, cache_len)}),
             state_argnums=(0,))
         self._resume = None
         if self._prefix_cache:
             self._resume = self._program(
                 self._resume_body, "serve.resume", self.num_prefill_buckets,
                 state_argnums=(0,))
+        # the chunked fill IS the resume body over a full-cache_len
+        # carry, keyed by the chunk width alone
+        self._chunk = None
+        if prefill_chunk is not None:
+            self._chunk = self._program(
+                self._resume_body, "serve.chunk", self.num_chunk_buckets,
+                state_argnums=(0,))
         self._decode = self._program(
             self._decode_body, "serve.decode", self.num_decode_blocks,
             state_argnums=(0, 1, 2, 3))
+        #: ladder sizes whose decode program exists: a size's first call
+        #: runs eagerly before its capture, so a capture failure leaves
+        #: the pool's positions and live mask advanced
+        self._decode_sizes: set[int] = set()
 
     def _program(self, fn, label: str, expected: int,
                  state_argnums) -> RetraceWatchdog:
@@ -252,8 +399,8 @@ class ServeEngine:
 
     def _resume_body(self, variables, ids, cache, pos, last):
         """``ids`` at absolute position ``pos`` (0 for a prefill, a 0-d
-        device tensor for the prefix-cache remainder) against the linear
-        ``cache``."""
+        device tensor for the prefix-cache remainder and a chunk) against
+        the linear ``cache``, written in place and returned."""
         with self._weights(variables) as weights:
             logits, cache = _cached_apply(self.graph, weights, ids, cache,
                                           pos)
@@ -283,9 +430,32 @@ class ServeEngine:
             bucket *= 2
         return min(bucket, self.cache_len)
 
+    def chunk_bucket(self, n: int) -> int:
+        """Padded width the chunk program runs at for a chunk of ``n``
+        real tokens: the next power of two >= max(n, 8), capped at
+        ``prefill_chunk``. Intermediate chunks are exactly
+        ``prefill_chunk`` wide; only a fill's FINAL chunk can land on a
+        smaller rung."""
+        bucket = 8
+        while bucket < n:
+            bucket *= 2
+        return min(bucket, self._prefill_chunk)
+
+    @property
+    def num_chunk_buckets(self) -> int:
+        """How many distinct chunk programs CAN exist — one per ladder
+        width in {8, 16, ..., prefill_chunk}; 0 with chunking off."""
+        if self._prefill_chunk is None:
+            return 0
+        return self._prefill_chunk.bit_length() - 3
+
     @property
     def num_prefill_buckets(self) -> int:
-        """How many distinct prefill shapes CAN run on this engine."""
+        """How many distinct prefill shapes CAN run on this engine. With
+        chunked prefill the monolithic program never runs and the ceiling
+        is the chunk ladder's."""
+        if self._prefill_chunk is not None:
+            return self.num_chunk_buckets
         return len({
             self.prefill_bucket(p) for p in range(1, self.cache_len)
         })
@@ -294,9 +464,10 @@ class ServeEngine:
 
     def _block_size(self, min_rem: int) -> int:
         """This tick's block length: the largest ladder power of two
-        <= min(decode_block, minimum remaining budget over active
-        slots)."""
-        cap = min(self.decode_block, max(1, min_rem))
+        <= min(block cap, minimum remaining budget over active slots).
+        The cap is ``decode_block``, or lower under memory-pressure
+        degradation — still on the ladder, so no new programs."""
+        cap = min(self._block_cap, max(1, min_rem))
         t = 1
         while t * 2 <= cap:
             t *= 2
@@ -321,7 +492,11 @@ class ServeEngine:
     def prefill_compile_count(self) -> int:
         """How many prefill programs exist — bounded by
         ``num_prefill_buckets``, however many distinct prompt lengths
-        arrive."""
+        arrive. With chunked prefill every fill runs through the chunk
+        programs, so the count (and its ``num_chunk_buckets`` ceiling) is
+        theirs."""
+        if self._chunk is not None:
+            return program_count(self._chunk)
         return program_count(self._prefill_program)
 
     @property
@@ -338,12 +513,124 @@ class ServeEngine:
         """Wall seconds the engine's programs took to capture (0 on the
         CPU)."""
         return sum(w.capture_seconds for w in (
-            self._prefill_program, self._resume, self._decode)
+            self._prefill_program, self._resume, self._chunk, self._decode)
             if w is not None)
 
     def graph_pool_bytes(self) -> int:
         """Device bytes the programs' shared graph pool holds reserved."""
         return self._graph_pool.reserved_bytes()
+
+    # -- fault handling ----------------------------------------------------
+
+    @property
+    def degraded(self) -> bool:
+        """True while memory-pressure degradation holds the engine below
+        full service (a reduced block-ladder ceiling or admission cap);
+        the recovery probe clears it."""
+        return (
+            self._block_cap < self.decode_block
+            or self._admit_cap < self.pool.num_slots
+        )
+
+    def _backoff(self, attempts: int) -> None:
+        """Capped DETERMINISTIC backoff before a retry: linear in the
+        attempt number, no jitter."""
+        self.metrics.record_retry()
+        self.recorder.record("retry", tick=self.tick, attempt=attempts)
+        if self._retry_backoff_s > 0:
+            time.sleep(self._retry_backoff_s * attempts)
+
+    def _absorb(self, err: Exception, attempts: int, tick: int,
+                site: str) -> bool:
+        """The retry policy for one failed call at ``site``: resource
+        exhaustion degrades (:meth:`_note_oom`), a transient error passes,
+        anything else re-raises. Returns True after backing off when
+        attempt ``attempts`` may be followed by another, False when the
+        retries are spent."""
+        if is_resource_exhausted(err):
+            self._note_oom(tick, site)
+        elif not is_transient(err):
+            raise err
+        if attempts > self._retry_limit:
+            return False
+        self._backoff(attempts)
+        return True
+
+    def _note_oom(self, tick: int, site: str) -> None:
+        """Graceful degradation on resource exhaustion: step DOWN the
+        existing power-of-two decode-block ladder (never a new program)
+        and tighten the admission cap; at the ladder floor, preempt the
+        youngest active request — its emitted tokens fold into a resume
+        prefix and it re-queues, so memory pressure costs latency, not
+        data. A recovery probe re-escalates after
+        ``degrade_recover_ticks`` clean blocks."""
+        if self._block_cap > 1:
+            self._block_cap //= 2
+        elif len(self._sched.active) > 1:
+            slot = next(reversed(self._sched.active))
+            req = self._sched.preempt(slot)
+            self._sched.requeue(req)
+            self.metrics.record_preemption()
+            self.recorder.record("preempted", tick=tick, id=req.id,
+                                 slot=slot, prefix_len=len(req.prefix))
+        self._admit_cap = max(1, self._admit_cap - 1)
+        self._ok_ticks = 0
+        self.metrics.set_degraded(True)
+        self.recorder.record("degraded", tick=tick, site=site,
+                             block_cap=self._block_cap,
+                             admit_cap=self._admit_cap)
+
+    def _note_clean_dispatch(self, tick: int) -> None:
+        """Recovery probe: after ``degrade_recover_ticks`` consecutive
+        clean decode blocks, re-escalate one notch (block ladder up one
+        power of two, admission cap up one slot)."""
+        if not self.degraded:
+            return
+        self._ok_ticks += 1
+        if self._ok_ticks < self._degrade_recover_ticks:
+            return
+        self._ok_ticks = 0
+        self._block_cap = min(self.decode_block, self._block_cap * 2)
+        self._admit_cap = min(self.pool.num_slots, self._admit_cap + 1)
+        self.metrics.set_degraded(self.degraded)
+        self.recorder.record(
+            "recovered" if not self.degraded else "re_escalated",
+            tick=tick, block_cap=self._block_cap,
+            admit_cap=self._admit_cap,
+        )
+
+    def _token_ok(self, token: int) -> bool:
+        """Greedy tokens are argmax indices, so non-negative and < vocab;
+        anything else is corruption (an injected poison, for one)."""
+        if token < 0:
+            return False
+        return self._vocab is None or token < int(self._vocab)
+
+    def _quarantine_slot(self, slot: int, tick: int,
+                         reason: str) -> RequestResult:
+        """Retire one ACTIVE request as ``"failed"``: the slot frees (live
+        mask dead, position 0) and the engine keeps serving everyone
+        else."""
+        res = self._sched.fail(slot, tick)
+        self.metrics.record_quarantine()
+        self.recorder.record("quarantine", tick=tick, id=res.id, slot=slot,
+                             reason=reason)
+        return res
+
+    def _quarantine_unactivated(self, req, slot: int, tick: int,
+                                reason: str) -> RequestResult:
+        """Retire a request whose prefill never succeeded (its lease still
+        held by the admit loop or its fill) as ``"failed"``."""
+        self.pool.free(slot)
+        res = self._sched.fail_unactivated(req, tick)
+        self.metrics.record_quarantine()
+        self.recorder.record("quarantine", tick=tick, id=req.id, slot=slot,
+                             reason=reason)
+        return res
+
+    def _fire(self, site: str, tick: int, request: int | None = None):
+        if self._faults is not None:
+            self._faults.fire(site, tick=tick, request=request)
 
     # -- introspection -----------------------------------------------------
 
@@ -363,11 +650,14 @@ class ServeEngine:
 
     def submit(self, prompt, max_new_tokens: int, *,
                eos_id: int | None = None,
-               deadline_ticks: int | None = None) -> int:
+               deadline_ticks: int | None = None,
+               trace_id: str | None = None) -> int:
         """Queue one request; returns its id. Raises
         :class:`FriendlyError` on invalid budgets or a full queue.
         ``deadline_ticks``: the request must FINISH within that many
-        ticks of submission or it expires (status ``"expired"``)."""
+        ticks of submission or it expires (status ``"expired"``).
+        ``trace_id``: the request's trace-context id (default
+        ``t{id}``), carried through snapshots."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise FriendlyError(
@@ -414,11 +704,15 @@ class ServeEngine:
             ),
             submit_tick=self.tick,
             submit_wall=time.perf_counter(),
+            trace_id=trace_id or f"t{self._next_id}",
         )
         try:
             self._sched.enqueue(req)
         except FriendlyError:
             self.metrics.record_reject()
+            self.recorder.record("rejected", tick=self.tick,
+                                 prompt_len=int(prompt.size),
+                                 reason="queue_full")
             raise
         self._next_id += 1
         self.metrics.record_submit()
@@ -426,72 +720,162 @@ class ServeEngine:
 
     def step(self) -> list[RequestResult]:
         """One scheduler tick: expire deadlines, admit queued requests
-        into free slots (one prefill per joiner), ONE fused decode block
-        for all active slots, retire finished sequences. Returns the
-        requests that reached a terminal state this tick."""
+        into free slots (one prefill per joiner, or the start of a
+        chunked fill), advance every open fill by one chunk, ONE fused
+        decode block for all active slots, retire finished sequences.
+        Returns the requests that reached a terminal state this tick.
+
+        An :class:`EngineKilled` escaping the tick first PARKS every held
+        slot (a paged pool's mappings release), and the dead engine then
+        refuses further steps."""
+        if self._dead:
+            raise FriendlyError(
+                "this engine was killed (EngineKilled) and its device "
+                "resources parked; rebuild it with "
+                "ServeEngine.restore(snapshot, ...) instead of "
+                "stepping it again"
+            )
+        try:
+            return self._step_inner()
+        except EngineKilled:
+            self._park_after_kill()
+            raise
+
+    def _step_inner(self) -> list[RequestResult]:
         t0 = time.perf_counter()
         tick = self._sched.tick_count
         finished = self._sched.expire(tick)
         tokens_this_tick = 0
-        while self._sched.queue_depth and self.pool.free_count:
+        while (
+            self._sched.queue_depth
+            and self.pool.free_count
+            # memory-pressure degradation admits fewer concurrent
+            # requests than the pool has slots
+            and self.pool.leased_count < self._admit_cap
+        ):
             req = self._sched.pop_next()
             slot = self.pool.lease()
-            first, bucket = self._prefill(slot, req.prompt)
-            self.metrics.record_first_token(req, tick, bucket)
-            tokens_this_tick += 1
-            done = self._sched.activate(slot, req, first, tick)
-            if done is not None:
-                finished.append(done)
+            # preempted and restored requests re-prefill prompt + the
+            # tokens already emitted: greedy determinism makes the
+            # resumed stream equal to an uninterrupted one
+            seq = _sequence(req)
+            if self._chunk is not None:
+                # admission only STARTS the fill; _advance_fills runs
+                # every chunk
+                self._start_fill(req, slot, seq, tick)
+                continue
+            first, bucket = self._prefill(slot, seq, req.id, tick)
+            if first is None:
+                finished.append(self._quarantine_unactivated(
+                    req, slot, tick, "prefill_failed"))
+                continue
+            if self._first_token(req, slot, first, bucket, tick,
+                                 finished):
+                tokens_this_tick += 1
+        if self._sched.filling:
+            tokens_this_tick += self._advance_fills(tick, finished)
         # slot occupancy AS OF the decode block: a request can join and
         # retire inside one tick
         leased_this_tick = self.pool.leased_count
-        if self._sched.active:
+        if self._async_host:
+            tokens_this_tick += self._decode_phase_async(tick, finished)
+        elif self._sched.active:
             tokens_this_tick += self._decode_phase(tick, finished)
         self._sched.tick_count += 1
+        tick_s = time.perf_counter() - t0
         self.metrics.sample_tick(
-            self._sched.queue_depth, leased_this_tick,
-            time.perf_counter() - t0, tokens_emitted=tokens_this_tick,
+            self._sched.queue_depth, leased_this_tick, tick_s,
+            tokens_emitted=tokens_this_tick,
         )
         for res in finished:
             self.metrics.record_finish(res)
+        if (
+            self._snapshot_every is not None
+            and self._sched.tick_count % self._snapshot_every == 0
+        ):
+            self.checkpoint()
         return finished
 
-    def _prefill(self, slot: int, prompt: np.ndarray) -> tuple[int, int]:
-        """Prefill ``prompt`` into ``slot`` and return (the first greedy
-        token, a host sync; the bucket the forward ran at). A prefix-cache
-        hit runs only the remainder, over the cached prefix's gathered
-        K/V; a miss (or a stale entry) runs the whole prompt on a batch-1
-        linear cache of one bucket."""
-        p = len(prompt)
-        hit = (self.pool.prefix_lookup(prompt, self.prefill_bucket)
+    def _first_token(self, req, slot: int, first: int, bucket: int,
+                     tick: int, finished: list) -> bool:
+        """Admit a prefilled request with its first token: the poison
+        check, then activation. Returns whether the token was emitted
+        (False: quarantined)."""
+        if self._faults is not None:
+            poison = self._faults.poison_value("serve.prefill", tick=tick,
+                                               request=req.id)
+            if poison is not None:
+                first = int(poison)
+        if not self._token_ok(first):
+            # a corrupted first token never enters results or seeds the
+            # decode frontier
+            finished.append(self._quarantine_unactivated(
+                req, slot, tick, "poisoned_token"))
+            return False
+        self.metrics.record_first_token(req, tick, bucket)
+        done = self._sched.activate(slot, req, first, tick)
+        if done is not None:
+            finished.append(done)
+        return True
+
+    def _prefill(self, slot: int, seq: np.ndarray, rid: int,
+                 tick: int) -> tuple[int | None, int]:
+        """Prefill ``seq`` into ``slot`` behind the retry policy; returns
+        (the first greedy token — a host sync — or None when the retries
+        are spent; the bucket the forward ran at). A prefix-cache hit
+        runs only the remainder, over the cached prefix's gathered K/V; a
+        miss (or an entry evicted since the lookup) runs the whole
+        sequence on a batch-1 linear cache of one bucket."""
+        p = len(seq)
+        attempts = 0
+        hit = (self.pool.prefix_lookup(seq, self.prefill_bucket)
                if self._prefix_cache else None)
         if hit is not None:
             entry, keep = hit
             r = p - keep
             bucket = self.prefill_bucket(r)
+            ids = self._padded(seq[keep:], bucket)
+            # the prefix's K/V gathered back into a linear cache: retries
+            # reuse it (a repeated write lands the same values)
             lin = self.pool.gather_prefix(entry, keep)
-            tok, cache = self._resume(
-                self.variables, self._padded(prompt[keep:], bucket), lin,
-                self._scalar(keep), self._scalar(r - 1))
-            # map the shared pages FIRST (the slot's references keep them
-            # alive through any eviction the remainder write triggers),
-            # then scatter only the remainder [keep, p)
-            if self.pool.map_prefix(slot, entry, keep):
-                self.pool.write_prefill(slot, cache, p, start=keep)
-                return int(tok), bucket
-            # the entry was evicted since the lookup: its pages may be
-            # free or reallocated, so fall back to the full prefill
+            while True:
+                try:
+                    self._fire("serve.prefill", tick, rid)
+                    tok, cache = self._resume(
+                        self.variables, ids, lin, self._scalar(keep),
+                        self._scalar(r - 1))
+                    # map the shared pages FIRST (the slot's references
+                    # keep them alive through any eviction the remainder
+                    # write triggers), then scatter only [keep, p)
+                    if not self.pool.map_prefix(slot, entry, keep):
+                        # evicted since the lookup: its pages may be free
+                        # or reallocated — fall back to the full prefill
+                        hit = None
+                        break
+                    self.pool.write_prefill(slot, cache, p, start=keep)
+                    return int(tok), bucket
+                except Exception as e:
+                    attempts += 1
+                    if not self._absorb(e, attempts, tick, "serve.prefill"):
+                        return None, bucket
         bucket = self.prefill_bucket(p)
-        tok, cache = self._prefill_program(
-            self.variables, self._padded(prompt, bucket),
-            self._scalar(p - 1))
-        # only the REAL prompt's K/V enter the slot; the pad tail of the
-        # bucket cache is dropped here (the program's outputs are consumed
-        # before any other program replays)
-        self.pool.write_prefill(slot, cache, p)
-        if self._prefix_cache:
-            self.pool.prefix_insert(slot, prompt)
-        return int(tok), bucket
+        ids = self._padded(seq, bucket)
+        while True:
+            try:
+                self._fire("serve.prefill", tick, rid)
+                tok, cache = self._prefill_program(
+                    self.variables, ids, self._scalar(p - 1))
+                # only the REAL prompt's K/V enter the slot; the pad tail
+                # of the bucket cache is dropped (the program's outputs
+                # are consumed before any other program replays)
+                self.pool.write_prefill(slot, cache, p)
+                if self._prefix_cache:
+                    self.pool.prefix_insert(slot, seq)
+                return int(tok), bucket
+            except Exception as e:
+                attempts += 1
+                if not self._absorb(e, attempts, tick, "serve.prefill"):
+                    return None, bucket
 
     def _padded(self, tokens: np.ndarray, bucket: int):
         """``tokens`` right-padded to (1, ``bucket``) on the device."""
@@ -518,32 +902,370 @@ class ServeEngine:
         finally:
             self.graph.unbind()
 
+    # -- chunked prefill -----------------------------------------------------
+
+    def _fresh_carry(self) -> dict:
+        """A zeroed batch-1 linear cache spanning the FULL cache_len: a
+        fill's carry, which every chunk program reads and extends. Its
+        fixed shape keys the chunk programs by width alone; it lives
+        outside the graph pool, so it survives every replay."""
+        return init_cache(self.graph, self.variables, 1, self.cache_len)
+
+    def _start_fill(self, req, slot: int, seq, tick: int) -> None:
+        """Begin a chunked fill in a freshly leased slot: probe the prefix
+        cache (a hit seeds the carry with the shared prefix, gathered
+        once) and register the fill with the scheduler. No forward runs
+        here."""
+        keep, entry = 0, None
+        hit = (self.pool.prefix_lookup(seq, self.chunk_bucket)
+               if self._prefix_cache else None)
+        if hit is not None:
+            entry, keep = hit
+            carry = self.pool.gather_prefix(entry, keep)
+        else:
+            carry = self._fresh_carry()
+        self._sched.start_fill(slot, req, len(seq), keep,
+                               {"cache": carry, "entry": entry}, tick)
+
+    def _chunk_call(self, fs, ids, start: int, last: int):
+        """One chunk program over the fill's carry. The program's carry
+        is a static input (the fill's tensor is copied in) written in
+        place; the result is copied back into the fill's own tensor
+        before any other program replays. Returns (token, cache)."""
+        tok, cache = self._chunk(self.variables, ids, fs.carry["cache"],
+                                 self._scalar(start), self._scalar(last))
+        for name, leaves in cache.items():
+            for dst, src in zip(fs.carry["cache"][name], leaves):
+                if dst is not src:
+                    dst.copy_(src)
+        return tok, cache
+
+    def _advance_fills(self, tick: int, finished: list) -> int:
+        """Advance every open fill by ONE chunk program. Intermediate
+        chunks are exactly ``prefill_chunk`` wide and sync nothing; a
+        fill's FINAL chunk pads to its ladder bucket, lands the carry in
+        the slot with ``write_prefill(start=keep)`` and pays the fill's
+        one host sync, for the first token. The chunks recompute the
+        monolithic prefill's K/V at the same positions from the same
+        tokens, and the final logits row is the true last position.
+        Returns the first tokens emitted by fills completed this tick."""
+        tokens = 0
+        for slot in sorted(self._sched.filling):
+            fs = self._sched.filling[slot]
+            req = fs.req
+            seq = _sequence(req)
+            r = fs.total - fs.filled
+            final = r <= self._prefill_chunk
+            if final:
+                bucket = self.chunk_bucket(r)
+                # the window trick: the padded window must not overflow
+                # cache_len, so its start slides down and the overlap
+                # [start, filled) is recomputed to the same values
+                start = min(fs.filled, self.cache_len - bucket)
+                padded = np.full((bucket,), self.pad_id, np.int32)
+                padded[:fs.total - start] = seq[start:fs.total]
+                last = (fs.total - 1) - start
+            else:
+                bucket = self._prefill_chunk
+                start = fs.filled
+                padded = seq[start:start + bucket]
+                last = bucket - 1
+            ids = self._padded(padded, bucket)
+            attempts = 0
+            if not final:
+                ok = False
+                while True:
+                    try:
+                        self._fire("serve.prefill", tick, req.id)
+                        self._chunk_call(fs, ids, start, last)
+                        ok = True
+                        break
+                    except Exception as e:
+                        attempts += 1
+                        if not self._absorb(e, attempts, tick,
+                                            "serve.prefill"):
+                            break
+                if not ok:
+                    self._sched.fill_done(slot)
+                    finished.append(self._quarantine_unactivated(
+                        req, slot, tick, "prefill_failed"))
+                    continue
+                fs.filled += bucket
+                self.metrics.record_prefill_chunk()
+                self.recorder.record("prefill_chunk", tick=tick, id=req.id,
+                                     filled=fs.filled, total=fs.total)
+                continue
+
+            # -- the final chunk: compute, land in the slot, sync ----------
+            entry = fs.carry["entry"]
+            first, stale = None, False
+            while True:
+                try:
+                    self._fire("serve.prefill", tick, req.id)
+                    tok, cache = self._chunk_call(fs, ids, start, last)
+                    # map the shared prefix pages FIRST, then scatter
+                    # only [keep, total)
+                    if entry is not None and not self.pool.map_prefix(
+                            slot, entry, fs.keep):
+                        stale = True
+                        break
+                    self.pool.write_prefill(slot, cache, fs.total,
+                                            start=fs.keep)
+                    first = int(tok)
+                    break
+                except Exception as e:
+                    attempts += 1
+                    if not self._absorb(e, attempts, tick,
+                                        "serve.prefill"):
+                        break
+            if stale:
+                # the prefix entry was evicted since the fill started: the
+                # fill restarts from scratch (the stream is unchanged)
+                fs.filled = fs.keep = 0
+                fs.carry = {"cache": self._fresh_carry(), "entry": None}
+                continue
+            self._sched.fill_done(slot)
+            if first is None:
+                finished.append(self._quarantine_unactivated(
+                    req, slot, tick, "prefill_failed"))
+                continue
+            fs.filled = fs.total
+            self.metrics.record_prefill_chunk()
+            if self._prefix_cache and entry is None:
+                self.pool.prefix_insert(slot, seq)
+            if self._first_token(req, slot, first, bucket, tick, finished):
+                tokens += 1
+        return tokens
+
+    # -- the decode block: dispatch and fetch --------------------------------
+
     def _decode_phase(self, tick: int, finished: list) -> int:
-        """One fused decode BLOCK for all active slots, with ONE host
-        sync; appends terminal results to ``finished`` and returns the
-        real tokens consumed."""
-        states = list(self._sched.active.items())
-        pre_pos = {slot: st.pos for slot, st in states}
-        tok, rem, eos, min_rem = self._sched.decode_block_inputs(
-            self.pad_id
-        )
-        t_block = self._block_size(min_rem)
-        td = time.perf_counter()
-        if self._paged:
-            # pre-map every page this block can write; the page table is
-            # read-only during the block (its one host sync)
-            self.pool.ensure_decode_pages(pre_pos, t_block)
-        # the buffers, positions and live mask advance in place
-        toks = self._decode(
-            self.variables, self.pool.buffers, self.pool.positions,
-            self.pool.live, *(host_to_device(a, self.device)
-                              for a in (tok, rem, eos)), t_block,
-        )
-        # the ONE host sync per block: (S, T) tokens + the live vector
-        toks_h = toks.cpu().numpy()
-        live_h = self.pool.live.cpu().numpy()
-        decode_s = time.perf_counter() - td
-        blk_finished, consumed = self._sched.consume(toks_h, tick)
+        """One fused decode BLOCK for all active slots, dispatched and
+        then fetched at once (the synchronous loop), behind the
+        resilience layer: a dispatch that stays impossible through the
+        retries and the degradation quarantines the remaining batch.
+        Appends terminal results to ``finished``; returns the real tokens
+        consumed."""
+        status = self._dispatch_block(tick, None)
+        inflight, self._inflight = self._inflight, None
+        n_tokens = self._fetch_inflight(inflight, tick, finished)
+        if status == "failed":
+            for slot in list(self._sched.active):
+                finished.append(self._quarantine_slot(
+                    slot, tick, "decode_failed"))
+        return n_tokens
+
+    def _decode_phase_async(self, tick: int, finished: list) -> int:
+        """One PIPELINED decode round: dispatch this tick's block N+1
+        behind the in-flight block N, then fetch N's tokens — the host's
+        bookkeeping between the two (and the admit and fill phase before
+        them) overlaps N's device time. At most one host sync a block,
+        as in the synchronous loop, landing one tick late."""
+        prev = self._inflight
+        self._inflight = None
+        status = self._dispatch_block(tick, prev)
+        n_tokens = self._fetch_inflight(prev, tick, finished)
+        if status == "failed":
+            # quarantine what is left of the batch AFTER the previous
+            # block's tokens were committed above
+            for slot in list(self._sched.active):
+                finished.append(self._quarantine_slot(
+                    slot, tick, "decode_failed"))
+        if self._inflight is not None and not self._sched.busy:
+            # every request retired at the fetch above while a block is
+            # still in flight: drain it now (all its rows fail the
+            # identity fence), so run() never exits with an open
+            # deferred-free window
+            inf, self._inflight = self._inflight, None
+            n_tokens += self._fetch_inflight(inf, tick, finished)
+        return n_tokens
+
+    def _dispatch_block(self, tick: int, prev: dict | None) -> str:
+        """Dispatch one fused decode block WITHOUT fetching it; returns
+        ``"ok"`` (the in-flight record stored), ``"idle"`` (no active
+        slot, or every active slot's budget may exhaust inside ``prev``)
+        or ``"failed"`` (retries spent).
+
+        With ``prev`` in flight, input by input: a slot riding ``prev``
+        takes ``prev``'s last emitted token, selected ON THE DEVICE; its
+        budget is reduced by ``prev``'s block size (the block-size clamp
+        reads only positive budgets, so no surviving stream overruns its
+        budget mid-block); its page frontier advances by the same, so
+        ``ensure_decode_pages`` covers what ``prev`` may still write."""
+        attempts = 0
+        while self._sched.active:
+            states = dict(self._sched.active)
+            lag = {}
+            if prev is not None:
+                for slot, st in prev["states"].items():
+                    if states.get(slot) is st:
+                        lag[slot] = prev["t_block"]
+            pre_pos = {slot: st.pos + lag.get(slot, 0)
+                       for slot, st in states.items()}
+            tok, rem, eos, _ = self._sched.decode_block_inputs(self.pad_id)
+            rems = []
+            for slot, st in states.items():
+                adj = (st.req.max_new_tokens - len(st.out)
+                       - lag.get(slot, 0))
+                rem[slot] = adj
+                if adj > 0:
+                    rems.append(adj)
+            if not rems:
+                return "idle"
+            t_block = self._block_size(min(rems))
+            tok_d, rem_d, eos_d = (host_to_device(a, self.device)
+                                   for a in (tok, rem, eos))
+            if lag:
+                sel = np.zeros((self.pool.num_slots,), bool)
+                sel[list(lag)] = True
+                tok_d = torch.where(host_to_device(sel, self.device),
+                                    prev["last"], tok_d)
+            issued = time.perf_counter()
+            try:
+                if self._paged:
+                    # pre-map every page this block can write; page
+                    # exhaustion walks the degradation ladder like an
+                    # allocator OOM
+                    self.pool.ensure_decode_pages(pre_pos, t_block)
+                # the hook fires BEFORE the call: an injected failure
+                # never touches the pool
+                self._fire("serve.decode", tick)
+                staged = self._decode_call(t_block, tok_d, rem_d, eos_d)
+            except Exception as e:
+                attempts += 1
+                if not self._absorb(e, attempts, tick, "serve.decode"):
+                    return "failed"
+                continue
+            self._dispatch_gen += 1
+            self.pool.defer_frees(self._dispatch_gen)
+            self._inflight = dict(
+                staged, states=states, pre_pos=pre_pos,
+                t_block=t_block, issued=issued, gen=self._dispatch_gen,
+                overlapped=prev is not None)
+            if prev is not None:
+                self.metrics.record_overlapped_dispatch()
+            return "ok"
+        return "idle"
+
+    def _decode_call(self, t_block: int, tok_d, rem_d, eos_d) -> dict:
+        """Run the decode program of size ``t_block`` and return its staged
+        outputs: the tokens and the live vector copied into host buffers
+        (pinned, non-blocking, on the card), the last tokens copied on the
+        device, and an event recorded after them — all enqueued before
+        anything else, since later replays overwrite the program's static
+        outputs and rewrite ``pool.live``. A call of a size without a
+        program runs eagerly before its capture; should the capture fail,
+        the positions and live mask its eager run advanced are
+        restored."""
+        pool = self.pool
+        saved = None
+        if t_block not in self._decode_sizes:
+            saved = (pool.positions.clone(), pool.live.clone())
+        try:
+            toks = self._decode(self.variables, pool.buffers, pool.positions,
+                                pool.live, tok_d, rem_d, eos_d, t_block)
+        except Exception:
+            if saved is not None:
+                pool.positions.copy_(saved[0])
+                pool.live.copy_(saved[1])
+            raise
+        self._decode_sizes.add(t_block)
+        on_card = self.device.type == "cuda"
+        toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=on_card)
+        live_h = torch.empty(pool.live.shape, dtype=pool.live.dtype,
+                             pin_memory=on_card)
+        toks_h.copy_(toks, non_blocking=on_card)
+        live_h.copy_(pool.live, non_blocking=on_card)
+        last = toks[:, -1].clone()
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+        return {"toks_h": toks_h, "live_h": live_h, "last": last,
+                "event": event}
+
+    def _fetch(self, inflight: dict) -> tuple[np.ndarray, np.ndarray]:
+        """The block's ONE host sync: wait for its staging event (never
+        for a block dispatched after it) and read the (S, T) tokens and
+        the live vector."""
+        if inflight["event"] is not None:
+            inflight["event"].synchronize()
+        return (inflight["toks_h"].numpy().copy(),
+                inflight["live_h"].numpy().copy())
+
+    def _fetch_inflight(self, inflight: dict | None, tick: int,
+                        finished: list) -> int:
+        """Fetch and consume one dispatched block: the host sync (behind
+        its own retry loop — the block ran, so re-dispatching would skip
+        its tokens), the poison check, the identity fence, the metrics,
+        and the flush of the deferred frees stamped up to the block's
+        generation."""
+        if inflight is None:
+            if self._inflight is None:
+                # nothing in flight either way: close the deferred-free
+                # window so frees turn immediate again
+                self.pool.flush_frees(None)
+            return 0
+        states = inflight["states"]
+        pre_pos = inflight["pre_pos"]
+        t_block = inflight["t_block"]
+
+        def live_rows():
+            return [s for s, st in states.items()
+                    if self._sched.active.get(s) is st]
+
+        toks_h = live_h = None
+        fetch_attempts = 0
+        wait0 = time.perf_counter()
+        while True:
+            try:
+                self._fire("serve.device_get", tick)
+                toks_h, live_h = self._fetch(inflight)
+                break
+            except Exception as e:
+                if not (is_transient(e) or is_resource_exhausted(e)):
+                    raise
+                fetch_attempts += 1
+                if fetch_attempts > self._retry_limit:
+                    break
+                self._backoff(fetch_attempts)
+        done = time.perf_counter()
+        self.metrics.record_host_sync(done - wait0)
+        prev_done = self._prev_block_done
+        self._prev_block_done = done
+        if toks_h is None:
+            # the block's tokens are unrecoverable: every stream in it
+            # now has a gap — a definite failure beats resuming past it
+            for slot in live_rows():
+                finished.append(self._quarantine_slot(
+                    slot, tick, "device_get_failed"))
+            self._close_frees(inflight["gen"])
+            return 0
+        # a pipelined block could not start before the previous block's
+        # outputs were in: the span from its issue to that fetch is queue
+        # time, not the block's own
+        dispatch_s = done - inflight["issued"]
+        queued_s = 0.0
+        if inflight["overlapped"]:
+            queued_s = min(dispatch_s,
+                           max(0.0, prev_done - inflight["issued"]))
+        if self._faults is not None:
+            toks_h = self._faults.poison_block(
+                "serve.device_get", toks_h, tick=tick, slots=live_rows())
+        # token-stream validation: greedy tokens are argmax indices in
+        # [0, vocab); quarantine a corrupted row BEFORE consume() folds it
+        bad_rows = (toks_h < 0).any(axis=1)
+        if self._vocab is not None:
+            bad_rows |= (toks_h >= int(self._vocab)).any(axis=1)
+        quarantined: set[int] = set()
+        if bad_rows.any():
+            for slot in live_rows():
+                if bad_rows[slot]:
+                    finished.append(self._quarantine_slot(
+                        slot, tick, "poisoned_token"))
+                    quarantined.add(slot)
+        blk_finished, consumed = self._sched.consume(toks_h, tick,
+                                                     states=states)
         n_tokens = sum(consumed.values())
         # live KV rows the block attended per slot: its c consumed
         # micro-steps read frontiers pos0+1 .. pos0+c
@@ -552,44 +1274,241 @@ class ServeEngine:
             for slot, c in consumed.items()
         )
         self.metrics.record_decode(
-            decode_s, n_tokens, block=t_block, live_kv=live_kv,
-            cache_len=self.cache_len,
+            max(0.0, dispatch_s - queued_s), n_tokens, block=t_block,
+            live_kv=live_kv, cache_len=self.cache_len,
         )
-        for slot, _ in states:
-            # the device live mask and the host's retirement bookkeeping
-            # must agree slot for slot
-            if bool(live_h[slot]) != (slot in self._sched.active):
+        for slot, st in states.items():
+            if slot in quarantined or consumed.get(slot) is None:
+                continue
+            # for every request that kept its slot from dispatch to
+            # fetch, the device live mask and the host's retirement
+            # bookkeeping agree row by row
+            if bool(live_h[slot]) != (self._sched.active.get(slot) is st):
                 raise RuntimeError(
                     f"device live mask and host retirement disagree for "
                     f"slot {slot} (block T={t_block})"
                 )
         finished.extend(blk_finished)
+        self._note_clean_dispatch(tick)
+        self._close_frees(inflight["gen"])
         return n_tokens
 
+    def _close_frees(self, gen: int) -> None:
+        """Release the frees deferred up to block ``gen``; with no block
+        left in flight, close the window."""
+        self.pool.flush_frees(gen)
+        if self._inflight is None:
+            self.pool.flush_frees(None)
+
     def run(self, max_ticks: int = 100_000) -> dict[int, RequestResult]:
-        """Step until queue and slots drain; results keyed by request id.
-        Hitting ``max_ticks`` retires every pending request as
+        """Step until queue, fills and slots drain; results keyed by
+        request id. Hitting ``max_ticks`` retires every pending request as
         ``"stalled"`` and raises, with all results on ``err.results``."""
         results: dict[int, RequestResult] = {}
         start = self.tick
-        while self._sched.busy:
-            if self.tick - start >= max_ticks:
-                n_queued = self._sched.queue_depth
-                n_active = len(self._sched.active)
-                for res in self._sched.stall_pending(self.tick):
+        with self.recorder.dump_on_friendly_error():
+            while self._sched.busy:
+                if self.tick - start >= max_ticks:
+                    n_queued = self._sched.queue_depth
+                    n_active = len(self._sched.active)
+                    # abandon the in-flight block and close the
+                    # deferred-free window: the stall's frees land at once
+                    self._inflight = None
+                    self.pool.flush_frees(None)
+                    for res in self._sched.stall_pending(self.tick):
+                        results[res.id] = res
+                        self.metrics.record_finish(res)
+                    err = FriendlyError(
+                        f"serve run() exceeded max_ticks ({max_ticks}) "
+                        f"with {n_queued} queued and {n_active} active "
+                        "requests; partial results (completed + "
+                        "'stalled') are attached as err.results"
+                    )
+                    err.results = results
+                    raise err
+                for res in self.step():
                     results[res.id] = res
-                    self.metrics.record_finish(res)
-                err = FriendlyError(
-                    f"serve run() exceeded max_ticks ({max_ticks}) with "
-                    f"{n_queued} queued and {n_active} active requests; "
-                    "partial results (completed + 'stalled') are "
-                    "attached as err.results"
-                )
-                err.results = results
-                raise err
-            for res in self.step():
-                results[res.id] = res
         return results
+
+    # -- cancel, kill, checkpoint and restore --------------------------------
+
+    def cancel(self, request_id: int) -> int | None:
+        """Cancel one pending request WITHOUT a terminal result: a queued
+        entry leaves the queue, an active or filling one frees its slot.
+        Returns the emitted-token count discarded, or None when the id is
+        unknown or terminal (or the engine is dead)."""
+        if self._dead:
+            return None
+        emitted = self._sched.cancel(request_id)
+        if emitted is None:
+            return None
+        self.metrics.record_cancel()
+        self.recorder.record("cancelled", tick=self.tick, id=request_id,
+                             emitted=emitted)
+        return emitted
+
+    def _park_after_kill(self) -> None:
+        """Deterministic parking for a killed engine: the in-flight block
+        is dropped, the deferred-free window closes, and every leased
+        slot frees back to the pool (a paged pool's mappings release), so
+        an engine restored from the snapshot in the same process never
+        double-holds device state. The host's request bookkeeping is kept
+        for a post-mortem snapshot."""
+        if self._dead:
+            return
+        self._dead = True
+        self._inflight = None
+        self.pool.flush_frees(None)
+        leased = self.pool.leased_slots()
+        for slot in leased:
+            self.pool.free(slot)
+        self.recorder.record("killed", tick=self.tick,
+                             parked_slots=len(leased))
+
+    @property
+    def last_snapshot(self) -> dict | None:
+        """The most recent COMPLETE periodic checkpoint (see
+        ``snapshot_every_ticks`` / :meth:`checkpoint`); a checkpoint that
+        failed mid-write never lands here."""
+        return self._last_snapshot
+
+    def checkpoint(self) -> dict | None:
+        """Take one periodic checkpoint through the ``serve.snapshot``
+        fault hook. A fault there is a checkpoint failing MID-WRITE: it is
+        counted, ``last_snapshot`` keeps the previous complete one and
+        serving continues (returns None). An injected ``kill`` there is a
+        crash while checkpointing: it parks and re-raises."""
+        try:
+            self._fire("serve.snapshot", self.tick)
+            snap = self.snapshot()
+        except EngineKilled:
+            self._park_after_kill()
+            raise
+        except Exception as e:  # noqa: BLE001 — a torn checkpoint must
+            # not take serving down; the engine keeps the previous one
+            self.metrics.record_snapshot_failure()
+            self.recorder.record("snapshot_failed", tick=self.tick,
+                                 error=str(e))
+            return None
+        if self._faults is not None:
+            # the silent-corruption drill: the flip lands AFTER the
+            # checksum stamp, latent until a restore re-hashes
+            cseed = self._faults.corrupt_spec("serve.snapshot",
+                                              tick=self.tick)
+            if cseed is not None:
+                snap = integrity.flip_bit_json(snap, cseed)
+        self._last_snapshot = snap
+        self.metrics.record_snapshot()
+        self.recorder.record("snapshot", tick=self.tick,
+                             active=len(snap["active"]),
+                             queued=len(snap["queued"]))
+        return snap
+
+    def snapshot(self) -> dict:
+        """JSON-able checkpoint of ALL host-side request state: every
+        queued, filling and active request's prompt, emitted tokens,
+        budget and deadline, and the engine tick — no device state:
+        restore re-prefills prompt + emitted prefix, and greedy decode
+        rebuilds the same frontier. The JAX engine's keys and ``version``
+        1, stamped with the JAX engine's canonical-JSON checksum. Call
+        between ``step()``s."""
+        def entry(req, emitted):
+            return {
+                "id": req.id,
+                "prompt": [int(x) for x in req.prompt],
+                "emitted": [int(x) for x in emitted],
+                "max_new_tokens": req.max_new_tokens,
+                "eos_id": req.eos_id,
+                "deadline_tick": req.deadline_tick,
+                "submit_tick": req.submit_tick,
+                "trace": req.trace_id,
+            }
+
+        active = [entry(st.req, st.out)
+                  for _slot, st in sorted(self._sched.active.items())]
+        # mid-fill requests checkpoint as queued entries with their
+        # resume prefix: a fill emits no token before it completes
+        queued = [entry(fs.req, fs.req.prefix)
+                  for _slot, fs in sorted(self._sched.filling.items())]
+        queued += [entry(req, req.prefix) for req in self._sched.queue]
+        snap = {
+            "version": 1,
+            "model": self.graph.name,
+            "cache_len": self.cache_len,
+            "pad_id": self.pad_id,
+            "tick": self.tick,
+            "next_id": self._next_id,
+            "active": active,
+            "queued": queued,
+        }
+        if self._paged:
+            # informational: restore rebuilds the mappings from scratch,
+            # but the crash dump stays auditable
+            snap["paging"] = self.pool.snapshot()
+        snap["checksum"] = integrity.json_checksum(snap)
+        return snap
+
+    @classmethod
+    def restore(cls, snapshot: dict, graph, variables,
+                **kwargs) -> "ServeEngine":
+        """Rebuild a crashed engine from :meth:`snapshot` (the port's or
+        the JAX engine's): a fresh engine (``kwargs`` as for the
+        constructor) whose queue re-admits every checkpointed request —
+        active ones first, their emitted tokens as a resume prefix, so
+        re-prefilling prompt + prefix continues each stream unchanged.
+        Deadlines and the tick counter are absolute and survive.
+
+        A snapshot that carries a ``checksum`` is re-hashed FIRST: a
+        mismatch raises :class:`SnapshotCorruption` naming both hashes
+        before any engine state is built."""
+        stamp = snapshot.get("checksum")
+        if stamp is not None:
+            actual = integrity.json_checksum(snapshot)
+            if actual != stamp:
+                raise SnapshotCorruption(expected=stamp, actual=actual)
+        if snapshot.get("version") != 1:
+            raise FriendlyError(
+                f"unknown serve snapshot version "
+                f"{snapshot.get('version')!r} (this build reads "
+                "version 1)"
+            )
+        if snapshot.get("model") != graph.name:
+            raise FriendlyError(
+                f"snapshot is for model {snapshot.get('model')!r}, "
+                f"cannot restore onto {graph.name!r}"
+            )
+        kwargs.setdefault("cache_len", snapshot["cache_len"])
+        kwargs.setdefault("pad_id", snapshot["pad_id"])
+        engine = cls(graph, variables, **kwargs)
+        engine._sched.tick_count = int(snapshot["tick"])
+        engine._next_id = int(snapshot["next_id"])
+        now = time.perf_counter()
+        # appended directly, bypassing max_queue: these were admitted
+        # once already
+        for entry in list(snapshot["active"]) + list(snapshot["queued"]):
+            engine._sched.queue.append(ServeRequest(
+                id=int(entry["id"]),
+                prompt=np.asarray(entry["prompt"], np.int32),
+                max_new_tokens=int(entry["max_new_tokens"]),
+                eos_id=entry["eos_id"],
+                deadline_tick=entry["deadline_tick"],
+                submit_tick=int(entry["submit_tick"]),
+                submit_wall=now,
+                prefix=np.asarray(entry.get("emitted", ()), np.int32),
+                trace_id=str(entry.get("trace") or f"t{int(entry['id'])}"),
+            ))
+            engine.metrics.record_submit()
+        # the restored engine's first recovery point IS its snapshot
+        engine._last_snapshot = snapshot
+        return engine
+
+
+def _sequence(req) -> np.ndarray:
+    """What a request's (re)admission prefills: the prompt, plus the
+    tokens already emitted for a preempted or restored request."""
+    if len(req.prefix):
+        return np.concatenate([req.prompt, req.prefix])
+    return req.prompt
 
 
 def _row(logits, last):

@@ -36,11 +36,18 @@ Host-side accounting:
   :class:`~mmlspark_tpu_torch.core.faults.ResourceExhausted`.
 
 Device-state discipline: host bookkeeping mutates only BETWEEN decode
-blocks. ``ServeEngine`` calls :meth:`ensure_decode_pages` before each
-block so every page the block can write is mapped and private up front,
-and the page table reaches the device before the block runs, by a
-blocking copy from the host mirror. During the block the table is
-read-only, which keeps one host sync per block.
+block dispatches. ``ServeEngine`` calls :meth:`ensure_decode_pages`
+before each block so every page the block can write is mapped and private
+up front, and the page table reaches the device before the block runs: a
+copy of the host mirror staged in a fresh pinned buffer, enqueued on the
+engine's stream (no host sync, and the mirror may change right after).
+Every device write the pool makes — the table, page copies, prefill
+scatters, the per-slot state — is ordered on that one stream behind any
+block already in flight, so an in-flight block keeps the table it was
+dispatched with. The async engine's DEFERRED FREES (:meth:`defer_frees`)
+point a freed slot's row at the trash page at once but drop its pages'
+refcounts only at :meth:`flush_frees`, after the block in flight has been
+fetched.
 
 Where the JAX package differs, and why: it threads the pool functionally
 and DONATES it to the decode program, and donation forbids aliased
@@ -49,8 +56,8 @@ page copies are per-block functional updates. The port updates in place:
 ONE device page table serves every block (each block's entry holds the
 same tensor), and a copy-on-extend is ``pk[dst].copy_(pk[src])``.
 
-Not ported (ROADMAP.md): mesh shards (one data shard here), the async
-engine's deferred frees, and ``snapshot``.
+Not ported: mesh shards (one data shard here; ROADMAP.md Queue 1 item
+13).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core.env import host_to_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.core.faults import ResourceExhausted
 from mmlspark_tpu_torch.models.generate import cache_geometry
@@ -232,6 +240,11 @@ class PagedCachePool:
             self.buffers[name] = entry
         self._free = list(range(slots - 1, -1, -1))
         self._leased: set[int] = set()
+        # the deferred-free window: the stamp of frees while it is open,
+        # and the (generation, slot, held pages) frees awaiting a fetch
+        self._defer_gen: int | None = None
+        self._deferred: list[tuple[int, int, list[int]]] = []
+        self._deferred_slots: set[int] = set()
         self.positions = torch.zeros((slots,), dtype=torch.int32,
                                      device=self.device)
         self.live = torch.zeros((slots,), dtype=torch.bool,
@@ -314,12 +327,13 @@ class PagedCachePool:
                 s[dst].copy_(s[src])
 
     def _commit_pt(self) -> None:
-        """Copy the host page table to the device. A BLOCKING copy: the
-        host mirror is mutated again right after, and a non-blocking copy
-        from it could read the later state."""
+        """Copy the host page table to the device, in place: a copy of the
+        mirror staged in a fresh pinned buffer (the mirror is mutated
+        again right after), enqueued without a host sync."""
         if not self._pt_dirty:
             return
-        self.page_table.copy_(torch.from_numpy(self._pt_host))
+        self.page_table.copy_(host_to_device(self._pt_host.copy(),
+                                             self.device))
         self._pt_dirty = False
 
     # -- accounting --------------------------------------------------------
@@ -331,6 +345,12 @@ class PagedCachePool:
     @property
     def leased_count(self) -> int:
         return len(self._leased)
+
+    def leased_slots(self) -> list[int]:
+        """Leased slot ids, ascending — what the engine's kill-parking
+        walks to return every held slot (and its page mappings)
+        deterministically."""
+        return sorted(self._leased)
 
     @property
     def pages_free(self) -> int:
@@ -352,15 +372,57 @@ class PagedCachePool:
         self._leased.add(slot)
         return slot
 
+    def defer_frees(self, gen: int) -> None:
+        """Open (or advance) a deferred-free window — see
+        ``SlotCachePool.defer_frees``. The paged split: a freed slot's
+        PAGE-TABLE row points at the trash page at once (so the next
+        dispatch's dead-row writes are absorbed, as after a synchronous
+        free), but its pages' refcounts drop only at :meth:`flush_frees` —
+        the block already in flight writes through the table it was
+        dispatched with, so its frontier page must stay owned until that
+        block has been fetched."""
+        self._defer_gen = gen
+
+    def flush_frees(self, completed_gen: int | None = None) -> None:
+        """Decref the held pages and return the slot for every deferred
+        free whose stamped generation is ``<= completed_gen`` (all when
+        None, which also closes the window)."""
+        if completed_gen is None:
+            self._defer_gen = None
+        keep = []
+        for gen, slot, pages in self._deferred:
+            if completed_gen is None or gen <= completed_gen:
+                self._deferred_slots.discard(slot)
+                self._leased.discard(slot)
+                self._free.append(slot)
+                for pg in pages:
+                    self._decref(pg)
+            else:
+                keep.append((gen, slot, pages))
+        self._deferred = keep
+
     def free(self, slot: int) -> None:
-        if slot not in self._leased:
+        if slot not in self._leased or slot in self._deferred_slots:
             raise FriendlyError(
                 f"slot {slot} is not leased (double free, or never "
                 f"leased from this pool of {self.num_slots})"
             )
-        self._leased.remove(slot)
-        self._free.append(slot)
-        self._release_mappings(slot)
+        if self._defer_gen is not None:
+            # hold the refcounts, retarget the table: the deferred entry
+            # keeps the pages alive past the block in flight, while the
+            # trash-pointing row reaches every LATER dispatch
+            pages = [int(self._pt_host[slot, pg])
+                     for pg in range(self._npages[slot])]
+            self._deferred.append((self._defer_gen, slot, pages))
+            self._deferred_slots.add(slot)
+            if self._npages[slot]:
+                self._pt_host[slot, :] = TRASH_PAGE
+                self._npages[slot] = 0
+                self._pt_dirty = True
+        else:
+            self._leased.remove(slot)
+            self._free.append(slot)
+            self._release_mappings(slot)
         self._commit_pt()
         self.positions[slot] = 0
         self.live[slot] = False
@@ -404,9 +466,9 @@ class PagedCachePool:
         self._ensure_writable(slot, start, length)
         ps = self.page_size
         pos = np.arange(start, length)
-        pages = torch.from_numpy(
-            self._pt_host[slot, pos // ps].astype(np.int64)).to(self.device)
-        offs = torch.from_numpy(pos % ps).to(self.device)
+        pages = host_to_device(
+            self._pt_host[slot, pos // ps].astype(np.int64), self.device)
+        offs = host_to_device(pos % ps, self.device)
         quantized = self.kv_dtype == "int8"
         for name, (pk, pv, _pt, *scales) in self.buffers.items():
             ck, cv = prefill_cache[name][:2]
@@ -523,8 +585,8 @@ class PagedCachePool:
         cache; the paged layout is a decode-side format). int8 pages
         dequantize through their per-page scales."""
         n = -(-keep // self.page_size)
-        idx = torch.tensor(entry.pages[:n], dtype=torch.long,
-                           device=self.device)
+        idx = host_to_device(np.asarray(entry.pages[:n], np.int64),
+                             self.device)
         out = {}
         for name, (pk, pv, _pt, *scales) in self.buffers.items():
             hk, d = pk.shape[1], pk.shape[3]
@@ -590,6 +652,33 @@ class PagedCachePool:
             "prefix_cache_entries": len(self._prefix),
             "cow_copies_total": int(self.cow_copies),
             "prefix_tokens_saved_total": int(self.prefix_tokens_saved),
+        }
+
+    def snapshot(self) -> dict:
+        """JSON-able paging state under the JAX package's keys: page
+        table, refcounts, prefix-cache entries. Informational in a
+        restore (the engine re-prefills every request and rebuilds the
+        mappings), but it keeps a crash dump auditable."""
+        return {
+            "kv_dtype": self.kv_dtype,
+            "page_size": int(self.page_size),
+            "num_pages": int(self.num_pages),
+            "max_pages": int(self.max_pages),
+            "page_table": self._pt_host.tolist(),
+            "npages": list(self._npages),
+            "refcounts": [int(x) for x in self._refcount],
+            "prefix_entries": [
+                {
+                    "prompt": e.prompt.tolist(),
+                    "length": e.length,
+                    "pages": list(e.pages),
+                    "last_used": e.last_used,
+                }
+                for e in self._prefix.values()
+            ],
+            "prefix_cache_hits_total": int(self.prefix_hits),
+            "prefix_tokens_saved_total": int(self.prefix_tokens_saved),
+            "cow_copies_total": int(self.cow_copies),
         }
 
     def refcount_audit(self) -> tuple[int, int]:

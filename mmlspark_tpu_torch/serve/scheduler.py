@@ -1,17 +1,26 @@
 """Continuous-batching scheduler: queue, slot states and tick bookkeeping
 for the serving engine — the port's own copy of
-``mmlspark_tpu/serve/scheduler.py`` (numpy and ``FriendlyError`` only),
-trimmed to this slice: no chunked fills, preemption, quarantine or
-hand-offs.
+``mmlspark_tpu/serve/scheduler.py`` (numpy and ``FriendlyError`` only).
 
 One TICK = admit joiners -> one fused decode BLOCK of up to T tokens for
 every active slot -> retire finished sequences. A sequence hitting EOS
 mid-block goes dead on the device (emitting pads for the rest of the
-block) and frees its slot when the block's tokens are consumed.
+block) and frees its slot when the block's tokens are consumed. With
+chunked prefill a request holds its slot in a FILL state while the engine
+advances its fill one chunk a tick, and joins the decode batch when the
+fill completes. The resilience layer's transitions — quarantine
+(``fail``), preemption with a resume prefix, ``requeue`` and ``cancel`` —
+and the async engine's identity fence (``consume(..., states=)``) are
+here too.
+
+Not in this slice: the hand-off transitions (``handoff_all``,
+``handoff_result``) wait for the replica plane (ROADMAP.md Queue 1 item
+12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -19,6 +28,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
+
+_EMPTY_PREFIX = np.zeros(0, np.int32)
 
 
 @dataclass(frozen=True)
@@ -35,14 +46,26 @@ class ServeRequest:
     deadline_tick: int | None
     submit_tick: int
     submit_wall: float
+    #: tokens ALREADY generated before (re)admission — non-empty only
+    #: for preempted or restored requests, whose admission re-prefills
+    #: prompt + prefix so decode resumes exactly where it stopped (greedy
+    #: determinism keeps the stream unchanged). Counts against
+    #: ``max_new_tokens``.
+    prefix: np.ndarray = field(default_factory=lambda: _EMPTY_PREFIX)
+    #: trace-context id stamped at the first submit and carried through
+    #: snapshots; the engine mints ``t{id}``
+    trace_id: str = ""
 
 
 @dataclass
 class RequestResult:
     """Terminal record for one request: ``status`` is ``"completed"``
     (budget or EOS reached), ``"expired"`` (deadline passed while queued
-    or mid-decode) or ``"stalled"`` (``run()`` hit its ``max_ticks``
-    bound). ``tokens`` includes the prompt, like ``generate()``."""
+    or mid-decode), ``"failed"`` (quarantined by the engine's fault
+    handling: a poisoned token stream, or a dispatch failure that retries
+    could not absorb) or ``"stalled"`` (``run()`` hit its ``max_ticks``
+    bound). ``tokens`` includes the prompt, like ``generate()``, and for a
+    non-completed status whatever was generated."""
 
     id: int
     status: str
@@ -66,6 +89,23 @@ class _SlotState:
     first_token_tick: int = 0
 
 
+@dataclass
+class _FillState:
+    """Chunked-prefill state of one slot mid-fill: the request holds its
+    slot lease while the engine advances ``filled`` one chunk a tick, and
+    joins the decode batch when ``filled`` reaches ``total``. ``carry`` is
+    engine-owned (the fill's carry cache); ``keep`` is the prefix-cache
+    resume frontier — positions ``[0, keep)`` came from a shared prefix
+    and are already in the carry."""
+
+    req: ServeRequest
+    filled: int  # positions [0, filled) already computed into the carry
+    total: int  # len(prompt) + len(prefix): the fill target
+    keep: int = 0
+    started_tick: int = 0
+    carry: object = None
+
+
 class ContinuousBatchScheduler:
     def __init__(self, pool, max_queue: int):
         if max_queue < 1:
@@ -74,6 +114,8 @@ class ContinuousBatchScheduler:
         self.max_queue = max_queue
         self.queue: deque[ServeRequest] = deque()
         self.active: dict[int, _SlotState] = {}  # slot -> state
+        #: slot -> mid-fill state (empty with monolithic prefill)
+        self.filling: dict[int, _FillState] = {}
         self.tick_count = 0
 
     @property
@@ -82,7 +124,7 @@ class ContinuousBatchScheduler:
 
     @property
     def busy(self) -> bool:
-        return bool(self.queue or self.active)
+        return bool(self.queue or self.active or self.filling)
 
     def enqueue(self, req: ServeRequest) -> None:
         """Admission control: the queue is BOUNDED — a full queue rejects
@@ -98,9 +140,12 @@ class ContinuousBatchScheduler:
     def pop_next(self) -> ServeRequest:
         return self.queue.popleft()
 
+    # -- tick phases -------------------------------------------------------
+
     def expire(self, tick: int) -> list[RequestResult]:
-        """Retire every request (queued or active) whose deadline has
-        passed; active expiries free their slot."""
+        """Retire every request (queued, filling or active) whose
+        deadline has passed; active and filling expiries free their
+        slot."""
         out: list[RequestResult] = []
         kept: deque[ServeRequest] = deque()
         for req in self.queue:
@@ -115,16 +160,42 @@ class ContinuousBatchScheduler:
                 del self.active[slot]
                 self.pool.free(slot)
                 out.append(self._finish(st, "expired", tick))
+        for slot, fs in list(self.filling.items()):
+            req = fs.req
+            if req.deadline_tick is not None and tick >= req.deadline_tick:
+                del self.filling[slot]
+                self.pool.free(slot)
+                out.append(self._queued_result(req, "expired", tick))
         return out
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def start_fill(self, slot: int, req: ServeRequest, total: int,
+                   keep: int, carry, tick: int) -> _FillState:
+        """Begin a chunked fill in a freshly leased slot: the request
+        leaves the queue and holds the slot while the engine's fill loop
+        advances ``filled`` from ``keep`` toward ``total``."""
+        fs = _FillState(req=req, filled=keep, total=total, keep=keep,
+                        started_tick=tick, carry=carry)
+        self.filling[slot] = fs
+        return fs
+
+    def fill_done(self, slot: int) -> _FillState:
+        """Pop a completed (or abandoned) fill; the caller activates the
+        request or frees the slot."""
+        return self.filling.pop(slot)
 
     def activate(self, slot: int, req: ServeRequest, first_token: int,
                  tick: int) -> RequestResult | None:
         """Install a prefilled request into its slot. Returns a terminal
         result at once when the FIRST token already finishes it (budget
         reached, or the token is EOS) — the slot is freed without ever
-        joining the decode batch."""
-        st = _SlotState(req=req, pos=len(req.prompt),
-                        last_token=first_token, out=[first_token],
+        joining the decode batch. A request carrying a ``prefix`` was
+        prefilled over prompt + prefix, so its decode frontier starts past
+        the prefix and the prefix counts against the budget."""
+        st = _SlotState(req=req, pos=len(req.prompt) + len(req.prefix),
+                        last_token=first_token,
+                        out=list(req.prefix) + [first_token],
                         first_token_tick=tick)
         if (
             len(st.out) >= req.max_new_tokens
@@ -160,19 +231,29 @@ class ContinuousBatchScheduler:
         return tok, rem, eos, min_rem
 
     def consume(
-        self, token_block: np.ndarray, tick: int
+        self, token_block: np.ndarray, tick: int,
+        states: dict[int, _SlotState] | None = None,
     ) -> tuple[list[RequestResult], dict[int, int]]:
         """Fold one fused decode BLOCK's ``(S, T)`` token output back into
         per-slot state: each active slot consumes its row left to right
         until its EOS or token budget retires it (later columns are
         device-emitted pads, discarded), freeing retired slots. Returns
-        ``(finished results, {slot: real tokens consumed})``."""
+        ``(finished results, {slot: real tokens consumed})``.
+
+        ``states`` is the async engine's identity fence: the slot->state
+        map captured AT DISPATCH. A block fetched a tick late feeds only
+        rows whose slot still holds the SAME request — a slot retired
+        after dispatch (expiry, quarantine, cancel, preemption) and
+        perhaps re-leased contributes pads that belong to nobody."""
         token_block = np.asarray(token_block)
         if token_block.ndim == 1:
             token_block = token_block[:, None]
         finished: list[RequestResult] = []
         consumed: dict[int, int] = {}
-        for slot, st in list(self.active.items()):
+        rows = self.active if states is None else states
+        for slot, st in list(rows.items()):
+            if states is not None and self.active.get(slot) is not st:
+                continue
             req = st.req
             taken = 0
             for col in range(token_block.shape[1]):
@@ -191,10 +272,63 @@ class ContinuousBatchScheduler:
             consumed[slot] = taken
         return finished, consumed
 
+    # -- fault handling (the engine's resilience layer calls these) --------
+
+    def fail(self, slot: int, tick: int) -> RequestResult:
+        """Quarantine one ACTIVE request: pop it, free its slot (which
+        forces the device live mask dead and the position to 0), and
+        retire it as ``"failed"`` — the blast radius of a poisoned or
+        undispatchable request is that request."""
+        st = self.active.pop(slot)
+        self.pool.free(slot)
+        return self._finish(st, "failed", tick)
+
+    def fail_unactivated(self, req: ServeRequest,
+                         tick: int) -> RequestResult:
+        """Quarantine a request whose prefill never succeeded (its slot is
+        freed by the caller, which still holds the lease)."""
+        return self._queued_result(req, "failed", tick)
+
+    def preempt(self, slot: int) -> ServeRequest:
+        """Evict one ACTIVE request under memory pressure, folding its
+        emitted tokens into a resume ``prefix``; the slot is freed and the
+        caller requeues the returned request."""
+        st = self.active.pop(slot)
+        self.pool.free(slot)
+        return dataclasses.replace(
+            st.req, prefix=np.asarray(st.out, np.int32)
+        )
+
+    def requeue(self, req: ServeRequest) -> None:
+        """Put a preempted request back at the FRONT of the queue,
+        bypassing ``max_queue``: the engine already accepted it."""
+        self.queue.appendleft(req)
+
+    def cancel(self, request_id: int) -> int | None:
+        """Remove one pending request WITHOUT a terminal result: a queued
+        entry leaves the queue, an active or filling one frees its slot.
+        Returns the count of tokens already emitted for it, or None when
+        the id is unknown or already terminal."""
+        for req in self.queue:
+            if req.id == request_id:
+                self.queue.remove(req)
+                return len(req.prefix)
+        for slot, st in list(self.active.items()):
+            if st.req.id == request_id:
+                del self.active[slot]
+                self.pool.free(slot)
+                return len(st.out)
+        for slot, fs in list(self.filling.items()):
+            if fs.req.id == request_id:
+                del self.filling[slot]
+                self.pool.free(slot)
+                return len(fs.req.prefix)
+        return None
+
     def stall_pending(self, tick: int) -> list[RequestResult]:
-        """Retire EVERY still-pending request (queued and active) with the
-        status ``"stalled"`` — ``run()``'s ``max_ticks`` bound calls
-        this so no request is silently discarded."""
+        """Retire EVERY still-pending request (queued, active, filling)
+        with the status ``"stalled"`` — ``run()``'s ``max_ticks`` bound
+        calls this so no request is silently discarded."""
         out: list[RequestResult] = []
         while self.queue:
             out.append(self._queued_result(
@@ -204,13 +338,23 @@ class ContinuousBatchScheduler:
             self.pool.free(slot)
             out.append(self._finish(st, "stalled", tick))
         self.active.clear()
+        for slot, fs in sorted(self.filling.items()):
+            self.pool.free(slot)
+            out.append(self._queued_result(fs.req, "stalled", tick))
+        self.filling.clear()
         return out
+
+    # -- result assembly ---------------------------------------------------
 
     def _queued_result(self, req: ServeRequest, status: str,
                        tick: int) -> RequestResult:
-        """Terminal record for a request that never activated."""
-        return self._result(req, status, tokens=req.prompt, generated=0,
-                            first_token_tick=None, tick=tick)
+        """Terminal record for a request that never (re)activated — its
+        tokens are the prompt plus any resume prefix."""
+        return self._result(
+            req, status,
+            tokens=np.concatenate([req.prompt, req.prefix]),
+            generated=len(req.prefix), first_token_tick=None, tick=tick,
+        )
 
     def _finish(self, st: _SlotState, status: str,
                 tick: int) -> RequestResult:

@@ -29,7 +29,13 @@ raises.
 The kernel wrappers count their launches in Python, and a replay runs no
 Python, so a capture records each launch counter's delta and every
 replay adds it (:data:`LAUNCH_COUNTER_MODULES`). A program that fails to
-capture (a host sync inside it, for one) raises; nothing falls back.
+capture (a host sync inside it, or an allocation failure under memory
+pressure) raises a ``RuntimeError`` naming the program, chained to the
+cause; nothing falls back. The failed capture leaves no program behind —
+the capture stream is closed and the key stays unknown, so the next call
+with that signature runs eagerly and captures again — but the eager call
+before it has run, so its writes to state arguments stand (a caller that
+retries restores what it needs).
 
 The guard itself::
 

@@ -834,3 +834,191 @@ def test_capture_that_syncs_the_host_raises(cuda):
         prog(torch.ones(4, device=cuda))
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
+
+
+# -- chunked prefill, the async host loop, the resilience layer ----------------
+
+
+def _wide_lm():
+    """A model wide enough that a T=32 block outlasts the host's dispatch
+    of the next one."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+
+    graph = build_model("transformer_lm", vocab_size=512, d_model=256,
+                        heads=4, depth=4, max_len=256)
+    return graph, init_variables(graph, 12, device="cuda")
+
+
+def _joins(engine, prompts, budget):
+    """Half the prompts up front, two ticks, then the rest join."""
+    results, rids = {}, []
+    half = len(prompts) // 2
+    for p in prompts[:half]:
+        rids.append(engine.submit(p, budget))
+    for _ in range(2):
+        results.update({r.id: r for r in engine.step()})
+    for p in prompts[half:]:
+        rids.append(engine.submit(p, budget))
+    results.update(engine.run())
+    return [results[r].tokens for r in rids]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(kv_dtype="int8"),
+    dict(paged=True, page_size=16, prefix_cache=True),
+    dict(paged=True, page_size=16, kv_dtype="int8"),
+    dict(quantize_weights=True),
+], ids=["dense", "dense_int8", "paged", "paged_int8", "weight_int8"])
+def test_async_streams_bit_equal_sync(cuda, kw):
+    """The async loop runs the same programs on the same inputs as the
+    synchronous one, only reordered on the host: the streams are
+    bit-equal on the card, for every pool and weight-int8."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, 64, size=20)
+    prompts = [np.concatenate([head, rng.integers(0, 64, size=n)])
+               for n in (3, 9)] + [rng.integers(0, 64, size=n)
+                                   for n in (4, 17, 30, 2)]
+    streams = {}
+    for mode in (False, True):
+        engine = ServeEngine(graph, variables, slots=3, cache_len=64,
+                             decode_block=8, async_host=mode, **kw)
+        streams[mode] = _joins(engine, prompts, 12)
+        if mode:
+            assert engine.metrics.overlapped_dispatches_total > 0
+            assert engine.pool.leased_count == 0
+    for a, b in zip(streams[False], streams[True]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_async_fetch_overlaps_the_next_block(cuda):
+    """A pipelined fetch waits on its own block's event only: at least
+    one fetch returns while the block dispatched after it is still
+    running (its event pending)."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _wide_lm()
+    engine = ServeEngine(graph, variables, slots=8, cache_len=256,
+                         decode_block=32, async_host=True)
+    rng = np.random.default_rng(6)
+    for _ in range(8):
+        engine.submit(rng.integers(0, 512, size=16), 1 + 4 * 32)
+    seen = {"fetches": 0, "pending": 0}
+    inner = engine._fetch
+
+    def fetch(inflight):
+        out = inner(inflight)
+        seen["fetches"] += 1
+        nxt = engine._inflight
+        if nxt is not None and not nxt["event"].query():
+            seen["pending"] += 1
+        return out
+
+    engine._fetch = fetch
+    engine.run()
+    assert seen["pending"] >= 1, seen
+    assert engine.metrics.overlapped_dispatches_total > 0
+
+
+def test_oom_inside_a_capture_degrades_and_recaptures(cuda):
+    """An allocation failure raised inside a decode program's capture:
+    classified as resource exhaustion through the wrapping error, the
+    positions and live mask its eager run advanced restored, the block
+    cap halved down the ladder, the capture stream closed, the key
+    captured again on its next call, every count within its pin and the
+    streams equal ``generate()``."""
+    from mmlspark_tpu_torch.models import generate
+    from mmlspark_tpu_torch.serve import ServeEngine
+    from mmlspark_tpu_torch.testing import serve_compile_guard
+
+    graph, variables = _small_lm()
+    engine = ServeEngine(graph, variables, slots=2, cache_len=64,
+                         decode_block=4, retry_backoff_s=0.0,
+                         degrade_recover_ticks=2)
+    program = engine._decode._fn
+    body = program._fn
+    armed = {"n": 1}
+
+    def flaky(*args):
+        if armed["n"] and torch.cuda.is_current_stream_capturing() \
+                and args[-1] == 4:
+            armed["n"] -= 1
+            raise torch.cuda.OutOfMemoryError("forced inside the capture")
+        return body(*args)
+
+    program._fn = flaky
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 64, size=n) for n in (5, 11, 8)]
+    with serve_compile_guard(engine, min_decode=1, min_prefill=1):
+        rids = [engine.submit(p, 20) for p in prompts]
+        results = engine.run()
+    assert armed["n"] == 0
+    assert not torch.cuda.is_current_stream_capturing()
+    events = [e["name"] for e in engine.recorder.events()]
+    assert "degraded" in events and "recovered" in events
+    assert "2" in engine.metrics.decode_blocks
+    assert "4" in engine.metrics.decode_blocks  # recaptured and replayed
+    assert engine.decode_compile_count <= engine.num_decode_blocks
+    assert engine.metrics.retries_total == 1
+    for rid, p in zip(rids, prompts):
+        want = generate(graph, variables, p[None], 20)[0].cpu().numpy()
+        np.testing.assert_array_equal(results[rid].tokens, want)
+
+
+def test_chunked_streams_match_monolithic_or_near_tie(cuda):
+    """Chunked fills run GEMMs of other shapes than the monolithic
+    prefill, so in bf16 at random weights a stream may first differ only
+    at a near tie: the top-2 margin of the full forward there below the
+    bf16 logit tolerance; every chunk family within its pin."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 64, size=n) for n in (40, 7, 33, 17, 50)]
+    streams = {}
+    for chunk in (None, 16):
+        engine = ServeEngine(graph, variables, slots=2, cache_len=64,
+                             decode_block=8, prefill_chunk=chunk,
+                             async_host=chunk is not None)
+        streams[chunk] = _joins(engine, prompts, 12)
+        assert engine.prefill_compile_count <= engine.num_prefill_buckets
+    for p, want, got in zip(prompts, streams[None], streams[16]):
+        diff = np.nonzero(want != got)[0]
+        if not diff.size:
+            continue
+        i = int(diff[0])
+        assert i >= len(p)
+        ids = torch.from_numpy(want[None, :i].astype(np.int32)).cuda()
+        top2 = graph.apply(variables, ids)[0, -1].float().sort().values[-2:]
+        assert float(top2[1] - top2[0]) < 6.25e-2
+
+
+def test_slot_freed_in_flight_is_not_released_before_its_fetch(cuda):
+    """A request cancelled while the block that saw it live is in flight
+    frees its slot into the deferred window: no new lease takes the slot
+    until that block is fetched; then the next request gets it and
+    decodes like ``generate()``."""
+    from mmlspark_tpu_torch.models import generate
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    engine = ServeEngine(graph, variables, slots=1, cache_len=64,
+                         decode_block=4, async_host=True)
+    rng = np.random.default_rng(9)
+    a = engine.submit(rng.integers(0, 64, size=6), 30)
+    engine.step()  # a admitted, its first block dispatched, in flight
+    assert engine._inflight is not None
+    slot = next(iter(engine._sched.active))
+    assert engine.cancel(a) is not None
+    assert slot in engine.pool._deferred_slots
+    assert engine.pool.free_count == 0
+    prompt = rng.integers(0, 64, size=9)
+    b = engine.submit(prompt, 10)
+    engine.step()  # no lease yet; the in-flight block is fetched
+    assert engine.queue_depth == 1 and engine.pool.free_count == 1
+    results = engine.run()
+    want = generate(graph, variables, prompt[None], 10)[0].cpu().numpy()
+    np.testing.assert_array_equal(results[b].tokens, want)
+    assert a not in results
