@@ -122,7 +122,35 @@ Phases (each one fails the run with a non-zero exit on error):
    CPU (the plain versions), on the same weights and batch, through the
    f32-FMA kernels: the loss within 1e-4 relative, every parameter's
    gradient within 1e-3 of that leaf's largest;
-6. numbers: each kernel's, its plain version's and (where one exists)
+6. the trainer's resilience (the ``train_resilience`` line), each run a
+   main path with the counts set to 0 just before it and read just
+   after, on the full-width training model (adam, batch 8, 8 steps,
+   checkpoints every 2 steps in a temporary directory deleted at the
+   end): the fold kernel (``csrc/tree_checksum.cu``) bit-equal to its
+   plain version and to numpy's host fold on random trees of every word
+   size (odd lengths, empty leaves, an unaligned leaf) and on the
+   full-width parameters and adam moments, the carry kept with the flag
+   at 0; a kill at step 5 and a resume from the step-4 checkpoint,
+   parameters and the stitched loss curve bit-equal to the uninterrupted
+   run; a kill between payload and commit at step 4 (the store keeps
+   steps 0 and 2, the resume is bit-exact) and a bit flipped after the
+   hash at step 4 (the resume refuses it, counts one checksum failure,
+   falls back to step 2, bit-exact); transients at ``train.step`` and
+   ``train.data`` retried, bit-equal; a poison at ``train.data`` skipped
+   on token rows (bit-equal) and quarantined on an MLP's float rows (the
+   step's loss NaN, adam's count one short); an injected OOM walking
+   ``grad_accum`` 1 -> 2 with a second captured program, the loss curve
+   within LADDER_LOSS_TOL of the clean one; ``audit_every=2``: clean
+   audits, one step program, one fold launch a step; the seeded
+   ``train.step`` corrupt spec with every suspicion adjudicated; a flip
+   after an audit step's fold replayed and adopted, bit-equal; the costs
+   of a checkpoint at full width (save, sha256, restore, bytes) and of a
+   host audit's fold; step ms with audits on and off; and the resumed
+   run's last checkpoint restored into a target rebuilt from scratch and
+   served by the dense engine (4 greedy requests, equal to
+   ``generate()`` or first differing at a near tie, ``flash_decode``
+   launched);
+7. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -132,7 +160,9 @@ Phases (each one fails the run with a non-zero exit on error):
    CUDA graph; the attention kernels'
    device times also from ``torch.profiler``; the fused optimizer's row
    (adam over the 33.9 M parameters, against ``torch.optim.Adam(fused=
-   True).step()``); the kernel's bound, the
+   True).step()``); the fold's row (``tree_checksum`` over the
+   full-width parameters and adam moments, with its ``graph_ms`` and the
+   flag-0 launch's; no library call computes it); the kernel's bound, the
    engines' throughput, the training runs' step time, tokens/s and peak
    memory, and one steady (replayed) decode block and one replayed
    training step under ``torch.profiler`` (device busy share and the
@@ -151,6 +181,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1349,11 +1380,13 @@ def zero_counts() -> None:
 
     import mmlspark_tpu_torch.ops.flash_attention as fa
     import mmlspark_tpu_torch.ops.fused_optim as fo
+    import mmlspark_tpu_torch.ops.tree_checksum as tc
 
     torch.cuda.synchronize()
     for name in COUNTERS:
         setattr(fa, name, 0)
     fo.launches = 0
+    tc.launches = 0
 
 
 def read_counts() -> dict:
@@ -1361,10 +1394,12 @@ def read_counts() -> dict:
 
     import mmlspark_tpu_torch.ops.flash_attention as fa
     import mmlspark_tpu_torch.ops.fused_optim as fo
+    import mmlspark_tpu_torch.ops.tree_checksum as tc
 
     torch.cuda.synchronize()
     return {**{name: getattr(fa, name) for name in COUNTERS},
-            "fused_optim_launches": fo.launches}
+            "fused_optim_launches": fo.launches,
+            "tree_checksum_launches": tc.launches}
 
 
 def timed_path(fn):
@@ -1948,6 +1983,486 @@ def check_train_step_vs_cpu(seed: int = 3) -> dict:
         raise AssertionError(f"train step loss {loss} vs CPU {cpu_loss}")
     return {"loss": loss, "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
             "worst_grad": worst, "worst_grad_rel_err": grad_rel[worst]}
+
+
+# -- the trainer's resilience ------------------------------------------------------
+
+#: the resilience phase: the full-width training model, adam, batch 8, 8
+#: steps, checkpoints every 2 steps, audits every 2
+RES_STEPS, RES_EVERY, RES_SEED = 8, 2, 7
+#: the ladder's loss curve against the clean run: micro-batches of 4 rows
+#: change the bf16 products' shapes, so their roundings
+LADDER_LOSS_TOL = 2e-2
+
+
+def fold_trees() -> list:
+    """Random trees holding every word size (f32, bf16, f16, int8, int32,
+    int64, f64, bool), odd lengths, empty leaves and a 4-byte leaf that is
+    not 16-byte aligned, on the card."""
+    import torch
+
+    out = []
+    for seed in range(3):
+        g = torch.Generator().manual_seed(seed)
+        leaves = [
+            torch.randn(7, 5, generator=g),
+            torch.randn(8193 * 3 + 5, generator=g).bfloat16(),
+            torch.randn(3, generator=g).half(),
+            torch.randint(-128, 128, (16385 + 7,), generator=g,
+                          dtype=torch.int8),
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (33,), generator=g,
+                          dtype=torch.int32),
+            torch.randint(-2 ** 62, 2 ** 62, (17,), generator=g,
+                          dtype=torch.int64),
+            torch.randn(9, generator=g, dtype=torch.float64),
+            torch.rand(77, generator=g) > 0.5,
+            torch.zeros(0),
+            torch.randn(40_000 + seed, generator=g),
+            torch.zeros((), dtype=torch.int32),
+        ]
+        leaves = [t.to(DEVICE) for t in leaves]
+        leaves.append(torch.randn(50_001, device=DEVICE)[1:])
+        out.append(leaves)
+    return out
+
+
+def train_state_leaves(seed: int) -> list:
+    """The full-width training state's fold leaves in the trainer's order
+    (parameters, adam's count, mu, nu) with seeded values, on the card."""
+    import torch
+
+    from mmlspark_tpu_torch.core import integrity
+    from mmlspark_tpu_torch.models import build_model, init_variables
+
+    graph = build_model("transformer_lm", **TRAIN_MODEL)
+    params = init_variables(graph, seed, device=DEVICE)
+    flat = [t for block in params.values() for t in block.values()]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    opt = {"count": torch.full((), 7, dtype=torch.int32, device=DEVICE),
+           "mu": [torch.randn(t.shape, generator=gen, device=DEVICE) * 1e-3
+                  for t in flat],
+           "nu": [torch.rand(t.shape, generator=gen, device=DEVICE) * 1e-6
+                  for t in flat]}
+    return integrity.tree_leaves((params, opt))
+
+
+def check_tree_checksum() -> dict:
+    """The fold kernel against its plain version and numpy's host fold:
+    bit-equal on the random trees and on the full-width training state;
+    with the flag at 0 the carry stays and the workspace is left zero."""
+    import torch
+
+    from mmlspark_tpu_torch.core.integrity import tree_checksum_host
+    from mmlspark_tpu_torch.ops import tree_checksum as tc
+
+    equal = {}
+    trees = fold_trees() + [train_state_leaves(RES_SEED)]
+    on = torch.ones((), dtype=torch.bool, device=DEVICE)
+    off = torch.zeros((), dtype=torch.bool, device=DEVICE)
+    for i, leaves in enumerate(trees):
+        label = "full_width_state" if i == len(trees) - 1 else f"random_{i}"
+        plan = tc.FoldPlan(leaves)
+        out = torch.full((), 77, dtype=torch.int32, device=DEVICE)
+        tc.tree_fold(leaves, out=out, flag=off, plan=plan)
+        kept = int(out) == 77
+        kernel = tc.as_uint32(tc.tree_fold(leaves, out=out, flag=on,
+                                           plan=plan))
+        again = tc.as_uint32(tc.tree_fold(leaves, out=out, plan=plan))
+        plain = tc.as_uint32(tc.tree_fold_reference(leaves))
+        host = tree_checksum_host(leaves)
+        equal[label] = (kernel == again == plain == host and kept
+                        and not bool(plan.workspace.any()))
+    log(f"tree_checksum vs plain vs host, bit-equal: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"tree_checksum differs: {equal}")
+    return equal
+
+
+def measure_tree_checksum(equal: dict, launches: int) -> dict:
+    """The fold's ``kernels`` row over the full-width training state
+    (parameters, count, mu, nu: 101.6 M words): device ms, graph ms (the
+    fold replayed from a CUDA graph, as the captured step runs it; and the
+    flag-0 launch's), the plain version's ms; bound: the bytes read once
+    at the card's memory rate. No one PyTorch call computes this fold."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import tree_checksum as tc
+
+    leaves = train_state_leaves(RES_SEED + 1)
+    plan = tc.FoldPlan(leaves)
+    out = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    out2 = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    on = torch.ones((), dtype=torch.bool, device=DEVICE)
+    off = torch.zeros((), dtype=torch.bool, device=DEVICE)
+
+    def fold(flag):
+        tc.tree_fold(leaves, out=out, flag=flag, plan=plan)
+
+    kernel_t = time_ms(fold, [(on,)], reps=200)
+    plain_t = time_ms(lambda: tc.tree_fold_reference(leaves, out=out2),
+                      [()], reps=5)
+    on_graph = graph_ms(fold, [(on,)])
+    off_graph = graph_ms(fold, [(off,)])
+    words = sum(tc.word_layout(t)[1] for t in leaves)
+    log(f"tree_checksum over {plan.n_bytes} bytes: device "
+        f"{kernel_t.ms:.4f} ms, graph {on_graph:.4f} ms, flag 0 graph "
+        f"{off_graph:.4f} ms, plain {plain_t.ms:.3f} ms")
+    return dict(kernel_row(
+        "tree_checksum", "mmlspark_tpu_torch/csrc/tree_checksum.cu",
+        "mmlspark_tpu/core/integrity.py:195 (tree_checksum under lax.cond "
+        "in the jitted step, mmlspark_tpu/train/trainer.py:615; no TPU "
+        "kernel: XLA fusion in the reference)",
+        launches, 0.0, kernel_t, plain_t, None, plan.n_bytes, 2 * words,
+        F32_FLOPS_PER_S,
+        dict(leaves=len(leaves), words=words, dtype="float32 + int32"),
+        design="a grid-stride walk over 8192-word chunks of every leaf "
+               "from a device table, 16-byte loads, a uint32 sum a block "
+               "added with integer atomics, the last block writes the "
+               "carry; a device flag gates it (an empty launch off)",
+        operations="2 integer ops a word (multiply-add) at the f32 rate",
+        bit_equal=equal), graph_ms=on_graph, flag_off_graph_ms=off_graph)
+
+
+def res_trainer(faults=None, **kw):
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    return SPMDTrainer(
+        build_model("transformer_lm", **TRAIN_MODEL),
+        TrainConfig(epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-3,
+                    optimizer="adam", log_every=1, shuffle=True,
+                    retry_backoff_s=0.0, **kw),
+        faults=faults, device=DEVICE)
+
+
+def res_run(label, weights, data, *, faults=None, killed=False, **kw):
+    """One run of the resilience phase, a main path of its own: the counts
+    set to 0 just before and read just after. Returns (trainer, trained
+    variables or None when killed, counts)."""
+    from mmlspark_tpu_torch.core.faults import EngineKilled
+
+    trainer = res_trainer(faults, **kw)
+    zero_counts()
+    try:
+        out = trainer.train(*data, init_variables=weights)
+    except EngineKilled:
+        out = None
+    counts = read_counts()
+    if (out is None) != killed:
+        raise AssertionError(f"train_resilience {label}: killed "
+                             f"{out is None}, expected {killed}")
+    want = SERVE_MODEL["depth"] * len(trainer.history)
+    if counts["fwd_mma_launches"] < want or \
+            counts["bwd_kv_mma_launches"] < want:
+        raise AssertionError(f"train_resilience {label}: {counts} over "
+                             f"{len(trainer.history)} steps")
+    return trainer, out, counts
+
+
+def bit_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(
+        torch.equal(a[blk][k], b[blk][k]) for blk in a for k in a[blk])
+
+
+def losses(trainer, restored: bool = False) -> list:
+    hist = (trainer.restored_history if restored else []) + trainer.history
+    return [h["loss"] for h in hist]
+
+
+def step_gaps_ms(trainer) -> list:
+    """The wall ms between consecutive step events (``log_every=1``: the
+    trainer syncs on each step's loss); gap i ends at step i + 1."""
+    stamps = [e["t"] for e in trainer.recorder.events()
+              if e["name"] == "step"]
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def poison_mlp(directory: str) -> bool:
+    """A poisoned batch through an MLP on float rows (64 features, hidden
+    256, batch 8, 8 steps): the poisoned step's loss is NaN, the others
+    finite, one step quarantined, and adam's count in the final
+    checkpoint is one short of the steps."""
+    import shutil
+
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    rng = np.random.default_rng(RES_SEED)
+    x = rng.normal(size=(RES_STEPS * TRAIN_BATCH, 64)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.int32)
+    tr = SPMDTrainer(
+        build_model("mlp", num_outputs=2, hidden=(256,)),
+        TrainConfig(epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-2,
+                    log_every=1, checkpoint_dir=directory),
+        faults=FaultInjector([Fault("train.data", "poison", tick=2)]),
+        device=DEVICE)
+    tr.train(x, y)
+    count = int(np.load(os.path.join(directory, f"payload-{RES_STEPS - 1}",
+                                     "opt_state", "count.npy"),
+                        allow_pickle=False))
+    shutil.rmtree(directory)
+    got = losses(tr)
+    return (not np.isfinite(got[2]) and all(np.isfinite(got[:2] + got[3:]))
+            and count == RES_STEPS - 1 and tr.telemetry.counter(
+                "train.anomalies_skipped").value == 1)
+
+
+def check_train_resilience() -> tuple:
+    """The resilience phase at full width: the fold kernel, kill and
+    resume, torn and flipped checkpoints, faults absorbed, the ladder,
+    audits, and a checkpoint served. Returns (the ``train_resilience``
+    line, the audited run's fold launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch.core import integrity
+    from mmlspark_tpu_torch.core.faults import (
+        Fault,
+        FaultInjector,
+        parse_fault_spec,
+    )
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.train import AtomicCheckpointStore
+
+    t_phase = time.perf_counter()
+    fold_equal = check_tree_checksum()
+    graph = build_model("transformer_lm", **TRAIN_MODEL)
+    weights = init_variables(graph, RES_SEED, device=DEVICE)
+    data = progression_rows(RES_STEPS * TRAIN_BATCH, RES_SEED)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ck-")
+    flags, counters, programs, times = {}, {}, {}, {}
+    try:
+        def ck(name, **kw):
+            return dict(checkpoint_dir=os.path.join(root, name),
+                        checkpoint_every=RES_EVERY, **kw)
+
+        # the uninterrupted run
+        clean, want, counts = res_run("clean", weights, data)
+        want_losses = losses(clean)
+        programs["clean"] = {
+            "step_programs": clean.telemetry.counter(
+                "retrace.train.step").value,
+            "capture_s": clean.telemetry.gauge("train.step_capture_s").value}
+        times["step_ms_audits_off"] = statistics.median(step_gaps_ms(clean))
+        launch = {"clean": counts}
+
+        # 2. kill at step 5, resume from the step-4 checkpoint
+        killed, _, launch["killed"] = res_run(
+            "killed", weights, data, killed=True, faults=FaultInjector(
+                [Fault("train.step", "kill", tick=5)]), **ck("kill"))
+        resumed, got, launch["resumed"] = res_run("resumed", weights, data,
+                                                  **ck("kill"))
+        counters["killed"] = killed.telemetry.to_dict()
+        counters["resumed"] = resumed.telemetry.to_dict()
+        # steps 0, 2 and 4 before the kill; 6 and the end, 7, after it
+        flags["kill_resume_checkpoints"] = (
+            counters["killed"]["train.checkpoints"],
+            counters["resumed"]["train.checkpoints"]) == (3, 2)
+        flags["kill_resume_params_bit_equal"] = bit_equal(got, want)
+        flags["kill_resume_losses_bit_equal"] = \
+            losses(resumed, True) == want_losses
+        flags["resumed_from"] = resumed.history[0]["step"] - 1
+        programs["resumed"] = resumed.telemetry.counter(
+            "retrace.train.step").value
+        served_dir = os.path.join(root, "kill")
+
+        # 3. a torn checkpoint (kill between payload and commit at step 4)
+        res_run("torn", weights, data, killed=True,
+                faults=FaultInjector([Fault("train.checkpoint", "kill",
+                                             tick=4)]), **ck("torn"))
+        flags["torn_steps"] = AtomicCheckpointStore(
+            os.path.join(root, "torn")).steps()
+        torn, got, _ = res_run("torn resumed", weights, data, **ck("torn"))
+        flags["torn_resume_bit_equal"] = (
+            bit_equal(got, want) and losses(torn, True) == want_losses
+            and torn.history[0]["step"] == 3)
+        shutil.rmtree(os.path.join(root, "torn"))
+        #    a flipped one (corrupt after the hash at step 4, kill at 5)
+        res_run("flipped", weights, data, killed=True,
+                faults=FaultInjector([
+                    Fault("train.checkpoint", "corrupt", tick=4),
+                    Fault("train.step", "kill", tick=5)]), **ck("flip"))
+        flipped, got, _ = res_run("flipped resumed", weights, data,
+                                  **ck("flip"))
+        counters["flipped_resume"] = flipped.telemetry.to_dict()
+        flags["flipped_resume_bit_equal"] = (
+            bit_equal(got, want) and losses(flipped, True) == want_losses
+            and flipped.history[0]["step"] == 3
+            and flipped.telemetry.counter(
+                "train.integrity.checksum_failures").value == 1)
+        shutil.rmtree(os.path.join(root, "flip"))
+
+        # 4. faults absorbed: transients, a poisoned batch, the ladder
+        tr, got, _ = res_run("transients", weights, data,
+                             faults=FaultInjector([
+                                 Fault("train.step", "transient", tick=2),
+                                 Fault("train.data", "transient", tick=3)]))
+        flags["transients_bit_equal"] = (
+            bit_equal(got, want) and losses(tr) == want_losses
+            and tr.telemetry.counter("train.retries_total").value == 2)
+        counters["transients"] = tr.telemetry.to_dict()
+        # poison: the token rows hold no float column, so the hook skips
+        # it (as the JAX package's does) and the run stays the clean one;
+        # the MLP's float rows take the NaN, and its step is quarantined
+        tr, got, _ = res_run("poison on tokens", weights, data,
+                             faults=FaultInjector([Fault(
+                                 "train.data", "poison", tick=2)]))
+        flags["poison_on_tokens_skipped_bit_equal"] = (
+            bit_equal(got, want) and losses(tr) == want_losses
+            and tr.telemetry.counter("train.anomalies_skipped").value == 0)
+        flags["poison_quarantined"] = poison_mlp(os.path.join(root,
+                                                              "poison"))
+        tr, got, launch["ladder"] = res_run(
+            "ladder", weights, data, faults=FaultInjector(
+                [Fault("train.step", "oom", tick=3)]))
+        ladder = losses(tr)
+        ladder_err = max(abs(a - b) for a, b in zip(ladder, want_losses))
+        programs["ladder"] = {
+            "step_programs": tr.telemetry.counter(
+                "retrace.train.step").value,
+            "capture_s": tr.telemetry.gauge("train.step_capture_s").value,
+            "grad_accum": tr.telemetry.gauge("train.grad_accum").value}
+        flags["ladder_ok"] = (
+            programs["ladder"]["step_programs"] == 2
+            and programs["ladder"]["grad_accum"] == 2
+            and all(np.isfinite(ladder)) and ladder[:3] == want_losses[:3]
+            and ladder_err <= LADDER_LOSS_TOL)
+        flags["ladder_max_loss_err"] = ladder_err
+
+        # 5. audits: clean, the seeded corrupt spec, a flip at an audit step
+        tr, _, launch["audited"] = res_run("audited", weights, data,
+                                           audit_every=RES_EVERY)
+        counters["audited"] = tr.telemetry.to_dict()
+        gaps = step_gaps_ms(tr)
+        # the gap after step i holds that step's audit where (i + 1) is a
+        # multiple of the cadence
+        times["audited_step_gaps_ms"] = gaps
+        times["step_ms_audits_on"] = statistics.median(
+            g for i, g in enumerate(gaps) if (i + 1) % RES_EVERY)
+        times["audit_step_ms"] = statistics.median(
+            g for i, g in enumerate(gaps) if not (i + 1) % RES_EVERY)
+        flags["audits_clean"] = (
+            counters["audited"]["train.integrity.audits"]
+            == RES_STEPS // RES_EVERY
+            and counters["audited"]["train.integrity.sdc_suspected"] == 0
+            and tr.telemetry.counter("retrace.train.step").value == 1
+            and launch["audited"]["tree_checksum_launches"] == RES_STEPS)
+        inj = parse_fault_spec("seed=3,train.step:corrupt=0.2")
+        tr, _, _ = res_run("seeded corrupt", weights, data,
+                           audit_every=RES_EVERY, faults=inj)
+        counters["seeded_corrupt"] = tr.telemetry.to_dict()
+        counters["seeded_corrupt"]["faults_injected"] = dict(inj.counts)
+        counters["seeded_corrupt"]["replay_verdicts"] = tr.replay_verdicts
+        c = counters["seeded_corrupt"]
+        flags["seeded_corrupt_adjudicated"] = (
+            len(tr.replay_verdicts) == c["train.integrity.sdc_suspected"]
+            == c["train.integrity.replay_transient_sdc"]
+            + c["train.integrity.replay_software_nondeterminism"]
+            and c["train.integrity.checksum_failures"] == 0)
+        t0 = time.perf_counter()
+        tr, got, _ = res_run("audit-step corrupt", weights, data,
+                             audit_every=RES_EVERY, faults=FaultInjector(
+                                 [Fault("train.step", "corrupt", tick=3)]))
+        times["audit_corrupt_run_s"] = time.perf_counter() - t0
+        counters["audit_step_corrupt"] = tr.telemetry.to_dict()
+        flags["audit_step_corrupt_adopted_bit_equal"] = (
+            [v["verdict"] for v in tr.replay_verdicts] == ["transient_sdc"]
+            and bit_equal(got, want))
+
+        # the checkpoint's costs at full width: save, hash, restore, and
+        # a host audit's fold
+        state_leaves = train_state_leaves(RES_SEED + 2)
+        n_params = sum(1 for _, m in graph.blocks
+                       for _ in m.state_dict())
+        params, count = state_leaves[:n_params], state_leaves[n_params]
+        mu = state_leaves[n_params + 1:2 * n_params + 1]
+        nu = state_leaves[2 * n_params + 1:]
+        state = {"params": params, "opt_state": {"count": count, "mu": mu,
+                                                 "nu": nu}}
+        store = AtomicCheckpointStore(os.path.join(root, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save(0, state)
+        times["checkpoint_save_s"] = time.perf_counter() - t0
+        payload = os.path.join(root, "timed", "payload-0")
+        t0 = time.perf_counter()
+        integrity.dir_sha256(payload)
+        times["checkpoint_sha256_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.restore(state)
+        times["checkpoint_restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        integrity.tree_checksum_host((params, {"count": count, "mu": mu,
+                                               "nu": nu}))
+        times["host_audit_fold_s"] = time.perf_counter() - t0
+        times["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(payload) for f in files)
+        del state_leaves, params, mu, nu, state
+
+        # 6. the resumed run's last checkpoint served by the dense engine
+        served = serve_checkpoint(graph, served_dir, resumed_final=want)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"model": TRAIN_MODEL, "steps": RES_STEPS, "batch": TRAIN_BATCH,
+           "checkpoint_every": RES_EVERY, "audit_every": RES_EVERY,
+           "fold_bit_equal": fold_equal, "flags": flags,
+           "counters": counters, "programs": programs, "times": times,
+           "launch_counts": launch, "served": served,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"train_resilience: {json.dumps(out, default=str)[:3000]}")
+    bad = [k for k, v in flags.items() if v is False]
+    if bad or flags["torn_steps"] != [0, 2] or flags["resumed_from"] != 4:
+        raise AssertionError(f"train_resilience gates failed: {bad}, "
+                             f"{flags}")
+    return out, launch["audited"]["tree_checksum_launches"]
+
+
+def serve_checkpoint(graph, directory: str, resumed_final: dict) -> dict:
+    """The newest checkpoint in ``directory``, restored through the store
+    into a target rebuilt from scratch, served greedily by the dense
+    engine: its parameters equal the trained ones, and its streams equal
+    ``generate()`` over them or first differ at a near tie; the decode
+    path launched ``flash_decode``."""
+    import torch
+
+    from mmlspark_tpu_torch.models import init_variables
+    from mmlspark_tpu_torch.train import AtomicCheckpointStore
+
+    params = init_variables(graph, 0, device="cpu")
+    flat = [t for block in params.values() for t in block.values()]
+    target = {"params": params,
+              "opt_state": {"count": torch.zeros((), dtype=torch.int32),
+                            "mu": [torch.zeros_like(t) for t in flat],
+                            "nu": [torch.zeros_like(t) for t in flat]},
+              "anomaly": {"streak": torch.zeros((), dtype=torch.int32),
+                          "total": torch.zeros((), dtype=torch.int32)}}
+    state, meta, step = AtomicCheckpointStore(directory).restore(target)
+    variables = {b: {k: t.to(DEVICE) for k, t in leaves.items()}
+                 for b, leaves in state["params"].items()}
+    if step != RES_STEPS - 1 or not bit_equal(variables, resumed_final):
+        raise AssertionError(f"served checkpoint: step {step}, parameters "
+                             "differ from the trained ones")
+    prompts = progression_rows(4, RES_SEED + 3)[0][:, :64]
+    engine = make_engine(graph, variables)
+    zero_counts()
+    rids = [engine.submit(p, MAX_NEW) for p in prompts]
+    results = engine.run()
+    counts = read_counts()
+    if sorted(results) != sorted(rids) or counts["launches"] <= 0 or any(
+            r.status != "completed" for r in results.values()):
+        raise AssertionError(f"served checkpoint: {counts}, results "
+                             f"{ {i: r.status for i, r in results.items()} }")
+    diverged = check_streams(graph, variables, dict(zip(rids, prompts)),
+                             results, rids, "served checkpoint",
+                             exact=False)
+    return {"step": step, "requests": len(rids), "launch_counts": counts,
+            "diverged": diverged, "steps_per_epoch": meta["steps_per_epoch"]}
 
 
 def device_profile(prof, wall_ms: float) -> dict:
@@ -2640,6 +3155,9 @@ def main() -> int:
                                      seed=6)
     step_vs_cpu = check_train_step_vs_cpu()
     log(f"training phases took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_resilience, fold_launches = check_train_resilience()
+    log(f"train_resilience phase took {time.perf_counter() - t0:.1f}s")
 
     launches = {
         "launches": dense["counts"]["launches"],
@@ -2653,7 +3171,9 @@ def main() -> int:
         attn_errors, training["launch_counts"])
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
-            optim_equal, training["launch_counts"]["fused_optim_launches"])]
+            optim_equal, training["launch_counts"]["fused_optim_launches"]),
+        measure_tree_checksum(train_resilience["fold_bit_equal"],
+                              fold_launches)]
     print(json.dumps({"kernel_errors": errors,
                       "attention_kernel_errors": attn_errors,
                       "fused_optimizer_bit_equal": optim_equal,
@@ -2682,6 +3202,7 @@ def main() -> int:
     print(json.dumps({"attention_backward": attn_backward}))
     print(json.dumps({"chunked_async": chunked}))
     print(json.dumps({"resilience": resilience}))
+    print(json.dumps({"train_resilience": train_resilience}, default=str))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

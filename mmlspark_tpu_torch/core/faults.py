@@ -1,10 +1,12 @@
 """Deterministic fault injection and error classification for the serving
-engine — the port's own copy of ``mmlspark_tpu/core/faults.py`` (numpy
-only there; the port imports nothing of the JAX package).
+engine and the trainer — the port's own copy of
+``mmlspark_tpu/core/faults.py`` (numpy only there; the port imports
+nothing of the JAX package).
 
 The engine's hook points (``serve.prefill``, ``serve.decode``,
-``serve.device_get`` and the periodic-checkpoint ``serve.snapshot``) fire
-into a :class:`FaultInjector`:
+``serve.device_get`` and the periodic-checkpoint ``serve.snapshot``) and
+the trainer's (``train.step``, ``train.data``, ``train.checkpoint``,
+``train.restore``) fire into a :class:`FaultInjector`:
 
 - **Zero overhead when disabled.** The engine holds ``faults=None`` by
   default and every hook is one ``is not None`` check on the host path —
@@ -44,11 +46,11 @@ Real errors on the card:
   such errors propagate.
 
 The site table keeps the JAX package's names, so one fault spec parses on
-both frameworks. The port's serving engine fires the four ``serve.*``
-sites above; the supervisor's ``serve.health``, the hand-off's
-``serve.handoff`` and the multi-model ``serve.batch`` wait for the fleet
-planes (ROADMAP.md Queue 1 item 12), and the trainer fires none of its
-``train.*`` sites yet.
+both frameworks and, over the same traffic, draws the same faults. The
+port's serving engine fires the four ``serve.*`` sites above and its
+trainer the four ``train.*`` sites; the supervisor's ``serve.health``,
+the hand-off's ``serve.handoff`` and the multi-model ``serve.batch`` wait
+for the fleet planes (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations

@@ -1,8 +1,17 @@
-"""Integrity plane, host half: checksums, seeded bit-flips and the typed
-corruption errors — the port's own copy of the host functions of
-``mmlspark_tpu/core/integrity.py`` (numpy only; the port imports nothing
-of the JAX package).
+"""Integrity plane: checksums, seeded bit-flips and the typed corruption
+errors — the port of ``mmlspark_tpu/core/integrity.py`` (the port imports
+nothing of the JAX package).
 
+- **In-graph pytree fold** (:func:`tree_checksum`): the position-salted
+  wraparound ``uint32`` fold over the bitcast words of every leaf,
+  ``sum(word[i] * (i * MIX + 2*leaf_index + 1)) mod 2**32``, computed on
+  the device by ``ops/tree_checksum.py`` (one launch of
+  ``csrc/tree_checksum.cu`` on the card, gated by a device flag, so the
+  trainer's captured step folds only on audit steps).
+  :func:`tree_checksum_host` is the bit-identical numpy twin, leaves in
+  the same order: a nest of dicts (sorted keys), lists and tuples, the
+  JAX package's pytree order. On the same numpy tree the host fold equals
+  the JAX package's.
 - **Snapshots** (:func:`json_checksum`): sha256 over the canonical JSON
   of an engine snapshot; ``ServeEngine.restore`` rejects a corrupted
   snapshot with :class:`SnapshotCorruption` before rebuilding. The hash
@@ -12,20 +21,20 @@ of the JAX package).
   sha256 over a KV hand-off payload's token sequence, geometry, first
   token and cache leaves.
 - **Checkpoints at rest** (:func:`dir_sha256`): sha256 over a payload
-  directory (:class:`CheckpointCorruption` names both hashes).
-- **Host pytree fold** (:func:`tree_checksum_host`): the position-salted
-  wraparound ``uint32`` fold over the bitcast words of every leaf,
-  ``sum(word[i] * (i * MIX + 2*leaf_index + 1)) mod 2**32``, leaves in
-  the JAX package's pytree order (dict keys sorted).
+  directory, committed in the manifest and verified on restore
+  (:class:`CheckpointCorruption` names both hashes).
 
-The seeded ``flip_bit_*`` helpers are the ``corrupt`` fault kind's
-muscle: deterministic single-bit flips — the same seed flips the same bit,
-so every corruption drill replays.
+The seeded ``flip_bit_*`` and :func:`corrupt_replica` helpers are the
+``corrupt`` fault kind's muscle: deterministic single-bit flips — the same
+seed flips the same bit, so every corruption drill replays.
+:func:`corrupt_replica` flips its bit IN PLACE: the trainer's captured
+step reads its state at fixed addresses, and a new tensor would be
+invisible to the next replay. The port trains on one device, so
+:func:`per_device_checksums` has one copy to fold and
+:func:`corrupt_replica` corrupts that copy.
 
-Not in this slice (ROADMAP.md Queue 1 item 10, left-out 3): the device
-fold ``tree_checksum`` and ``per_device_checksums``/``corrupt_replica``,
-which only the trainer's ``audit_every`` uses; the hand-off drill
-``corrupt_payload`` waits with the hand-offs (item 12).
+Not in this slice: the hand-off drill ``corrupt_payload``, which waits
+with the hand-offs (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -88,16 +97,16 @@ class SnapshotCorruption(IntegrityError):
 # -- host pytree fold ----------------------------------------------------------
 
 
-def _leaves(tree) -> list:
+def tree_leaves(tree) -> list:
     """The leaves of a nest of dicts, lists and tuples in the JAX
     package's pytree order: dict entries by sorted key, sequences in
     order, ``None`` an empty subtree."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -139,7 +148,7 @@ def tree_checksum_host(tree) -> int:
     in ``[0, 2**32)``, equal to the JAX package's fold over the same
     values."""
     acc = 0
-    for i, leaf in enumerate(_leaves(tree)):
+    for i, leaf in enumerate(tree_leaves(tree)):
         w = _host_words(_host_array(leaf))
         if not w.size:
             continue
@@ -149,6 +158,80 @@ def tree_checksum_host(tree) -> int:
         )
         acc = (acc + int(np.sum(w * mult, dtype=np.uint32))) % (1 << 32)
     return acc
+
+
+def tree_checksum(tree, *, out=None, flag=None, plan=None):
+    """The fold of ``tree``'s tensor leaves on their device: a 0-d int32
+    tensor holding the uint32's bits (``out`` when given), written only
+    where the 0-d bool ``flag`` is true. On the card one kernel launch over
+    ``plan`` (an ``ops.tree_checksum.FoldPlan`` of the same leaves, built
+    when None); on the CPU the plain version. Bit-identical to
+    :func:`tree_checksum_host` over the same values."""
+    from mmlspark_tpu_torch.ops.tree_checksum import tree_fold
+
+    return tree_fold(tree_leaves(tree), out=out, flag=flag, plan=plan)
+
+
+def _device_id(tree) -> int:
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device.index or 0
+    return 0
+
+
+def per_device_checksums(tree) -> dict[int, int]:
+    """Host fold of each device's copy of ``tree``: ``{device id: fold}``.
+    The port trains on one device, which holds the only copy."""
+    return {_device_id(tree): tree_checksum_host(tree)}
+
+
+def _map(tree, fn):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def device_copy(tree, device_id: int):
+    """A host copy of ``tree`` (CPU tensors, numpy arrays as they are) as
+    device ``device_id`` holds it — the only copy, on one device."""
+    if device_id != _device_id(tree):
+        raise ValueError(f"the tree lives on device {_device_id(tree)}, not "
+                         f"{device_id}")
+    return _map(tree, lambda t: t.detach().cpu().clone()
+                if isinstance(t, torch.Tensor) else np.array(t))
+
+
+def _tensor_from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` (the host view :func:`_host_array` gives) as a CPU tensor
+    of ``like``'s dtype and shape, bit for bit."""
+    if like.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).reshape(like.shape)
+    return torch.from_numpy(arr.copy()).reshape(like.shape)
+
+
+def corrupt_replica(tree, seed: int):
+    """The ``train.step`` corrupt drill: flip one seeded bit of one leaf of
+    ``tree``, IN PLACE (``copy_`` into the tensor, whose address stays).
+    The leaf is drawn from ``default_rng(seed)``, the bit by
+    :func:`flip_bit_array`. Returns ``(tree, device id)`` — the one device
+    holds the only copy — or ``(tree, None)`` when no leaf holds a tensor
+    element."""
+    leaves = tree_leaves(tree)
+    candidates = [i for i, leaf in enumerate(leaves)
+                  if isinstance(leaf, torch.Tensor) and leaf.numel()]
+    if not candidates:
+        return tree, None
+    rng = np.random.default_rng(seed)
+    leaf = leaves[candidates[int(rng.integers(len(candidates)))]]
+    flipped = flip_bit_array(_host_array(leaf), seed)
+    with torch.no_grad():
+        leaf.copy_(_tensor_from_host(flipped, leaf))
+    return tree, _device_id(tree)
 
 
 # -- sha256 surfaces (wire payloads, snapshots, checkpoints) --------------------
@@ -174,7 +257,7 @@ def payload_checksum(payload: dict) -> str:
     _hash_array(h, seq)
     h.update(str(int(payload["length"])).encode())
     h.update(str(int(payload["first_token"])).encode())
-    for leaf in _leaves(payload["kv"]):
+    for leaf in tree_leaves(payload["kv"]):
         _hash_array(h, leaf)
     return h.hexdigest()
 
@@ -259,3 +342,36 @@ def flip_bit_json(obj: dict, seed: int) -> dict:
     node, key = leaves[int(rng.integers(len(leaves)))]
     node[key] = int(node[key]) ^ (1 << int(rng.integers(8)))
     return doc
+
+
+def flip_bit_in_file(path: str, seed: int) -> None:
+    """Flip one seeded bit of the file at ``path`` in place."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    if not data:
+        return
+    rng = np.random.default_rng(seed)
+    off = int(rng.integers(len(data)))
+    data[off] ^= 1 << int(rng.integers(8))
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+
+
+def flip_bit_in_dir(directory: str, seed: int) -> str | None:
+    """Flip one seeded bit in the LARGEST file under ``directory`` (ties:
+    the first by relative path) — a checkpoint payload's biggest leaf.
+    Returns the corrupted path, or None on an empty tree."""
+    files: list[tuple[int, str, str]] = []
+    for root, dirs, names in os.walk(directory):
+        dirs.sort()
+        for name in sorted(names):
+            full = os.path.join(root, name)
+            size = os.path.getsize(full)
+            if size:
+                files.append((-size, os.path.relpath(full, directory), full))
+    if not files:
+        return None
+    files.sort()
+    target = files[0][2]
+    flip_bit_in_file(target, seed)
+    return target

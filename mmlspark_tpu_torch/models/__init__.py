@@ -1,5 +1,6 @@
-"""Models: named-block graphs, the registry, the transformer LM, the
-weight bridge from flax, and generation (greedy, sampled, beam search)."""
+"""Models: named-block graphs, the registry, the transformer LM, the MLP
+and linear family, the weight bridge from flax, and generation (greedy,
+sampled, beam search)."""
 
 from mmlspark_tpu_torch.models.bridge import (
     init_variables,
@@ -7,6 +8,7 @@ from mmlspark_tpu_torch.models.bridge import (
 )
 from mmlspark_tpu_torch.models.generate import beam_search, generate
 from mmlspark_tpu_torch.models.graph import FINAL_NODE, NamedGraph
+from mmlspark_tpu_torch.models.mlp import linear, mlp
 from mmlspark_tpu_torch.models.registry import build_model, register_model
 from mmlspark_tpu_torch.models.transformer import transformer_lm
 
@@ -17,7 +19,9 @@ __all__ = [
     "build_model",
     "generate",
     "init_variables",
+    "linear",
     "load_flax_variables",
+    "mlp",
     "register_model",
     "transformer_lm",
 ]

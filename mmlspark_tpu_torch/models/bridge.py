@@ -14,6 +14,10 @@ blocks. The flax side is keyed as flax keys it, e.g. for
     block{i}/params/mlp_in/bias         -> block{i}["mlp_in.bias"]
     z/params/head/kernel                -> z["head.weight"] (T)
 
+and for ``mlp``, ``hidden{i}/params/Dense_0/kernel`` -> ``hidden{i}[
+"Dense_0.weight"]`` (T); an MLP block that has no input width yet takes
+it from that kernel's rows.
+
 A flax Dense ``kernel`` is (in, out); the port's weight is (out, in), so
 it is transposed on the way in. Weight-quantized flax variables
 (``mmlspark_tpu/ops/quantize.py``: ``{__w8__: int8, __w8_scale__: f32}``
@@ -90,6 +94,8 @@ def load_flax_variables(graph, variables, *, device=None) -> dict:
                 f"flax variables lack '{name}/params' for graph "
                 f"'{graph.name}'"
             ) from e
+        if hasattr(mod, "size_from_flax"):
+            mod.size_from_flax(params)
         block = {}
         for key, ref in mod.state_dict().items():
             path, owner, leaf = _owner_and_leaf(mod, key)
@@ -135,6 +141,10 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for name, mod in graph.blocks:
+        if not getattr(mod, "sized", True):
+            raise FriendlyError(
+                f"block '{name}' of graph '{graph.name}' has no input width "
+                "yet: call graph.size_input(x.shape[1:]) first")
         block = {}
         for key, ref in mod.state_dict().items():
             _, owner, leaf = _owner_and_leaf(mod, key)

@@ -64,6 +64,17 @@ class NamedGraph:
                 f"'{self.name}'; have {sorted(variables)}"
             ) from e
 
+    def size_input(self, example_shape) -> None:
+        """Size the blocks that learn their input width from the first
+        input, as a flax Dense does (the MLP family), from one example's
+        shape (no batch dim); other graphs are left as they are."""
+        width = int(example_shape[-1]) if len(example_shape) else 1
+        for _, mod in self.blocks:
+            size = getattr(mod, "size_input", None)
+            if size is None:
+                return
+            width = size(width)
+
     def bind(self, variables: dict) -> None:
         """Make the blocks' parameters the tensors of ``variables``
         (assigned, not copied); a no-op when ``variables`` is already

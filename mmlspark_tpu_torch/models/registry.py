@@ -1,6 +1,6 @@
 """Model-architecture registry: name -> NamedGraph builder — the port of
 ``mmlspark_tpu/models/registry.py``. The port registers only what its
-slices have ported (``transformer_lm`` so far)."""
+slices have ported: ``transformer_lm``, ``mlp`` and ``linear``."""
 
 from __future__ import annotations
 
@@ -36,4 +36,5 @@ def build_model(name: str, **config: Any) -> NamedGraph:
 
 def _ensure_loaded() -> None:
     # builder modules self-register on import
+    import mmlspark_tpu_torch.models.mlp  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401

@@ -13,6 +13,9 @@
   accounting for the int8 pools
 - :mod:`fused_optim` — the trainer's optimizer update and quarantine as
   one multi-tensor pass, wrapping ``csrc/fused_optim.cu``
+- :mod:`tree_checksum` — the integrity fold over the trainer's state as
+  one multi-tensor pass, gated by a device flag, wrapping
+  ``csrc/tree_checksum.cu``
 - :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use,
   and holds the C signature of every entry point
 """

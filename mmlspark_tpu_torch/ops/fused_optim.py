@@ -76,6 +76,9 @@ def optimizer_update(kind: str, params: list, grads: list, state: dict,
     if kind in ("adam", "adamw"):
         c1 = 1 - torch.pow(ADAM_B1, new_count)
         c2 = 1 - torch.pow(ADAM_B2, new_count)
+    # made before the update: an allocation that fails leaves every
+    # parameter, moment and the count as they were
+    kept_count = torch.where(bad, count, new_count)
     moments = [state[name] for name in moment_names(kind)]
     args = (kind, params, grads, moments, step_size, c1, c2, bad)
     kw = dict(weight_decay=weight_decay, momentum=momentum)
@@ -83,7 +86,7 @@ def optimizer_update(kind: str, params: list, grads: list, state: dict,
         optimizer_update_reference(*args, **kw)
     else:
         _launch(*args, **kw)
-    count.copy_(torch.where(bad, count, new_count))
+    count.copy_(kept_count)
 
 
 def optimizer_update_reference(kind, params, grads, moments, step_size, c1,

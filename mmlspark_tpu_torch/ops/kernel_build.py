@@ -191,6 +191,9 @@ SIGNATURES = {
     "mml_fused_optim": (
         [I32] * 2 + [PTR] * 9 + [ctypes.c_float] * 7 + [PTR]
     ),
+    # the leaf table, its length and chunk count, the flag, workspace
+    # and carry pointers, the grid, the stream
+    "mml_tree_checksum": [PTR, I32, I64] + [PTR] * 3 + [I32, PTR],
 }
 
 

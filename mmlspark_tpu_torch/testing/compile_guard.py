@@ -64,6 +64,7 @@ import torch
 LAUNCH_COUNTER_MODULES = (
     "mmlspark_tpu_torch.ops.flash_attention",
     "mmlspark_tpu_torch.ops.fused_optim",
+    "mmlspark_tpu_torch.ops.tree_checksum",
 )
 
 

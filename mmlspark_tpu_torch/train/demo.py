@@ -1,0 +1,148 @@
+"""Synthetic-data training demo — the port of ``mmlspark_tpu/train/demo.py``.
+
+Trains a small MLP classifier on seeded synthetic float blobs through
+:class:`~mmlspark_tpu_torch.train.trainer.SPMDTrainer` and returns one
+metrics dict: the trainer's step-time, loss and grad-norm histograms, the
+resilience counters (``train.retries_total``, ``train.anomalies_skipped``,
+``train.checkpoints``, ``train.checkpoint_failures``, ``train.
+integrity.*``) and the run's checkpoint and restart summary — the JAX
+demo's keys. The demo owns the restart loop a fleet supervisor would run:
+an injected ``kill`` (``faults="seed=1,train.step:kill=0.1"``) crashes the
+trainer, and the demo builds a new one that resumes from the last
+committed checkpoint — bit-exact, per the drill tests.
+
+Float features on purpose: ``train.data`` poison NaN-corrupts a feature
+row, which drives the grad-anomaly quarantine. With ``telemetry_dir`` the
+flight recorder's timeline lands in ``events.jsonl`` and the metrics dict
+in ``metrics.json``; the JAX demo's ``metrics.prom`` waits for the
+Prometheus exposition (ROADMAP.md Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+
+import numpy as np
+
+from mmlspark_tpu_torch.core.exceptions import ParamError
+
+
+def _atomic_write(path: str, text: str) -> None:
+    """Write ``text`` to a temp file beside ``path``, then ``os.replace``
+    it: a kill mid-dump leaves the old file or the new one, never half."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
+                   n_samples: int = 192, features: int = 8,
+                   classes: int = 2, hidden: tuple = (16,),
+                   seed: int = 0, log_every: int = 1,
+                   checkpoint_every: int = 1, max_restarts: int = 5,
+                   anomaly_limit: int = 5, max_grad_norm: float = 0.0,
+                   audit_every: int = 0,
+                   mesh: str | None = None,
+                   checkpoint_dir: str | None = None,
+                   telemetry_dir: str | None = None,
+                   faults: str | None = None,
+                   device=None) -> dict:
+    """Run the synthetic training loop with crash-restart supervision on
+    ``device`` (the card unless the caller asks for ``"cpu"``); returns
+    the metrics dict."""
+    from mmlspark_tpu_torch.core.env import default_device
+    from mmlspark_tpu_torch.core.faults import EngineKilled, parse_fault_spec
+    from mmlspark_tpu_torch.core.telemetry import (
+        FlightRecorder,
+        MetricRegistry,
+    )
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.train.resilience import AtomicCheckpointStore
+    from mmlspark_tpu_torch.train.trainer import SPMDTrainer, TrainConfig
+
+    if mesh is not None:
+        raise ParamError(
+            f"mesh={mesh!r}: meshes are not ported yet (ROADMAP.md Queue 1 "
+            "item 13); the demo trains on one device")
+    dev = default_device(device)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_samples, features)).astype(np.float32)
+    w = rng.normal(size=(features, classes)).astype(np.float32)
+    y = np.argmax(x @ w + 0.1 * rng.normal(size=(n_samples, classes)),
+                  axis=1)
+    graph = build_model("mlp", num_outputs=classes, hidden=tuple(hidden))
+
+    # the kill-restart drill needs somewhere durable to resume from even
+    # when the caller did not ask to keep checkpoints
+    ckpt_dir = checkpoint_dir or tempfile.mkdtemp(prefix="mmltpu-train-ck-")
+    cfg = TrainConfig(
+        epochs=epochs, batch_size=batch_size, learning_rate=1e-2,
+        seed=seed, log_every=log_every, shuffle=False,
+        checkpoint_dir=ckpt_dir, checkpoint_every=checkpoint_every,
+        anomaly_limit=anomaly_limit, max_grad_norm=max_grad_norm,
+        retry_backoff_s=0.0, audit_every=audit_every,
+    )
+    # ONE registry, recorder and injector across restarts: the resumed
+    # trainer appends to the same timeline, and the injector's remaining
+    # schedule and rate stream carry over
+    registry = MetricRegistry()
+    recorder = FlightRecorder()
+    injector = parse_fault_spec(faults) if faults else None
+    if injector is not None and injector.listener is None:
+        def _on_fault(kind: str, site: str) -> None:
+            registry.counter("train.faults_injected_total").inc()
+            recorder.record("fault_injected", kind=kind, site=site)
+        injector.listener = _on_fault
+
+    restarts = 0
+    while True:
+        trainer = SPMDTrainer(graph, cfg, telemetry=registry,
+                              recorder=recorder, faults=injector,
+                              device=dev)
+        try:
+            trainer.train(x, y)
+            break
+        except EngineKilled:
+            # the crash drill: a new trainer resumes from the last
+            # committed checkpoint
+            restarts += 1
+            recorder.record("restart", attempt=restarts)
+            if restarts >= max_restarts:
+                raise
+
+    full_history = trainer.restored_history + trainer.history
+    loss_hist = [h for h in full_history if "loss" in h]
+    out = registry.to_dict()
+    out.update(
+        steps_total=(loss_hist[-1]["step"] + 1) if loss_hist else 0,
+        final_loss=loss_hist[-1]["loss"] if loss_hist else None,
+        restarts=restarts,
+        epochs=epochs,
+        batch_size=batch_size,
+        history_len=len(full_history),
+        checkpoint_steps=AtomicCheckpointStore(ckpt_dir).steps(),
+        checkpoint_dir=ckpt_dir,
+        model_config={"features": features, "classes": classes,
+                      "hidden": list(hidden)},
+        audit_every=audit_every,
+        replay_verdicts=trainer.replay_verdicts,
+    )
+    if injector is not None:
+        out["faults_injected"] = dict(injector.counts)
+    if telemetry_dir:
+        os.makedirs(telemetry_dir, exist_ok=True)
+        _atomic_write(os.path.join(telemetry_dir, "events.jsonl"),
+                      recorder.dump())
+        _atomic_write(os.path.join(telemetry_dir, "metrics.json"),
+                      json.dumps(out, indent=1, default=str))
+    return out

@@ -1,4 +1,5 @@
-"""Single-device trainer — the port of ``mmlspark_tpu/train/trainer.py``.
+"""Single-device trainer with step-level checkpoints and fault-tolerant
+execution — the port of ``mmlspark_tpu/train/trainer.py``.
 
 ``SPMDTrainer.train(x, y)`` owns the epoch loop over fixed-shape batches
 from :func:`~mmlspark_tpu_torch.data.feed.batch_iterator` (the JAX
@@ -22,10 +23,41 @@ and quarantine — is captured once as a CUDA graph
 and replayed for every later step, each batch copied into its static
 inputs. All state — parameters, gradients, moments, the count and the
 quarantine's carries — is updated in place, at the addresses the program
-reads. ``steps_per_dispatch`` K steps are K replays with no host sync
-between them. The blocks draw no random numbers in train mode, so the
-captured step reads no generator state (``remat``'s recompute keeps
-none either). On the CPU the step runs eagerly.
+reads; everything that writes the state from outside (a restore, the
+corrupt drill, the audit's replay, a new rung of the ladder) writes into
+those tensors and never rebinds one. ``steps_per_dispatch`` K steps are K
+replays with no host sync between them. The blocks draw no random
+numbers in train mode, so the captured step reads no generator state. On
+the CPU the step runs eagerly.
+
+Resilience, as in the JAX package (its ``docs/TRAINING.md``):
+
+- **Checkpoints** (``checkpoint_dir``): parameters, optimizer state and
+  the anomaly carries go through :class:`~mmlspark_tpu_torch.train.
+  resilience.AtomicCheckpointStore` at ``checkpoint_every`` and at the
+  end, with the loss history and ``steps_per_epoch`` in the manifest. A
+  resume restores the newest intact checkpoint (a corrupt one is
+  quarantined and the one before it tried), skips the batches of the
+  epoch already taken, and reproduces the uninterrupted run bit for bit
+  (an eager step and a replayed one give the same bits).
+- **Fault hooks** (``faults=``): ``train.step`` before each dispatch,
+  ``train.data`` before each batch is used (``poison`` NaN-corrupts the
+  first float column), ``train.checkpoint`` between the payload and the
+  commit, ``train.restore`` before a resume's read. Transient faults are
+  retried with linear backoff up to ``retry_limit``; ``kill`` escapes as
+  ``EngineKilled``.
+- **The accumulation ladder**: resource exhaustion — injected at the
+  hook, or a real allocation failure in the step or its capture — doubles
+  ``grad_accum`` (:func:`~mmlspark_tpu_torch.train.resilience.
+  next_accum_rung`) and captures the step again for the new rung: one
+  program a rung.
+- **Integrity audits** (``audit_every``): the step also folds parameters
+  and optimizer state into a uint32 carry (``ops/tree_checksum.py``),
+  only where a device flag is set, so one captured program serves audit
+  and non-audit steps. At the cadence the host folds its copy and
+  compares; a mismatch is replayed from the last clean state and judged
+  ``transient_sdc`` or ``software_nondeterminism``. With
+  ``audit_every=0`` the step holds no fold at all.
 
 The optimizers are optax's: ``adam`` (b1 0.9, b2 0.999, eps 1e-8,
 bias-corrected), ``adamw`` (adam plus the decoupled ``weight_decay * p``
@@ -37,11 +69,11 @@ The update and the quarantine's select are one pass
 plain tensor updates on the CPU.
 
 Ported here for one device; left out, each a ``ParamError`` naming its
-ROADMAP item when asked for: checkpoints and resume
-(``checkpoint_dir``), integrity audits (``audit_every``), meshes and
-tensor parallelism (``mesh_axes`` wider than one device,
-``param_rules``). The ``train.*`` fault sites and retries are not ported
-either (the trainer takes no fault injector).
+ROADMAP item when asked for: meshes and tensor parallelism (``mesh_axes``
+wider than one device, ``param_rules``; item 13), and with them the
+cross-replica vote of the audit and elastic resume at another data width.
+Checkpoints are the port's own ``.npy`` payloads and do not cross to the
+JAX package's orbax ones.
 """
 
 from __future__ import annotations
@@ -57,8 +89,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mmlspark_tpu_torch.core import integrity
 from mmlspark_tpu_torch.core.env import default_device, host_to_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError, ParamError
+from mmlspark_tpu_torch.core.faults import (
+    EngineKilled,
+    FaultInjector,
+    is_resource_exhausted,
+    is_transient,
+)
+from mmlspark_tpu_torch.core.integrity import CheckpointCorruption
 from mmlspark_tpu_torch.core.telemetry import (
     FlightRecorder,
     MetricRegistry,
@@ -68,13 +108,29 @@ from mmlspark_tpu_torch.data.dataset import Dataset
 from mmlspark_tpu_torch.data.feed import MASK_COL, batch_iterator
 from mmlspark_tpu_torch.models import bridge
 from mmlspark_tpu_torch.ops.fused_optim import moment_names, optimizer_update
+from mmlspark_tpu_torch.ops.tree_checksum import FoldPlan, as_uint32, tree_fold
 from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
+from mmlspark_tpu_torch.train.resilience import (
+    AtomicCheckpointStore,
+    next_accum_rung,
+)
 
 _log = logging.getLogger("mmlspark_tpu_torch.train")
 
 SOFTMAX_XENT = "softmax_xent"
 SIGMOID_XENT = "sigmoid_xent"
 MSE = "mse"
+
+#: the trainer's counters, made up front so that the exported schema is
+#: the same whether or not a fault ever fires (the JAX package's names)
+COUNTER_NAMES = (
+    "train.retries_total", "train.anomalies_skipped", "train.checkpoints",
+    "train.checkpoint_failures", "train.faults_injected_total",
+    "train.integrity.audits", "train.integrity.checksum_failures",
+    "train.integrity.sdc_suspected",
+    "train.integrity.replay_transient_sdc",
+    "train.integrity.replay_software_nondeterminism",
+)
 
 
 @dataclass(frozen=True)
@@ -95,7 +151,8 @@ class TrainConfig:
     shuffle: bool = True
     # K steps per dispatch: one compiled scan in the JAX package; here K
     # replays of the captured step with no host sync between them. The
-    # log cadence coarsens to the K-step group as there
+    # log, audit and checkpoint cadences coarsen to the K-step group as
+    # there
     steps_per_dispatch: int = 1
     # recompute each block's activations in the backward
     remat: bool = False
@@ -105,8 +162,9 @@ class TrainConfig:
     moe_aux_weight: float = 1e-2
     mesh_axes: dict | None = None
     param_rules: Any = None
+    # step-level checkpoints (train/resilience.py's atomic store)
     checkpoint_dir: str | None = None
-    checkpoint_every: int = 0
+    checkpoint_every: int = 0  # steps; 0 = only at the end
     max_checkpoints: int = 3
     resume: bool = True
     # abort after this many CONSECUTIVE quarantined steps (read at the
@@ -115,23 +173,17 @@ class TrainConfig:
     # grad-norm explosion threshold of the quarantine; 0 = only
     # non-finite loss/grad_norm count
     max_grad_norm: float = 0.0
+    # capped retries of transient train.step/train.data/train.restore
+    # faults, with the linear backoff retry_backoff_s * attempt
     retry_limit: int = 3
     retry_backoff_s: float = 0.0
+    # integrity audit cadence in steps; 0 = no audit, and no fold in the
+    # step program at all
     audit_every: int = 0
 
 
 def _check_ported(cfg: TrainConfig) -> None:
     """Refuse the fields whose machinery this port has not brought over."""
-    if cfg.checkpoint_dir:
-        raise ParamError(
-            "checkpoint_dir: atomic checkpoints and resume are not ported "
-            "yet (ROADMAP.md Queue 1 item 10, left-out 1)"
-        )
-    if cfg.audit_every:
-        raise ParamError(
-            "audit_every: integrity audits are not ported yet (ROADMAP.md "
-            "Queue 1 item 10, left-out 3)"
-        )
     if cfg.param_rules is not None:
         raise ParamError(
             "param_rules: tensor parallelism is not ported yet (ROADMAP.md "
@@ -226,31 +278,108 @@ def masked_loss(kind: str, logits, labels, mask):
     return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+
+
 class SPMDTrainer:
     """Train a :class:`~mmlspark_tpu_torch.models.graph.NamedGraph` on one
     device (``cuda`` unless ``device="cpu"``).
 
     ``telemetry`` records the ``train.step_ms``, ``train.tokens_per_sec``,
-    ``train.loss`` and ``train.grad_norm`` histograms at the log cadence;
-    ``recorder`` the step and anomaly events, logged when a
-    :class:`FriendlyError` (the anomaly abort) escapes ``train()``.
+    ``train.loss`` and ``train.grad_norm`` histograms at the log cadence
+    and the resilience counters (:data:`COUNTER_NAMES`); ``recorder`` the
+    step, checkpoint, restore, anomaly, retry, degraded and integrity
+    events, logged when a :class:`FriendlyError` (the anomaly abort, an
+    exhausted ladder) escapes ``train()``. ``faults`` (a
+    :class:`~mmlspark_tpu_torch.core.faults.FaultInjector`, or None) drives
+    the ``train.*`` drill sites.
     """
 
     def __init__(self, graph, config: TrainConfig,
                  telemetry: MetricRegistry | None = None,
-                 recorder: FlightRecorder | None = None, *, device=None):
+                 recorder: FlightRecorder | None = None,
+                 faults: FaultInjector | None = None, *, device=None):
         _check_ported(config)
         self.graph = graph
         self.config = config
         self.device = default_device(device)
         self.history: list[dict] = []
+        #: loss-curve entries of a restored checkpoint's manifest, apart
+        #: from :attr:`history` (this run's own);
+        #: ``restored_history + history`` is the whole curve, and what the
+        #: next checkpoint keeps
+        self.restored_history: list[dict] = []
+        #: the replay adjudications, newest last: the audit step, the
+        #: verdict (``transient_sdc`` when the replay reproduces the
+        #: in-graph or the host fold, ``software_nondeterminism`` when it
+        #: reproduces neither) and the three folds compared
+        self.replay_verdicts: list[dict] = []
         self.telemetry = telemetry if telemetry is not None \
             else MetricRegistry()
         self.recorder = recorder if recorder is not None \
             else FlightRecorder()
-        self.telemetry.counter("train.anomalies_skipped")
+        self._faults = faults
+        self._step = 0  # the current global step, the fault listener's tick
+        if faults is not None and faults.listener is None:
+            def _on_fault(kind: str, site: str) -> None:
+                self.telemetry.counter("train.faults_injected_total").inc()
+                self.recorder.record("fault_injected", tick=self._step,
+                                     kind=kind, site=site)
+            faults.listener = _on_fault
+        for name in COUNTER_NAMES:
+            self.telemetry.counter(name)
         self.telemetry.gauge("train.grad_accum").set(
             max(int(config.grad_accum), 1))
+
+    # -- checkpoints and fault hooks ----------------------------------------
+
+    def _ckpt_store(self) -> AtomicCheckpointStore | None:
+        cfg = self.config
+        if not cfg.checkpoint_dir:
+            return None
+
+        def pre_commit(step: int) -> None:
+            # the torn-write drill window, between payload and commit
+            if self._faults is not None:
+                self._faults.fire("train.checkpoint", tick=step)
+
+        def post_hash(step: int, payload_dir: str) -> None:
+            # the silent-corruption drill window: a flip after the hash, so
+            # the manifest commits a hash the bytes no longer match
+            if self._faults is None:
+                return
+            seed = self._faults.corrupt_spec("train.checkpoint", tick=step)
+            if seed is not None:
+                integrity.flip_bit_in_dir(payload_dir, seed)
+
+        return AtomicCheckpointStore(
+            cfg.checkpoint_dir, max_to_keep=cfg.max_checkpoints,
+            pre_commit=pre_commit, post_hash=post_hash,
+        )
+
+    def _fire_hook(self, site: str, tick: int) -> None:
+        """Fire one hook site BEFORE the work it guards; transient faults
+        are absorbed by up to ``retry_limit`` retries with linear backoff.
+        Resource exhaustion and ``kill`` escape to the caller's policy."""
+        if self._faults is None:
+            return
+        cfg = self.config
+        attempt = 0
+        while True:
+            try:
+                self._faults.fire(site, tick=tick)
+                return
+            except Exception as e:
+                if is_transient(e) and attempt < cfg.retry_limit:
+                    attempt += 1
+                    self.telemetry.counter("train.retries_total").inc()
+                    self.recorder.record("retry", tick=tick, site=site,
+                                         attempt=attempt)
+                    if cfg.retry_backoff_s:
+                        time.sleep(cfg.retry_backoff_s * attempt)
+                    continue
+                raise
+
+    # -- the main loop ---------------------------------------------------------
 
     def train(self, x: np.ndarray, y: np.ndarray,
               init_variables: dict | None = None,
@@ -259,7 +388,8 @@ class SPMDTrainer:
         variables (``{block: {name: tensor}}`` on the trainer's device).
         Weights come from ``init_variables`` (copied, never written), or
         from :func:`~mmlspark_tpu_torch.models.bridge.init_variables` at
-        ``config.seed``."""
+        ``config.seed``; a configured checkpoint directory with a
+        committed checkpoint overrides both (``resume``)."""
         with self.recorder.dump_on_friendly_error():
             return self._train_impl(x, y, init_variables, eval_fn)
 
@@ -280,6 +410,7 @@ class SPMDTrainer:
                 f"({accum})"
             )
 
+        self.graph.size_input(np.shape(x)[1:])
         if init_variables is None:
             init_variables = bridge.init_variables(self.graph, cfg.seed,
                                                    device=dev)
@@ -293,7 +424,14 @@ class SPMDTrainer:
         opt_state = opt.init(params)
         streak = torch.zeros((), dtype=torch.int32, device=dev)
         anoms = torch.zeros((), dtype=torch.int32, device=dev)
-        seen_anoms = 0
+        # everything a checkpoint holds; its tensors are the step's state
+        state = {"params": variables, "opt_state": opt_state,
+                 "anomaly": {"streak": streak, "total": anoms}}
+        state_tensors = integrity.tree_leaves(state)
+
+        store = self._ckpt_store()
+        step0 = self._resume(store, state, steps_per_epoch, batch)
+        seen_anoms = int(anoms)
 
         def to_dev(a):
             # no host sync: K steps a dispatch run back to back
@@ -304,82 +442,386 @@ class SPMDTrainer:
                                       remat=cfg.remat)
             return masked_loss(cfg.loss, out, by, bm)
 
-        def step(bx, by, bm):
-            for p in params:
-                p.grad = None
-            if accum == 1:
-                loss = loss_of(bx, by, bm)
-                loss.backward()
-                denom = None
-            else:
-                # strided split (row i -> micro i % accum); each micro
-                # contributes its loss SUM and mask count, normalized
-                # once — the JAX package's two exactness rules
-                lsum = csum = torch.zeros((), device=dev)
-                for i in range(accum):
-                    mm = bm[i::accum]
-                    cnt = mm.float().sum()
-                    weighted = loss_of(bx[i::accum], by[i::accum], mm) \
-                        * torch.clamp(cnt, min=1.0)
-                    weighted.backward()
-                    lsum = lsum + weighted.detach()
-                    csum = csum + cnt
-                denom = torch.clamp(csum, min=1.0)
-                loss = lsum / denom
-            with torch.no_grad():
-                grads = [torch.zeros_like(p) if p.grad is None
-                         else (p.grad if denom is None else p.grad / denom)
-                         for p in params]
-                gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-                bad = ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
-                if cfg.max_grad_norm > 0.0:
-                    bad = bad | (gnorm > cfg.max_grad_norm)
-                # the update and the quarantine's select, in place
-                opt.update(params, grads, opt_state, bad)
-                streak.copy_(torch.where(bad, streak + 1,
-                                         torch.zeros_like(streak)))
-                anoms.add_(bad.int())
-            return loss.detach(), gnorm
+        # -- the integrity audit's state: the fold's leaves, its carry and
+        # the device flags that gate it
+        audit_every = max(int(cfg.audit_every), 0)
+        audit = audit_every > 0
+        fold_tree = (variables, opt_state)
+        fold_leaves = integrity.tree_leaves(fold_tree) if audit else []
+        plan = FoldPlan(fold_leaves) if audit and dev.type == "cuda" \
+            else None
+        chk = torch.zeros((), dtype=torch.int32, device=dev)
+        flag_on = torch.ones((), dtype=torch.bool, device=dev)
+        flag_off = torch.zeros((), dtype=torch.bool, device=dev)
+        # an eager call's outputs: a step whose capture ran out of memory
+        # has run all the same, and these are its results
+        eager_out: list = [None]
 
-        program = RetraceWatchdog(
-            ProgramCountingGraph(step, label="train.step"), "train.step",
-            registry=self.telemetry, recorder=self.recorder,
-            expected_programs=1,
-        )
+        def make_step(accum: int):
+            def step(bx, by, bm, *flag):
+                for p in params:
+                    p.grad = None
+                if accum == 1:
+                    loss = loss_of(bx, by, bm)
+                    loss.backward()
+                    denom = None
+                else:
+                    # strided split (row i -> micro i % accum); each micro
+                    # contributes its loss SUM and mask count, normalized
+                    # once — the JAX package's two exactness rules
+                    lsum = csum = torch.zeros((), device=dev)
+                    for i in range(accum):
+                        mm = bm[i::accum]
+                        cnt = mm.float().sum()
+                        weighted = loss_of(bx[i::accum], by[i::accum], mm) \
+                            * torch.clamp(cnt, min=1.0)
+                        weighted.backward()
+                        lsum = lsum + weighted.detach()
+                        csum = csum + cnt
+                    denom = torch.clamp(csum, min=1.0)
+                    loss = lsum / denom
+                with torch.no_grad():
+                    grads = [torch.zeros_like(p) if p.grad is None
+                             else (p.grad if denom is None
+                                   else p.grad / denom)
+                             for p in params]
+                    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                    bad = ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
+                    if cfg.max_grad_norm > 0.0:
+                        bad = bad | (gnorm > cfg.max_grad_norm)
+                    # made before the update, so that an allocation failure
+                    # leaves the state as it was
+                    new_streak = torch.where(bad, streak + 1,
+                                             torch.zeros_like(streak))
+                    bad_count = bad.int()
+                    # the update and the quarantine's select, in place
+                    opt.update(params, grads, opt_state, bad)
+                    streak.copy_(new_streak)
+                    anoms.add_(bad_count)
+                    if audit:
+                        tree_fold(fold_leaves, out=chk, flag=flag[0],
+                                  plan=plan)
+                out = (loss.detach(), gnorm)
+                if dev.type != "cuda" or \
+                        not torch.cuda.is_current_stream_capturing():
+                    eager_out[0] = out
+                return out
+
+            return step
+
+        capture_s = [0.0]
+
+        def build_program(accum: int):
+            """The step program at one accumulation rung: one capture a
+            rung, each counted by ``retrace.train.step``."""
+            return RetraceWatchdog(
+                ProgramCountingGraph(make_step(accum), label="train.step"),
+                "train.step", registry=self.telemetry,
+                recorder=self.recorder, expected_programs=1,
+            )
+
+        program = build_program(accum)
+
+        def degrade(tick: int, cause: BaseException) -> None:
+            """Walk one rung down the accumulation ladder and make its
+            program; the state keeps its addresses."""
+            nonlocal accum, program
+            nxt = next_accum_rung(accum, batch=batch, n_data=1)
+            if nxt is None:
+                raise FriendlyError(
+                    f"RESOURCE_EXHAUSTED at step {tick} with the "
+                    f"gradient-accumulation ladder exhausted (grad_accum="
+                    f"{accum}, batch {batch} over 1 data shards) — reduce "
+                    "batch_size or model size"
+                ) from cause
+            accum = nxt
+            self.telemetry.gauge("train.grad_accum").set(accum)
+            self.recorder.record("degraded", tick=tick, grad_accum=accum)
+            _log.warning("step %d: RESOURCE_EXHAUSTED -> degrading to "
+                         "grad_accum=%d and capturing its step", tick, accum)
+            capture_s[0] += program.capture_seconds
+            program = build_program(accum)
+
+        def guarded_fire(tick: int) -> None:
+            """The ``train.step`` hook and its policy: transients retried
+            in :meth:`_fire_hook`, resource exhaustion walks the ladder,
+            ``kill`` escapes."""
+            while True:
+                try:
+                    self._fire_hook("train.step", tick)
+                    return
+                except Exception as e:
+                    if not is_resource_exhausted(e):
+                        raise
+                    degrade(tick, e)
+
+        def dispatch(tick: int, bx, by, bm, flags: tuple):
+            """One step through the current rung's program. A real
+            allocation failure walks the ladder too: raised by an eager
+            call, it left the state untouched (the update is the step's
+            last write) and the step runs again at the new rung; raised by
+            a capture, the eager call before it has taken the step."""
+            while True:
+                eager_out[0] = None
+                try:
+                    return program(bx, by, bm, *flags)
+                except Exception as e:
+                    if not is_resource_exhausted(e):
+                        raise
+                    done = eager_out[0]
+                    degrade(tick, e)
+                    if done is not None:
+                        return done
+
+        # -- the audit: the last clean state and the batches since
+        audit_base: list | None = None
+        audit_buf: list[tuple] = []
+
+        def snapshot() -> list:
+            return [t.detach().clone() for t in state_tensors]
+
+        def load(snap: list) -> None:
+            with torch.no_grad():
+                for t, s in zip(state_tensors, snap):
+                    t.copy_(s)
+
+        def refresh_base() -> None:
+            """The replay's known-good start — a device copy of the state —
+            and an empty batch buffer; refreshed after every audit."""
+            nonlocal audit_base
+            audit_base = snapshot()
+            audit_buf.clear()
+
+        def run_audit(at_step: int) -> None:
+            """Compare the in-graph fold with a host fold of the state. A
+            mismatch is replayed from the last clean state through the
+            same program: the replay reproducing either fold makes the
+            flip a one-off (``transient_sdc``), and the replayed state is
+            adopted; reproducing neither makes the step program
+            nondeterministic, and the current state stands."""
+            self.telemetry.counter("train.integrity.audits").inc()
+            chk_val = as_uint32(chk)
+            # one device holds the only copy: the "majority" is its fold
+            (majority,) = integrity.per_device_checksums(fold_tree).values()
+            if majority == chk_val:
+                refresh_base()
+                return
+            self.telemetry.counter("train.integrity.sdc_suspected").inc()
+            self.recorder.record(
+                "integrity.sdc_suspected", tick=at_step,
+                device_checksum=chk_val, majority_checksum=majority,
+                divergent_devices=[],
+            )
+            _log.warning(
+                "step %d: integrity audit mismatch (in-graph fold %d, host "
+                "fold %d) — silent data corruption suspected", at_step,
+                chk_val, majority)
+            if audit_buf:
+                current = snapshot()
+                load(audit_base)
+                for bx, by, bm in audit_buf:
+                    program(to_dev(bx), to_dev(by), to_dev(bm), flag_off)
+                fold = integrity.tree_checksum_host(fold_tree)
+                verdict = ("transient_sdc" if fold in (majority, chk_val)
+                           else "software_nondeterminism")
+                self.telemetry.counter(
+                    f"train.integrity.replay_{verdict}").inc()
+                entry = {"step": int(at_step), "verdict": verdict,
+                         "replayed_checksum": int(fold),
+                         "device_checksum": int(chk_val),
+                         "majority_checksum": int(majority)}
+                self.replay_verdicts.append(entry)
+                self.recorder.record(
+                    "integrity.replay", tick=at_step,
+                    **{k: v for k, v in entry.items() if k != "step"})
+                _log.warning("step %d: replay adjudication -> %s", at_step,
+                             verdict)
+                if verdict != "transient_sdc":
+                    load(current)  # the replayed state is not adopted
+            refresh_base()
+
+        def corrupt_drill(tick: int) -> None:
+            """The ``train.step`` silent-corruption drill: a seeded bit-flip
+            in one parameter AFTER the dispatch, so the in-graph fold
+            precedes it and the next audit's host fold sees it."""
+            seed = self._faults.corrupt_spec("train.step", tick=tick)
+            if seed is not None:
+                integrity.corrupt_replica(variables, seed)
+
+        def pull_guard(b: dict, tick: int) -> dict:
+            """The ``train.data`` hook: transients retried, ``poison``
+            NaN-corrupts the first float column's first row — the stand-in
+            for a bad gradient that the quarantine must skip."""
+            self._fire_hook("train.data", tick)
+            if self._faults.poison_value("train.data", tick=tick) is None:
+                return b
+            b = dict(b)
+            for col in ("x", "y"):
+                arr = np.asarray(b[col])
+                if np.issubdtype(arr.dtype, np.floating):
+                    arr = np.array(arr, copy=True)
+                    arr[0] = np.nan
+                    b[col] = arr
+                    break
+            else:
+                _log.warning("train.data poison skipped at step %d: no "
+                             "float column to corrupt", tick)
+            return b
+
+        def save_checkpoint(at_step: int) -> None:
+            """Atomic checkpoint of the whole resume state; a failure other
+            than the ``kill`` drill is counted and the previous checkpoint
+            stands."""
+            meta = {"steps_per_epoch": steps_per_epoch,
+                    "history": self.restored_history + self.history}
+            try:
+                store.save(at_step, state, meta=meta)
+            except EngineKilled:
+                raise  # the torn-write crash drill escapes train()
+            except Exception as e:
+                self.telemetry.counter("train.checkpoint_failures").inc()
+                self.recorder.record("checkpoint", tick=at_step, ok=False,
+                                     error=type(e).__name__)
+                _log.warning("checkpoint at step %d failed (%s); previous "
+                             "checkpoint stands", at_step, e)
+                return
+            self.telemetry.counter("train.checkpoints").inc()
+            self.recorder.record("checkpoint", tick=at_step, ok=True)
+
+        def run_one(b: dict, tick: int, flag: bool):
+            bx, by, bm = (to_dev(b[c]) for c in ("x", "y", MASK_COL))
+            if not audit:
+                return dispatch(tick, bx, by, bm, ())
+            audit_buf.append(tuple(np.asarray(b[c])
+                                   for c in ("x", "y", MASK_COL)))
+            return dispatch(tick, bx, by, bm,
+                            (flag_on if flag else flag_off,))
+
+        if audit:
+            refresh_base()
         k_steps = max(int(cfg.steps_per_dispatch), 1)
         log_every = max(cfg.log_every, 1)
         tokens_per_step = batch * (x.shape[1] if np.ndim(x) == 2 else 1)
-        step_no = 0
-        for epoch in range(cfg.epochs):
+        step = step0
+        self._step = step
+        start_epoch = step0 // steps_per_epoch
+        # mid-epoch resume: the seeded order makes skipping the first
+        # step0 % steps_per_epoch batches land on the checkpoint's position
+        skip_in_first = step0 % steps_per_epoch
+        for epoch in range(start_epoch, cfg.epochs):
             it: Iterator = batch_iterator(
                 Dataset({"x": x, "y": y}), ["x", "y"], batch,
                 shuffle_seed=(cfg.seed + epoch) if cfg.shuffle else None,
             )
+            if epoch == start_epoch and skip_in_first:
+                it = itertools.islice(it, skip_in_first, None)
             while group := list(itertools.islice(it, k_steps)):
                 t_group = time.perf_counter()
-                for b in group:
-                    loss, gnorm = program(to_dev(b["x"]), to_dev(b["y"]),
-                                          to_dev(b[MASK_COL]))
+                self._step = step
+                if self._faults is not None:
+                    group = [pull_guard(b, step + i)
+                             for i, b in enumerate(group)]
+                if k_steps > 1 and len(group) == k_steps:
+                    # one dispatch of K steps: one hook firing, the fold
+                    # (when due) after the last step, one corrupt drill
+                    guarded_fire(step)
+                    audit_due = audit and any(
+                        (s + 1) % audit_every == 0
+                        for s in range(step, step + len(group)))
+                    for i, b in enumerate(group):
+                        loss, gnorm = run_one(
+                            b, step + i, audit_due and i == len(group) - 1)
+                    if self._faults is not None:
+                        corrupt_drill(step)
+                else:
+                    audit_due = False
+                    for i, b in enumerate(group):
+                        guarded_fire(step + i)
+                        due = audit and (step + i + 1) % audit_every == 0
+                        loss, gnorm = run_one(b, step + i, due)
+                        audit_due = audit_due or due
+                        if self._faults is not None:
+                            corrupt_drill(step + i)
                 # log once if any step of the group hits the cadence,
                 # with the group's last loss (the JAX chunk rule)
-                next_log = step_no + (-step_no) % log_every
-                step_no += len(group)
-                if next_log < step_no:
-                    self._log_step(step_no - 1, epoch, loss, gnorm,
+                next_log = step + (-step) % log_every
+                step += len(group)
+                self._step = step
+                if next_log < step:
+                    self._log_step(step - 1, epoch, loss, gnorm,
                                    (time.perf_counter() - t_group)
                                    / len(group), tokens_per_step)
                     self._check_anomalies(streak, anoms, seen_anoms,
-                                          step_no - 1)
+                                          step - 1)
                     seen_anoms = max(seen_anoms, int(anoms))
+                if audit_due:
+                    # before the checkpoint, so that a detected corruption
+                    # is never committed to disk
+                    run_audit(step - 1)
+                if store is not None and cfg.checkpoint_every and any(
+                        s % cfg.checkpoint_every == 0
+                        for s in range(step - len(group), step)):
+                    save_checkpoint(step - 1)
             if eval_fn is not None:
                 metrics = eval_fn(_detached(variables))
-                self.history.append({"step": step_no, "epoch": epoch,
+                self.history.append({"step": step, "epoch": epoch,
                                      **metrics})
         # the end-of-run sweep: a bad streak that never met the cadence
-        self._check_anomalies(streak, anoms, seen_anoms, step_no - 1)
+        self._check_anomalies(streak, anoms, seen_anoms, step - 1)
+        if store is not None and store.latest_step() != step - 1:
+            save_checkpoint(step - 1)
         self.telemetry.gauge("train.step_capture_s").set(
-            program.capture_seconds)
+            capture_s[0] + program.capture_seconds)
         return _detached(variables)
+
+    def _resume(self, store, state: dict, steps_per_epoch: int,
+                batch: int) -> int:
+        """Restore the newest intact checkpoint into ``state``'s tensors
+        (in place, before the first step); returns the first step to run.
+        A corrupt checkpoint is counted, quarantined by the store, and the
+        one before it tried; with none intact the run starts cold."""
+        cfg = self.config
+        if store is None or not cfg.resume:
+            return 0
+        latest = store.latest_step()
+        restored = meta = None
+        while latest is not None:
+            # the train.restore drill site: transient -> a retried read,
+            # kill -> the restore itself crashed (escapes)
+            self._fire_hook("train.restore", latest)
+            try:
+                restored, meta, latest = store.restore(state)
+                break
+            except CheckpointCorruption as e:
+                self.telemetry.counter(
+                    "train.integrity.checksum_failures").inc()
+                self.recorder.record(
+                    "integrity.checksum_failure", tick=e.step,
+                    surface="checkpoint", expected=e.expected,
+                    actual=e.actual)
+                _log.warning("%s", e)
+                latest = store.latest_step()
+        if restored is None:
+            return 0
+        with torch.no_grad():
+            for t, r in zip(integrity.tree_leaves(state),
+                            integrity.tree_leaves(restored)):
+                t.copy_(r)
+        self.restored_history = list(meta.get("history", []))
+        spe = meta.get("steps_per_epoch")
+        if spe is not None and int(spe) != steps_per_epoch:
+            raise FriendlyError(
+                f"checkpoint at {cfg.checkpoint_dir!r} was taken with "
+                f"steps_per_epoch={spe} but this run computes "
+                f"{steps_per_epoch} (batch {batch} over 1 data shards): "
+                "elastic resume needs a batch_size divisible by both the "
+                "old and new data-axis widths so the deterministic data "
+                "order is unchanged"
+            )
+        total = int(state["anomaly"]["total"])
+        self.recorder.record("restore", tick=latest, anomalies_total=total)
+        _log.info("resumed from checkpoint step %d", latest)
+        return latest + 1
 
     def _log_step(self, at_step: int, epoch: int, loss, gnorm,
                   step_s: float, tokens_per_step: int) -> None:

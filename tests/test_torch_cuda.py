@@ -1022,3 +1022,233 @@ def test_slot_freed_in_flight_is_not_released_before_its_fetch(cuda):
     want = generate(graph, variables, prompt[None], 10)[0].cpu().numpy()
     np.testing.assert_array_equal(results[b].tokens, want)
     assert a not in results
+
+
+# -- the trainer's resilience: the fold kernel, bit-exact resume, the ladder ---
+
+
+def _fold_tree(seed):
+    g = torch.Generator().manual_seed(seed)
+    return [
+        torch.randn(7, 5, generator=g),
+        torch.randn(8193 * 3 + 5, generator=g).bfloat16(),
+        torch.randn(3, generator=g).half(),
+        torch.randint(-128, 128, (16385 + 7,), generator=g,
+                      dtype=torch.int8),
+        torch.randint(-2 ** 31, 2 ** 31 - 1, (33,), generator=g,
+                      dtype=torch.int32),
+        torch.randint(-2 ** 62, 2 ** 62, (17,), generator=g,
+                      dtype=torch.int64),
+        torch.randn(9, generator=g, dtype=torch.float64),
+        torch.rand(77, generator=g) > 0.5,
+        torch.zeros(0),
+        torch.randn(40_000, generator=g),
+        torch.zeros((), dtype=torch.int32),
+    ]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fold_kernel_bit_equal_to_plain_and_host(cuda, seed):
+    """Every word size, odd lengths, empty leaves and a 4-byte-aligned
+    leaf that is not 16-byte aligned (the scalar path): the kernel's fold
+    equals the plain version's and numpy's, on every repeat (the
+    workspace is left at zero)."""
+    from mmlspark_tpu_torch.core.integrity import tree_checksum_host
+    from mmlspark_tpu_torch.ops import tree_checksum as tc
+
+    leaves = _fold_tree(seed)
+    base = torch.randn(50_001, device=cuda)
+    on_card = [t.to(cuda) for t in leaves] + [base[1:]]
+    want = tree_checksum_host(leaves + [base[1:].cpu()])
+    plan = tc.FoldPlan(on_card)
+    out = torch.zeros((), dtype=torch.int32, device=cuda)
+    before = tc.launches
+    for _ in range(3):
+        tc.tree_fold(on_card, out=out, plan=plan)
+        assert tc.as_uint32(out) == want
+    assert tc.launches - before == 3
+    assert tc.as_uint32(tc.tree_fold_reference(on_card)) == want
+    assert not plan.workspace.any()
+
+
+def test_fold_flag_exits_early_and_keeps_the_carry(cuda):
+    from mmlspark_tpu_torch.ops import tree_checksum as tc
+
+    leaves = [t.to(cuda) for t in _fold_tree(2)]
+    plan = tc.FoldPlan(leaves)
+    out = torch.full((), 1234, dtype=torch.int32, device=cuda)
+    off = torch.zeros((), dtype=torch.bool, device=cuda)
+    on = torch.ones((), dtype=torch.bool, device=cuda)
+    tc.tree_fold(leaves, out=out, flag=off, plan=plan)
+    assert int(out) == 1234 and not plan.workspace.any()
+    tc.tree_fold(leaves, out=out, flag=on, plan=plan)
+    assert tc.as_uint32(out) == tc.as_uint32(tc.tree_fold_reference(leaves))
+    with pytest.raises(ValueError, match="other tensors"):
+        tc.tree_fold(leaves[:-1], out=out, plan=plan)
+
+
+def _blobs(n=96, d=8, seed=0):
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.normal(-1.5, 1.0, (n // 2, d)),
+                        rng.normal(1.5, 1.0, (n // 2, d))]).astype(np.float32)
+    y = np.concatenate([np.zeros(n // 2), np.ones(n // 2)]).astype(np.int32)
+    perm = rng.permutation(n)
+    return x[perm], y[perm]
+
+
+def _lm_rows(n, seed, vocab=256, seq=64):
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, vocab, size=(n, 1))
+    stride = rng.integers(1, 16, size=(n, 1))
+    x = ((start + stride * np.arange(seq)) % vocab).astype(np.int32)
+    return x, np.roll(x, -1, axis=1)
+
+
+_RESILIENCE_MODELS = {
+    "mlp": (dict(name="mlp", num_outputs=2, hidden=(64,)), _blobs,
+            dict(batch_size=32, learning_rate=1e-2)),
+    "lm_depth2": (dict(name="transformer_lm", vocab_size=256, d_model=128,
+                       heads=2, depth=2, max_len=64, attn_impl="flash"),
+                  lambda: _lm_rows(24, 3),
+                  dict(batch_size=8, learning_rate=1e-3)),
+}
+
+
+def _model(key):
+    from mmlspark_tpu_torch.models import build_model
+
+    kw, data, cfg = _RESILIENCE_MODELS[key]
+    kw = dict(kw)
+    return build_model(kw.pop("name"), **kw), data(), cfg
+
+
+@pytest.mark.parametrize("key", sorted(_RESILIENCE_MODELS))
+def test_eager_step_bit_equal_to_replayed(cuda, key, monkeypatch):
+    """Every step of a run whose steps 1.. replay one captured program
+    against the same steps all run eagerly: bit-equal losses and
+    parameters — what a resume (whose first step is eager) relies on."""
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+    from mmlspark_tpu_torch.train import trainer as trainer_mod
+
+    graph, (x, y), cfg = _model(key)
+
+    def run():
+        tr = SPMDTrainer(graph, TrainConfig(epochs=2, log_every=1,
+                                            shuffle=False, **cfg))
+        return tr, tr.train(x, y)
+
+    graphed, got = run()
+    assert graphed.telemetry.counter("retrace.train.step").value == 1
+
+    class Eager:
+        def __init__(self, fn, **_):
+            self.fn = fn
+
+        def __call__(self, *args):
+            return self.fn(*args)
+
+    monkeypatch.setattr(trainer_mod, "ProgramCountingGraph", Eager)
+    eager, want = run()
+    assert [h["loss"] for h in graphed.history] == \
+        [h["loss"] for h in eager.history]
+    for block, leaves in want.items():
+        for name, w in leaves.items():
+            assert torch.equal(got[block][name], w), (block, name)
+
+
+@pytest.mark.parametrize("key", sorted(_RESILIENCE_MODELS))
+def test_kill_and_resume_bit_exact_on_card(cuda, key, tmp_path):
+    from mmlspark_tpu_torch.core.faults import (
+        EngineKilled,
+        Fault,
+        FaultInjector,
+    )
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    graph, (x, y), cfg = _model(key)
+    base = dict(epochs=2, log_every=1, shuffle=False, **cfg)
+    full = SPMDTrainer(graph, TrainConfig(**base))
+    want = full.train(x, y)
+    ck = dict(base, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    with pytest.raises(EngineKilled):
+        SPMDTrainer(graph, TrainConfig(**ck), faults=FaultInjector(
+            [Fault("train.step", "kill", tick=4)])).train(x, y)
+    resumed = SPMDTrainer(graph, TrainConfig(**ck))
+    got = resumed.train(x, y)
+    assert resumed.history[0]["step"] == 3  # from the step-2 checkpoint
+    assert [h["loss"] for h in resumed.restored_history + resumed.history] \
+        == [h["loss"] for h in full.history]
+    for block, leaves in want.items():
+        for name, w in leaves.items():
+            assert torch.equal(got[block][name], w), (block, name)
+
+
+def test_ladder_captures_a_second_program(cuda, monkeypatch):
+    """Resource exhaustion walks grad_accum 1 -> 2 and captures the step
+    again; an allocation failure in the capture itself does the same (the
+    eager step before it stands, and the failed capture leaves no
+    program), and both runs end alike."""
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+    from mmlspark_tpu_torch.train import trainer as trainer_mod
+
+    graph, (x, y), cfg = _model("mlp")
+    base = dict(epochs=2, log_every=1, shuffle=False, **cfg)
+    hooked = SPMDTrainer(graph, TrainConfig(**base), faults=FaultInjector(
+        [Fault("train.step", "oom", tick=1)]))
+    want = hooked.train(x, y)
+    tel = hooked.telemetry
+    assert tel.counter("retrace.train.step").value == 2
+    assert tel.gauge("train.grad_accum").value == 2
+    assert tel.gauge("train.step_capture_s").value > 0
+
+    masked_loss = trainer_mod.masked_loss
+    failed = []
+
+    def failing(*args):
+        if torch.cuda.is_current_stream_capturing() and not failed:
+            failed.append(1)
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return masked_loss(*args)
+
+    monkeypatch.setattr(trainer_mod, "masked_loss", failing)
+    real = SPMDTrainer(graph, TrainConfig(**base))
+    got = real.train(x, y)
+    assert failed and real.telemetry.counter(
+        "retrace.train.step").value == 1
+    assert real.telemetry.gauge("train.grad_accum").value == 2
+    assert [h["loss"] for h in real.history] == \
+        [h["loss"] for h in hooked.history]
+    for block, leaves in want.items():
+        for name, w in leaves.items():
+            assert torch.equal(got[block][name], w), (block, name)
+
+
+def test_audited_step_is_one_program_and_adjudicates(cuda):
+    """audit_every=2 on the card: one step program, one fold launch a step
+    (an empty one on non-audit steps), clean audits without faults, and a
+    flip after an audit step's fold replayed and adopted bit-exact."""
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.ops import tree_checksum as tc
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    graph, (x, y), cfg = _model("lm_depth2")
+    base = dict(epochs=2, log_every=1, shuffle=False, **cfg)
+    want = SPMDTrainer(graph, TrainConfig(**base)).train(x, y)
+    before = tc.launches
+    clean = SPMDTrainer(graph, TrainConfig(audit_every=2, **base))
+    clean.train(x, y)
+    torch.cuda.synchronize()
+    assert tc.launches - before == 6
+    tel = clean.telemetry.to_dict()
+    assert tel["retrace.train.step"] == 1
+    assert tel["train.integrity.audits"] == 3
+    assert tel["train.integrity.sdc_suspected"] == 0
+    drill = SPMDTrainer(graph, TrainConfig(audit_every=2, **base),
+                        faults=FaultInjector([Fault("train.step", "corrupt",
+                                                    tick=3)]))
+    got = drill.train(x, y)
+    assert [v["verdict"] for v in drill.replay_verdicts] == ["transient_sdc"]
+    for block, leaves in want.items():
+        for name, w in leaves.items():
+            assert torch.equal(got[block][name], w), (block, name)

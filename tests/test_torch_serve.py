@@ -344,7 +344,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.ops.flash_attention, "
         "mmlspark_tpu_torch.ops.quantize, mmlspark_tpu_torch.core.faults, "
         "mmlspark_tpu_torch.serve.paging, mmlspark_tpu_torch.train, "
-        "mmlspark_tpu_torch.data, mmlspark_tpu_torch.core.telemetry\n"
+        "mmlspark_tpu_torch.data, mmlspark_tpu_torch.core.telemetry, "
+        "mmlspark_tpu_torch.core.integrity, mmlspark_tpu_torch.models.mlp, "
+        "mmlspark_tpu_torch.ops.tree_checksum, "
+        "mmlspark_tpu_torch.train.resilience, "
+        "mmlspark_tpu_torch.train.demo\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'mmlspark_tpu') or m.startswith(('jax.', 'flax.', "
@@ -369,6 +373,9 @@ def test_port_sources_name_no_jax_import():
     files = sorted((REPO / "mmlspark_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    for name in ("train/resilience.py", "train/demo.py", "models/mlp.py",
+                 "ops/tree_checksum.py", "core/integrity.py"):
+        assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
