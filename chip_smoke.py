@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``mmlspark_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``csrc/``, holds each
 against its plain PyTorch version, drives the serving paths and the
-training path at the full width of the repo's serve model, and prints the
-measured numbers.
+training path at the full width of the repo's serve model, and the stage
+layer (``TPUModel``, ``DNNLearner``) over ResNet-20, ResNet-50, the
+BiLSTM tagger and the flash LM, and prints the measured numbers.
 
     python3 chip_smoke.py
 
@@ -150,7 +151,28 @@ Phases (each one fails the run with a non-zero exit on error):
    served by the dense engine (4 greedy requests, equal to
    ``generate()`` or first differing at a near tie, ``flash_decode``
    launched);
-7. numbers: each kernel's, its plain version's and (where one exists)
+7. the stage layer (the ``dnn_stages`` line), each run a main path with
+   the counts set to 0 just before it and read just after, through the
+   entry points a user calls (``TPUModel.transform``, ``DNNLearner.fit``)
+   with seeded random weights: ResNet-20 at width 16 (bf16, batch 1024)
+   over 16,384 seeded 32x32x3 images at ``feed_depth`` 2, 4 and 8 and
+   with ``feed_dtype="bfloat16"``, beside the model alone (its captured
+   program replayed) and an eager twin (programs counted, never
+   captured: launch counts equal), its logits within STAGE_LOGIT_TOL of
+   the CPU's f32 forward on the same weights; ResNet-50 at 224 (batch
+   256, 2,048 images) with the logits, with the ``pool`` features and
+   with ``weight_quant="int8"``: images/s, FLOPs per image counted from
+   the layer shapes, MFU against the bf16 dense peak, weight bytes, the
+   logits against the CPU's f32 forward; ``DNNLearner`` on ResNet-20 for
+   6 adam steps (the loss falls, the running statistics move, one step
+   program); ``DNNLearner`` on the flash LM at full width for 6 steps and
+   its ``TPUModel`` over 8 rows of 512 tokens (the tensor-core forward
+   and backward kernels launched through the stages, the scores against
+   the CPU's plain bf16 forward, the eager twin's launches equal); and
+   the BiLSTM tagger at its default widths (cuDNN's LSTM) over 1,024
+   rows of 128 tokens against the CPU's forward. Each with its peak
+   device memory and seconds;
+8. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -3085,6 +3107,522 @@ def measure_gqa_backward() -> dict:
     return out
 
 
+# -- the stage layer and the flagship CNN (the ``dnn_stages`` line) ------------
+
+#: ResNet-20 at full width through TPUModel: batch, images a transform
+R20_BATCH, R20_IMAGES = 1024, 16384
+FEED_DEPTHS = (2, 4, 8)
+#: ResNet-50 at 224 through TPUModel
+R50_BATCH, R50_IMAGES, R50_SIZE = 256, 2048, 224
+#: DNNLearner on ResNet-20: batch, images (one step each per epoch), epochs
+LEARNER_BATCH, LEARNER_IMAGES, LEARNER_EPOCHS = 256, 512, 3
+#: DNNLearner on the flash LM: steps of TRAIN_BATCH rows; TPUModel over
+#: LM_STAGE_ROWS 512-token rows, LM_STAGE_BATCH a call
+LM_LEARNER_STEPS, LM_STAGE_ROWS, LM_STAGE_BATCH = 6, 8, 4
+#: the BiLSTM tagger at its default widths: rows of TAGGER_LEN tokens
+TAGGER_ROWS, TAGGER_LEN, TAGGER_BATCH = 1024, 128, 256
+#: card (bf16 convolutions, cuDNN) against the port's f32 CPU forward on
+#: the same weights: bf16 rounds every convolution's output, ~0.5% of
+#: the largest logit on both ResNets on the CPU; allow 3e-2 of it
+STAGE_LOGIT_TOL = 3e-2
+#: the tagger's logits (f32 LSTM, bf16 Dense) against the CPU's: the
+#: Dense rounds to bf16 (2^-7 relative), so allow two such steps
+TAGGER_LOGIT_TOL = 2 * 2.0 ** -7
+#: the LM's scores on the card (the flash forward, bf16) against the
+#: CPU's plain bf16 forward: bf16 products summed in other orders
+LM_STAGE_TOL = 3e-2
+
+
+def seeded_images(n: int, size: int, seed: int) -> np.ndarray:
+    """n seeded N(0, 1) float32 NHWC images (made in bulk)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((n, size, size, 3), generator=gen).numpy()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def cpu_forward(name: str, config: dict, variables: dict, x, f32=True,
+                output_node=None):
+    """The port's forward on the CPU (the plain path) on ``variables``
+    moved there: in float32 compute unless ``f32`` is False."""
+    import torch
+
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.models.bridge import variables_to
+
+    graph = build_model(name, **config)
+    if f32:
+        for _, mod in graph.blocks:
+            for m in mod.modules():
+                if hasattr(m, "dtype"):
+                    m.dtype = torch.float32
+    return graph.apply(variables_to(variables, "cpu"), torch.from_numpy(x),
+                       output_node=output_node).numpy()
+
+
+def flops_per_image(graph, variables, x) -> int:
+    """2 x the multiply-adds of one image through every convolution and
+    Dense, counted from the shapes one forward gives each layer."""
+    from mmlspark_tpu_torch.models.resnet import Conv
+    from mmlspark_tpu_torch.models.transformer import Dense
+
+    macs = []
+
+    def count(mod, inputs, out):
+        if isinstance(mod, Conv):  # an NHWC output
+            macs.append(out.shape[1] * out.shape[2] * mod.weight.numel())
+        else:
+            macs.append(mod.weight.numel())
+
+    hooks = [m.register_forward_hook(count) for _, block in graph.blocks
+             for m in block.modules() if isinstance(m, (Conv, Dense))]
+    try:
+        graph.apply(variables, x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2 * sum(macs)
+
+
+def stage_run(stage, ds) -> dict:
+    """One ``TPUModel.transform`` as a main path: the counts set to 0 just
+    before it and read just after, its wall time and peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall_ms, counts = timed_path(
+        lambda: stage.transform(ds)[stage.output_col])
+    return {"out": out, "wall_ms": wall_ms, "counts": counts,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def replay_ms(stage, x, replays: int = 20) -> float:
+    """Device ms a batch of ``stage``'s captured forward program, replayed
+    back to back (warm): the model alone, no feed."""
+    import torch
+
+    (program,) = stage._programs.values()
+    weights = stage._dev_weights
+    for _ in range(2):
+        program(weights, x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        program(weights, x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+#: substrings of the kernel names that are convolutions or matrix products
+#: (cuDNN's and cuBLAS's implicit-GEMM kernels on this card)
+MATMUL_KERNEL_KEYS = ("conv", "fprop", "xmma", "implicit", "cutlass", "gemm",
+                      "sm90_", "sm80_")
+
+
+def profile_replays(stage, x, reps: int = 5) -> dict:
+    """``reps`` replays of ``stage``'s captured forward under
+    ``torch.profiler``: device time and busy share, the top kernels, and
+    the share of device time in convolution and matrix-product kernels
+    (the rest: BatchNorm's f32 elementwise passes, casts, pooling)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    (program,) = stage._programs.values()
+    weights = stage._dev_weights
+    program(weights, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            program(weights, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = device_profile(prof, wall_ms)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    total = sum(e.self_device_time_total for e in kernels)
+    mm = sum(e.self_device_time_total for e in kernels
+             if any(k in e.key.lower() for k in MATMUL_KERNEL_KEYS))
+    out.update(replays=reps, matmul_kernel_share=mm / total if total else None,
+               kernel_launches=sum(e.count for e in kernels))
+    return out
+
+
+def eager_stage(stage):
+    """A copy of ``stage`` whose programs are counted but never captured:
+    every batch runs eagerly (the eager twin)."""
+    from mmlspark_tpu_torch.core.env import default_device
+    from mmlspark_tpu_torch.stages import dnn_model
+    from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
+
+    class EagerPrograms(ProgramCountingGraph):
+        def _capture(self, args):
+            return None
+
+    twin = stage.copy().set(weights=stage.weights)
+    twin._device_weights(default_device(DEVICE))  # before its programs
+    dnn_model.ProgramCountingGraph = EagerPrograms
+    try:
+        twin._forward()
+    finally:
+        dnn_model.ProgramCountingGraph = ProgramCountingGraph
+    return twin
+
+
+def check_stage_programs(label: str, stage, run: dict, eager: dict) -> None:
+    """One program made and captured, and the eager twin's launch counts
+    equal to the captured run's."""
+    if stage.program_count != 1 or DEVICE == "cuda" and not \
+            stage.capture_seconds > 0:
+        raise AssertionError(f"{label}: {stage.program_count} programs, "
+                             f"capture {stage.capture_seconds} s")
+    if eager["counts"] != run["counts"]:
+        raise AssertionError(f"{label}: launches on replay {run['counts']}, "
+                             f"eager {eager['counts']}")
+
+
+def check_resnet20_stage() -> dict:
+    """ResNet-20 at width 16, batch 1024: the model alone (a replayed
+    program), TPUModel over 16,384 images at each feed depth and with the
+    bf16 feed, the eager twin, and the logits against the CPU's f32
+    forward."""
+    import torch
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.stages import TPUModel
+
+    graph = build_model("resnet20_cifar10")
+    weights = init_variables(graph, 7, device=DEVICE)
+    images = seeded_images(R20_IMAGES, 32, seed=7)
+    ds = Dataset({"image": images})
+    stage = TPUModel(model_name="resnet20_cifar10", input_col="image",
+                     batch_size=R20_BATCH, device=DEVICE).set(weights=weights)
+    cold = stage_run(stage, ds)  # the first batch eager, then the capture
+    runs = {}
+    for depth in FEED_DEPTHS:
+        stage.set(feed_depth=depth)
+        runs[f"feed_depth_{depth}"] = stage_run(stage, ds)
+    stage.set(feed_depth=FEED_DEPTHS[0])
+    warm = runs[f"feed_depth_{FEED_DEPTHS[0]}"]
+    bf16_stage = stage.copy().set(weights=weights, feed_dtype="bfloat16")
+    stage_run(bf16_stage, ds)
+    runs["feed_bfloat16"] = stage_run(bf16_stage, ds)
+    twin = eager_stage(stage)
+    runs["eager_twin"] = eager = stage_run(twin, ds)
+    check_stage_programs("resnet20 stage", stage, warm, eager)
+    x = torch.from_numpy(images[:R20_BATCH]).to(DEVICE)
+    model_ms = replay_ms(stage, x)
+    replay_profile = profile_replays(stage, x)
+    n_check = 64
+    want = cpu_forward("resnet20_cifar10", {}, weights, images[:n_check])
+    err = rel_err(warm["out"][:n_check], want)
+    eager_err = rel_err(eager["out"], warm["out"])
+    bf16_err = rel_err(runs["feed_bfloat16"]["out"], warm["out"])
+    out = warm["out"]
+    if out.shape != (R20_IMAGES, 10) or not np.isfinite(out).all() or \
+            err > STAGE_LOGIT_TOL or eager_err > STAGE_LOGIT_TOL or \
+            bf16_err > STAGE_LOGIT_TOL:
+        raise AssertionError(
+            f"resnet20 stage: scores {out.shape}, vs CPU f32 {err}, eager "
+            f"{eager_err}, bf16 feed {bf16_err}")
+    summary = {
+        "model": {"name": "resnet20_cifar10", "width": 16},
+        "batch": R20_BATCH, "images": R20_IMAGES,
+        "model_only_ms_per_batch": model_ms,
+        "model_only_images_per_sec": R20_BATCH / (model_ms / 1e3),
+        "replay_profile": replay_profile,
+        "cold_transform_s": cold["wall_ms"] / 1e3,
+        "programs": stage.program_count,
+        "capture_s": stage.capture_seconds,
+        "logits_vs_cpu_f32_rel_err": err,
+        "eager_vs_captured_rel_err": eager_err,
+        "bf16_feed_vs_f32_feed_rel_err": bf16_err,
+    }
+    for label, run in runs.items():
+        summary[label] = {
+            "images_per_sec": R20_IMAGES / (run["wall_ms"] / 1e3),
+            "wall_s": run["wall_ms"] / 1e3,
+            "peak_memory_bytes": run["peak_memory_bytes"],
+            "launch_counts_nonzero": {k: v for k, v in run["counts"].items()
+                                      if v},
+        }
+    log(f"resnet20 stage: {summary}")
+    return summary
+
+
+def check_resnet50_stage() -> dict:
+    """ResNet-50 at 224, batch 256: images/s through TPUModel with the
+    logits and with the ``pool`` features, the model alone and its MFU
+    against the bf16 dense peak, and the weight-int8 variant."""
+    import torch
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.ops.quantize import quantized_bytes
+    from mmlspark_tpu_torch.stages import TPUModel
+
+    graph = build_model("resnet50")
+    weights = init_variables(graph, 8, device=DEVICE)
+    images = seeded_images(R50_IMAGES, R50_SIZE, seed=8)
+    ds = Dataset({"image": images})
+    flops = flops_per_image(graph, weights,
+                            torch.from_numpy(images[:1]).to(DEVICE))
+    out = {"model": {"name": "resnet50", "input_size": R50_SIZE},
+           "batch": R50_BATCH, "images": R50_IMAGES,
+           "flops_per_image": flops, "bf16_peak_flops_per_s": BF16_FLOPS_PER_S}
+    x = torch.from_numpy(images[:R50_BATCH]).to(DEVICE)
+    scores = {}
+    for label, kw in (("logits", {}), ("pool", {"output_node": "pool"}),
+                      ("int8_logits", {"weight_quant": "int8"})):
+        stage = TPUModel(model_name="resnet50", input_col="image",
+                         batch_size=R50_BATCH, device=DEVICE, **kw).set(
+            weights=weights)
+        stage_run(stage, ds)  # cold: eager first batch, then the capture
+        run = stage_run(stage, ds)
+        check_stage_programs(f"resnet50 {label}", stage, run, run)
+        ms = replay_ms(stage, x)
+        scores[label] = run["out"]
+        row = {"images_per_sec": R50_IMAGES / (run["wall_ms"] / 1e3),
+               "wall_s": run["wall_ms"] / 1e3,
+               "model_only_ms_per_batch": ms,
+               "model_only_images_per_sec": R50_BATCH / (ms / 1e3),
+               "peak_memory_bytes": run["peak_memory_bytes"],
+               "capture_s": stage.capture_seconds}
+        if label != "pool":
+            row["mfu"] = flops * R50_BATCH / (ms / 1e3) / BF16_FLOPS_PER_S
+        if label == "logits":
+            row["replay_profile"] = profile_replays(stage, x)
+        if label == "int8_logits":
+            stored, f32 = quantized_bytes(stage._dev_weights)
+            row.update(weight_bytes=stored, weight_bytes_f32=f32)
+            row["top1_agreement_vs_bf16"] = float(np.mean(
+                scores[label].argmax(1) == scores["logits"].argmax(1)))
+        else:
+            row["weight_bytes"] = quantized_bytes(stage._dev_weights)[0]
+        out[label] = row
+    n_check = 4
+    want = cpu_forward("resnet50", {}, weights, images[:n_check])
+    err = rel_err(scores["logits"][:n_check], want)
+    q_err = rel_err(scores["int8_logits"], scores["logits"])
+    if scores["logits"].shape != (R50_IMAGES, 1000) or \
+            scores["pool"].shape != (R50_IMAGES, 2048) or \
+            not all(np.isfinite(s).all() for s in scores.values()) or \
+            err > STAGE_LOGIT_TOL:
+        raise AssertionError(f"resnet50 stage: vs CPU f32 {err}, shapes "
+                             f"{[s.shape for s in scores.values()]}")
+    out.update(logits_vs_cpu_f32_rel_err=err, int8_vs_bf16_rel_err=q_err)
+    log(f"resnet50 stage: {out}")
+    return out
+
+
+def probed_learner(fn):
+    """Run ``fn()`` with ``DNNLearner``'s trainer logging every step;
+    returns (its result, the trainers it made)."""
+    import dataclasses
+
+    from mmlspark_tpu_torch.stages import dnn_learner
+    from mmlspark_tpu_torch.train import SPMDTrainer
+
+    trainers = []
+
+    class ProbedTrainer(SPMDTrainer):
+        def __init__(self, graph, config, *args, **kw):
+            super().__init__(graph, dataclasses.replace(config, log_every=1),
+                             *args, **kw)
+            trainers.append(self)
+
+    dnn_learner.SPMDTrainer = ProbedTrainer
+    try:
+        return fn(), trainers
+    finally:
+        dnn_learner.SPMDTrainer = SPMDTrainer
+
+
+def learner_summary(label: str, model, trainer, counts, wall_ms,
+                    rows_per_step: int) -> dict:
+    """The learner's losses, step time and programs; fails unless every
+    loss is finite, the last below the first, and the step is one
+    captured program."""
+    import torch
+
+    losses = [h["loss"] for h in model.train_history]
+    stamps = [e["t"] for e in trainer.recorder.events()
+              if e["name"] == "step"]
+    step_ms = statistics.median(
+        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    programs = trainer.telemetry.counter("retrace.train.step").value
+    capture_s = trainer.telemetry.gauge("train.step_capture_s").value
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            programs != 1 or DEVICE == "cuda" and not capture_s > 0:
+        raise AssertionError(f"{label}: losses {losses}, {programs} step "
+                             f"programs, capture {capture_s} s")
+    return {"losses": losses, "step_ms_median_steps_2_on": step_ms,
+            "rows_per_sec": rows_per_step / (step_ms / 1e3),
+            "step_programs": programs, "step_capture_s": capture_s,
+            "fit_wall_s": wall_ms / 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launch_counts_nonzero": {k: v for k, v in counts.items() if v}}
+
+
+def check_resnet20_learner() -> dict:
+    """DNNLearner on ResNet-20 (width 16): a few adam steps over seeded
+    images, the loss falling, the running statistics moved off their
+    starting values, one step program."""
+    import torch
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.stages import DNNLearner
+
+    images = seeded_images(LEARNER_IMAGES, 32, seed=9)
+    labels = np.random.default_rng(9).integers(0, 10, size=LEARNER_IMAGES)
+    ds = Dataset({"image": images, "label": labels})
+    learner = DNNLearner(model_name="resnet20_cifar10", features_col="image",
+                         batch_size=LEARNER_BATCH, epochs=LEARNER_EPOCHS,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (model, wall_ms, counts), (trainer,) = probed_learner(
+        lambda: timed_path(lambda: learner.fit(ds)))
+    out = learner_summary("resnet20 learner", model, trainer, counts,
+                          wall_ms, LEARNER_BATCH)
+    var = model.weights["stage3"]["ResBlock_2.ConvBN_1.BatchNorm_0.var"]
+    mean = model.weights["stage3"]["ResBlock_2.ConvBN_1.BatchNorm_0.mean"]
+    moved = float((var - 1).abs().max()), float(mean.abs().max())
+    if not min(moved) > 0:
+        raise AssertionError(f"resnet20 learner: running stats {moved}")
+    out.update(model={"name": "resnet20_cifar10", "width": 16},
+               batch=LEARNER_BATCH, steps=len(out["losses"]),
+               running_stats_moved=moved)
+    log(f"resnet20 learner: {out}")
+    return out
+
+
+def check_lm_stages() -> dict:
+    """DNNLearner fits the flash LM at full width, then its TPUModel
+    scores 512-token rows: both through the tensor-core attention
+    kernels (the forward in both, the backward pair in the fit), the
+    scores against the CPU's plain bf16 forward."""
+    import torch
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.stages import DNNLearner
+
+    x, y = progression_rows(LM_LEARNER_STEPS * TRAIN_BATCH, seed=10)
+    learner = DNNLearner(model_name="transformer_lm",
+                         model_config=TRAIN_MODEL, features_col="tokens",
+                         batch_size=TRAIN_BATCH, epochs=1,
+                         learning_rate=1e-3, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (model, wall_ms, counts), (trainer,) = probed_learner(
+        lambda: timed_path(lambda: learner.fit(
+            Dataset({"tokens": x, "label": y}))))
+    fit = learner_summary("LM learner", model, trainer, counts, wall_ms,
+                          TRAIN_BATCH)
+    fit["tokens_per_sec"] = fit.pop("rows_per_sec") * SERVE_MODEL["max_len"]
+    want = SERVE_MODEL["depth"] * LM_LEARNER_STEPS
+    if not all(counts[c] == want for c in ATTN_MMA_COUNTERS):
+        raise AssertionError(f"LM learner: {counts}, wanted {want} launches "
+                             "of each tensor-core attention kernel")
+    rows, _ = progression_rows(LM_STAGE_ROWS, seed=11)
+    model.set(batch_size=LM_STAGE_BATCH)
+    ds = Dataset({"tokens": rows})
+    stage_run(model, ds)
+    run = stage_run(model, ds)
+    eager = stage_run(eager_stage(model), ds)
+    check_stage_programs("LM stage", model, run, eager)
+    calls = LM_STAGE_ROWS // LM_STAGE_BATCH
+    if run["counts"]["fwd_mma_launches"] != SERVE_MODEL["depth"] * calls:
+        raise AssertionError(f"LM stage: {run['counts']}")
+    want_scores = cpu_forward("transformer_lm", TRAIN_MODEL, model.weights,
+                              rows[:2], f32=False)
+    err = rel_err(run["out"][:2], want_scores)
+    if run["out"].shape != (LM_STAGE_ROWS, SERVE_MODEL["max_len"],
+                            SERVE_MODEL["vocab_size"]) or err > LM_STAGE_TOL:
+        raise AssertionError(f"LM stage: scores {run['out'].shape}, vs CPU "
+                             f"{err}")
+    stage = {"rows": LM_STAGE_ROWS, "batch": LM_STAGE_BATCH,
+             "tokens_per_sec": LM_STAGE_ROWS * SERVE_MODEL["max_len"]
+             / (run["wall_ms"] / 1e3),
+             "wall_s": run["wall_ms"] / 1e3,
+             "peak_memory_bytes": run["peak_memory_bytes"],
+             "scores_vs_cpu_bf16_rel_err": err,
+             "eager_twin_tokens_per_sec": LM_STAGE_ROWS
+             * SERVE_MODEL["max_len"] / (eager["wall_ms"] / 1e3),
+             "launch_counts_nonzero": {k: v for k, v in run["counts"].items()
+                                       if v}}
+    out = {"model": TRAIN_MODEL, "learner": dict(fit, steps=LM_LEARNER_STEPS,
+                                                 batch=TRAIN_BATCH),
+           "stage": stage}
+    log(f"LM stages: {out}")
+    return out
+
+
+def check_tagger_stage() -> dict:
+    """The BiLSTM tagger at its default widths through TPUModel (the LSTM
+    is cuDNN's), against the CPU's forward on the same weights."""
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.stages import TPUModel
+
+    graph = build_model("bilstm_tagger")
+    weights = init_variables(graph, 12, device=DEVICE)
+    rows = np.random.default_rng(12).integers(
+        0, 10000, size=(TAGGER_ROWS, TAGGER_LEN)).astype(np.int32)
+    stage = TPUModel(model_name="bilstm_tagger", input_col="tokens",
+                     batch_size=TAGGER_BATCH, device=DEVICE).set(
+        weights=weights)
+    ds = Dataset({"tokens": rows})
+    stage_run(stage, ds)
+    run = stage_run(stage, ds)
+    check_stage_programs("tagger stage", stage, run, run)
+    want = cpu_forward("bilstm_tagger", {}, weights, rows[:4], f32=False)
+    err = rel_err(run["out"][:4], want)
+    if run["out"].shape != (TAGGER_ROWS, TAGGER_LEN, 8) or \
+            err > TAGGER_LOGIT_TOL:
+        raise AssertionError(f"tagger stage: {run['out'].shape}, vs CPU "
+                             f"{err}")
+    out = {"model": {"name": "bilstm_tagger", "vocab_size": 10000,
+                     "embed_dim": 128, "hidden": 128, "num_tags": 8},
+           "rows": TAGGER_ROWS, "row_len": TAGGER_LEN, "batch": TAGGER_BATCH,
+           "tokens_per_sec": TAGGER_ROWS * TAGGER_LEN
+           / (run["wall_ms"] / 1e3),
+           "wall_s": run["wall_ms"] / 1e3,
+           "peak_memory_bytes": run["peak_memory_bytes"],
+           "logits_vs_cpu_rel_err": err}
+    log(f"tagger stage: {out}")
+    return out
+
+
+def check_dnn_stages() -> dict:
+    """The ``dnn_stages`` line: every stage path above, each a main path
+    of its own, with its seconds."""
+    out = {}
+    for label, fn in (("resnet20", check_resnet20_stage),
+                      ("resnet50", check_resnet50_stage),
+                      ("resnet20_learner", check_resnet20_learner),
+                      ("transformer_lm", check_lm_stages),
+                      ("bilstm_tagger", check_tagger_stage)):
+        t0 = time.perf_counter()
+        out[label] = fn()
+        out[label]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+    return out
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -3158,6 +3696,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_resilience, fold_launches = check_train_resilience()
     log(f"train_resilience phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    dnn_stages = check_dnn_stages()
+    log(f"dnn_stages phase took {time.perf_counter() - t0:.1f}s")
 
     launches = {
         "launches": dense["counts"]["launches"],
@@ -3203,6 +3744,7 @@ def main() -> int:
     print(json.dumps({"chunked_async": chunked}))
     print(json.dumps({"resilience": resilience}))
     print(json.dumps({"train_resilience": train_resilience}, default=str))
+    print(json.dumps({"dnn_stages": dnn_stages}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

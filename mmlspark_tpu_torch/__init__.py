@@ -2,7 +2,7 @@
 
 The package mirrors the JAX package's subpackage layout so each module
 has one counterpart (``core``, ``data``, ``ops``, ``models``, ``serve``,
-``testing``, ``train``). It imports ``torch`` and never ``jax``, ``flax`` or
+``stages``, ``testing``, ``train``). It imports ``torch`` and never ``jax``, ``flax`` or
 ``mmlspark_tpu``: what it needs of the JAX package's jax-free modules it
 keeps as its own copy.
 
@@ -17,7 +17,11 @@ pool with its prefix cache, the int8 KV mode of both, and
 so is the trainer's fused optimizer pass (``csrc/fused_optim.cu``). On
 the card the engine's programs and the trainer's step run as CUDA graphs,
 counted as the JAX package counts its compiled programs
-(``testing/compile_guard.py``).
+(``testing/compile_guard.py``). The stage layer — ``Params``,
+``PipelineStage``, ``Pipeline``, stage serialization on the JAX package's
+format, the full ``Dataset`` — carries ``TPUModel`` and ``DNNLearner``
+over ResNet-20, ResNet-50, the BiLSTM tagger, the MLP family and the
+transformer LM; the convolutions and the LSTM are cuDNN's.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

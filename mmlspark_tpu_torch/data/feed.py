@@ -1,11 +1,20 @@
-"""Host batch feed — the port of ``mmlspark_tpu/data/feed.py``'s batching.
+"""Host -> device batch feed — the port of ``mmlspark_tpu/data/feed.py``.
 
-Every batch has exactly ``batch_size`` rows: the tail is padded by
-repeating its last row and a boolean validity mask (``MASK_COL``) marks
-the real ones, so the loss can weight padding 0. A shuffle seed gives
-``np.random.default_rng(seed).permutation(n)``, the JAX package's order,
-so the port and the JAX trainer see identical batches. Moving a batch to
-the card is the caller's ``torch.from_numpy(...).to(device)``.
+- **Fixed shapes**: every batch has exactly ``batch_size`` rows: the tail
+  is padded by repeating its last row and a boolean validity mask
+  (``MASK_COL``) marks the real ones, so the loss can weight padding 0
+  and a captured program sees one shape. The padded rows enter a
+  BatchNorm's batch statistics in train mode, as in the JAX package. A
+  shuffle seed gives ``np.random.default_rng(seed).permutation(n)``, the
+  JAX package's order, so the port and the JAX trainer see identical
+  batches.
+- **Bucketing** (:func:`bucket_by_length`) pads ragged sequences to a few
+  lengths, one program per bucket.
+- **Placement** (:func:`to_device`): a batch goes to the device through
+  :func:`~mmlspark_tpu_torch.core.env.host_to_device` (pinned memory, a
+  copy that does not wait for the stream) in place of
+  ``jax.device_put``. Sharding a batch over several cards waits for the
+  meshes (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -13,7 +22,9 @@ from __future__ import annotations
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
+from mmlspark_tpu_torch.core.env import host_to_device
 from mmlspark_tpu_torch.core.exceptions import SchemaError
 from mmlspark_tpu_torch.data.dataset import Dataset
 
@@ -40,7 +51,8 @@ def stack_column(dataset: Dataset, name: str) -> np.ndarray:
 
 
 def pad_to(arr: np.ndarray, n: int) -> np.ndarray:
-    """Pad axis 0 to length n by repeating the last row (the mask marks
+    """Pad axis 0 to length n by repeating the last row (keeps values in
+    distribution for BatchNorm's batch statistics; the mask marks
     validity)."""
     if len(arr) == n:
         return arr
@@ -75,3 +87,47 @@ def batch_iterator(
             **{c: pad_to(stacked[c][idx], batch_size) for c in columns},
             MASK_COL: mask,
         }
+
+
+def bucket_by_length(
+    dataset: Dataset,
+    column: str,
+    buckets: Sequence[int],
+) -> list[tuple[int, Dataset]]:
+    """Split by ragged-sequence length into (bucket_len, subset) groups;
+    each subset pads its column to bucket_len with zeros — one program per
+    bucket."""
+    arr = dataset.column(column)
+    lengths = np.asarray([len(np.asarray(v)) for v in arr])
+    buckets = sorted(buckets)
+    if not buckets:
+        raise SchemaError("bucket_by_length needs at least one bucket size")
+    if lengths.size and lengths.max() > buckets[-1]:
+        raise SchemaError(
+            f"sequence length {int(lengths.max())} exceeds largest bucket "
+            f"{buckets[-1]}"
+        )
+    out = []
+    assigned = np.zeros(len(arr), dtype=bool)
+    for b in buckets:
+        mask = (~assigned) & (lengths <= b)
+        if not mask.any():
+            continue
+        assigned |= mask
+        subset = dataset.filter(mask)
+        padded = []
+        for v in subset.column(column):
+            v = np.asarray(v)
+            pad_width = [(0, b - v.shape[0])] + [(0, 0)] * (v.ndim - 1)
+            padded.append(np.pad(v, pad_width))
+        out.append((b, subset.with_column(column, np.stack(padded))))
+    return out
+
+
+def to_device(batch: dict[str, np.ndarray],
+              device: torch.device) -> dict[str, torch.Tensor]:
+    """Host batch -> tensors on ``device``, each through
+    :func:`~mmlspark_tpu_torch.core.env.host_to_device` (to the card from
+    pinned memory, without waiting for the stream)."""
+    return {k: host_to_device(np.ascontiguousarray(v), device)
+            for k, v in batch.items()}

@@ -1,7 +1,8 @@
 """Models: named-block graphs, the registry, the transformer LM, the MLP
-and linear family, the weight bridge from flax, and generation (greedy,
-sampled, beam search)."""
+and linear family, the ResNets, the BiLSTM tagger, the weight bridge from
+flax, and generation (greedy, sampled, beam search)."""
 
+from mmlspark_tpu_torch.models.bilstm import bilstm_tagger
 from mmlspark_tpu_torch.models.bridge import (
     init_variables,
     load_flax_variables,
@@ -9,13 +10,19 @@ from mmlspark_tpu_torch.models.bridge import (
 from mmlspark_tpu_torch.models.generate import beam_search, generate
 from mmlspark_tpu_torch.models.graph import FINAL_NODE, NamedGraph
 from mmlspark_tpu_torch.models.mlp import linear, mlp
-from mmlspark_tpu_torch.models.registry import build_model, register_model
+from mmlspark_tpu_torch.models.registry import (
+    build_model,
+    register_model,
+    registered_models,
+)
+from mmlspark_tpu_torch.models.resnet import resnet20_cifar10, resnet50
 from mmlspark_tpu_torch.models.transformer import transformer_lm
 
 __all__ = [
     "FINAL_NODE",
     "NamedGraph",
     "beam_search",
+    "bilstm_tagger",
     "build_model",
     "generate",
     "init_variables",
@@ -23,5 +30,8 @@ __all__ = [
     "load_flax_variables",
     "mlp",
     "register_model",
+    "registered_models",
+    "resnet20_cifar10",
+    "resnet50",
     "transformer_lm",
 ]

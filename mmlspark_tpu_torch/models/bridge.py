@@ -16,14 +16,31 @@ blocks. The flax side is keyed as flax keys it, e.g. for
 
 and for ``mlp``, ``hidden{i}/params/Dense_0/kernel`` -> ``hidden{i}[
 "Dense_0.weight"]`` (T); an MLP block that has no input width yet takes
-it from that kernel's rows.
+it from that kernel's rows. The ResNets (``models/resnet.py``)::
+
+    stage2/params/ResBlock_0/ConvBN_0/Conv_0/kernel
+        -> stage2["ResBlock_0.ConvBN_0.Conv_0.weight"]  (HWIO -> OIHW)
+    .../BatchNorm_0/{scale,bias}         -> "...BatchNorm_0.{weight,bias}"
+    stage2/batch_stats/.../BatchNorm_0/{mean,var}
+                                         -> "...BatchNorm_0.{mean,var}"
+
+(the statistics come from flax's ``batch_stats`` collection, everything
+else from ``params``), and the BiLSTM tagger (``models/bilstm.py``)::
+
+    bilstm/params/OptimizedLSTMCell_0/i{i,f,g,o}/kernel
+        -> bilstm["weight_ih"]   (the four (E, H) kernels side by side, T)
+    bilstm/params/OptimizedLSTMCell_0/h{i,f,g,o}/kernel -> "weight_hh" (T)
+    bilstm/params/OptimizedLSTMCell_0/h{i,f,g,o}/bias   -> "bias_hh"
+    bilstm/params/OptimizedLSTMCell_1/...  -> the same names + "_reverse"
 
 A flax Dense ``kernel`` is (in, out); the port's weight is (out, in), so
-it is transposed on the way in. Weight-quantized flax variables
-(``mmlspark_tpu/ops/quantize.py``: ``{__w8__: int8, __w8_scale__: f32}``
-in place of a float leaf) cross too: the int8 payload is transposed where
-the float leaf would be, and the scale keeps its values, shaped to
-broadcast against the port's payload (``ops/quantize.py``).
+it is transposed on the way in, and a flax Conv ``kernel`` (kh, kw, in,
+out) becomes the port's (out, in, kh, kw). Weight-quantized flax
+variables (``mmlspark_tpu/ops/quantize.py``: ``{__w8__: int8,
+__w8_scale__: f32}`` in place of a float leaf) cross too: the int8
+payload takes the float leaf's layout change, and the scale keeps its
+values (one per flax output channel, the last axis), shaped to broadcast
+against the port's payload (``ops/quantize.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +53,8 @@ from torch import nn
 
 from mmlspark_tpu_torch.core.env import default_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
+from mmlspark_tpu_torch.models.bilstm import DIRECTIONS, GATES, BiLSTM
+from mmlspark_tpu_torch.models.resnet import BatchNorm, Conv
 from mmlspark_tpu_torch.models.transformer import Dense
 from mmlspark_tpu_torch.ops.quantize import _Q8, _SCALE
 
@@ -44,7 +63,11 @@ _LEAVES = {
     Dense: {"weight": "kernel", "bias": "bias"},
     nn.LayerNorm: {"weight": "scale", "bias": "bias"},
     nn.Embedding: {"weight": "embedding"},
+    Conv: {"weight": "kernel"},
+    BatchNorm: {"weight": "scale", "bias": "bias"},
 }
+#: the leaves flax keeps in its ``batch_stats`` collection
+_STATS = {BatchNorm: ("mean", "var")}
 
 
 def _owner_and_leaf(mod: nn.Module, key: str):
@@ -53,72 +76,133 @@ def _owner_and_leaf(mod: nn.Module, key: str):
     return path, owner, leaf
 
 
-def flax_transposed(mod: nn.Module, key: str) -> bool:
-    """Whether block ``mod``'s parameter ``key`` is the transpose of its
-    flax leaf: a ``Dense`` weight, (out, in) here and (in, out) in flax."""
+def _layout(owner: nn.Module, leaf: str) -> str:
+    """How a port leaf's layout relates to its flax leaf's: ``dense`` (a
+    2-D transpose), ``conv`` (HWIO -> OIHW) or ``same``."""
+    if isinstance(owner, Dense) and leaf == "weight" or \
+            isinstance(owner, BiLSTM) and leaf.startswith("weight"):
+        return "dense"
+    if isinstance(owner, Conv) and leaf == "weight":
+        return "conv"
+    return "same"
+
+
+def flax_channel_axis(mod: nn.Module, key: str, ndim: int) -> int:
+    """The axis of block ``mod``'s parameter ``key`` (``ndim`` dims) that
+    is its flax leaf's LAST axis — the axis flax's int8 quantization keeps
+    one scale per index of: axis 0 of a Dense, LSTM or Conv weight, the
+    last axis of a leaf held in flax's layout."""
     _, owner, leaf = _owner_and_leaf(mod, key)
-    return isinstance(owner, Dense) and leaf == "weight"
+    return ndim - 1 if _layout(owner, leaf) == "same" else 0
 
 
-def _quantized_leaf(node, transposed: bool, dev) -> dict:
-    """A flax ``{__w8__, __w8_scale__}`` leaf in the port's layout."""
+def _to_port_layout(arr: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "dense":
+        return arr.T
+    if layout == "conv":
+        return arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def _port_leaf(node, layout: str, dev):
+    """A flax leaf (float, or ``{__w8__, __w8_scale__}``) as the port's
+    tensor (or quantized dict) on ``dev``."""
+    if not (isinstance(node, Mapping) and _Q8 in node and _SCALE in node):
+        arr = _to_port_layout(np.array(node, dtype=np.float32), layout)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
     q = np.array(node[_Q8], dtype=np.int8)
     scale = np.array(node[_SCALE], dtype=np.float32).reshape(-1)
-    if q.ndim != 2 or scale.size != q.shape[-1]:
+    if q.ndim < 2 or scale.size != q.shape[-1]:
         raise FriendlyError(
             f"a quantized flax leaf of payload {q.shape} and scale "
-            f"{scale.shape} is not a 2-D per-output-channel leaf"
+            f"{scale.shape} is not a per-output-channel leaf"
         )
-    if transposed:
-        q, scale = q.T, scale[:, None]
-    else:
-        scale = scale[None, :]
+    q = _to_port_layout(q, layout)
+    shape = [1] * q.ndim
+    shape[0 if layout != "same" else -1] = scale.size
     return {
         _Q8: torch.from_numpy(np.ascontiguousarray(q)).to(dev),
-        _SCALE: torch.from_numpy(np.ascontiguousarray(scale)).to(dev),
+        _SCALE: torch.from_numpy(scale.reshape(shape)).to(dev),
     }
 
 
+def _lookup(tree, parts: list, what: str):
+    node = tree
+    for part in parts:
+        if not isinstance(node, Mapping) or part not in node:
+            raise FriendlyError(
+                f"flax variables lack '{'/'.join(parts)}' ({what})")
+        node = node[part]
+    return node
+
+
+def _lstm_node(cell, leaf: str):
+    """One packed LSTM leaf from flax's per-gate cell leaves: the four
+    gates' kernels side by side ((in, 4H), transposed later), or their
+    hidden biases end to end."""
+    kind, side = ("bias", "h") if leaf == "bias_hh" else (
+        "kernel", "i" if leaf == "weight_ih" else "h")
+    parts = [_lookup(cell, [side + g, kind], f"LSTM gate {side}{g}")
+             for g in GATES]
+    if all(isinstance(p, Mapping) and _Q8 in p for p in parts):
+        return {_Q8: np.concatenate([np.asarray(p[_Q8]) for p in parts],
+                                    axis=-1),
+                _SCALE: np.concatenate([np.asarray(p[_SCALE]).reshape(-1)
+                                        for p in parts])}
+    return np.concatenate([np.asarray(p, dtype=np.float32) for p in parts],
+                          axis=-1)
+
+
+def _flax_node(block_vars, name: str, mod: nn.Module, key: str):
+    """The flax leaf (or quantized dict) behind port parameter
+    ``name.key``, and its layout."""
+    path, owner, leaf = _owner_and_leaf(mod, key)
+    parts = path.split(".") if path else []
+    what = f"port parameter '{name}.{key}'"
+    if isinstance(owner, BiLSTM):
+        base, sfx = leaf, ""
+        if leaf.endswith("_reverse"):
+            base, sfx = leaf[: -len("_reverse")], "_reverse"
+        cell = _lookup(block_vars, ["params", *parts, DIRECTIONS[sfx]],
+                       what)
+        return _lstm_node(cell, base), _layout(owner, leaf)
+    coll = "batch_stats" if leaf in _STATS.get(type(owner), ()) \
+        else "params"
+    flax_leaf = _LEAVES.get(type(owner), {}).get(leaf, leaf)
+    node = _lookup(block_vars, [coll, *parts, flax_leaf], what)
+    return node, _layout(owner, leaf)
+
+
 def load_flax_variables(graph, variables, *, device=None) -> dict:
-    """The port's parameters from the JAX package's ``variables`` (a
+    """The port's variables from the JAX package's ``variables`` (a
     nested dict of numpy or numpy-convertible arrays, float or
-    weight-quantized), on ``device`` (``cuda`` unless the caller asks for
+    weight-quantized, with flax's ``batch_stats`` where a block keeps
+    statistics), on ``device`` (``cuda`` unless the caller asks for
     ``"cpu"``)."""
     dev = default_device(device)
     out = {}
     for name, mod in graph.blocks:
-        try:
-            params = variables[name]["params"]
-        except (KeyError, TypeError) as e:
+        block_vars = variables.get(name) if isinstance(variables, Mapping) \
+            else None
+        has_params = isinstance(block_vars, Mapping) and "params" in block_vars
+        if has_params and hasattr(mod, "size_from_flax"):
+            mod.size_from_flax(block_vars["params"])
+        refs = mod.state_dict()
+        if not refs and getattr(mod, "sized", True):
+            out[name] = {}  # a block without variables (the global pool)
+            continue
+        if not has_params:
             raise FriendlyError(
                 f"flax variables lack '{name}/params' for graph "
                 f"'{graph.name}'"
-            ) from e
-        if hasattr(mod, "size_from_flax"):
-            mod.size_from_flax(params)
+            )
         block = {}
-        for key, ref in mod.state_dict().items():
-            path, owner, leaf = _owner_and_leaf(mod, key)
-            flax_leaf = _LEAVES.get(type(owner), {}).get(leaf, leaf)
-            node = params
-            for part in (path.split(".") if path else []) + [flax_leaf]:
-                if not isinstance(node, Mapping) or part not in node:
-                    raise FriendlyError(
-                        f"flax variables lack '{name}/params/"
-                        f"{'/'.join(path.split('.') if path else [])}"
-                        f"/{flax_leaf}' (port parameter '{name}.{key}')"
-                    )
-                node = node[part]
-            transposed = flax_transposed(mod, key)
-            if isinstance(node, Mapping) and _Q8 in node and _SCALE in node:
-                block[key] = _quantized_leaf(node, transposed, dev)
-                _check_shape(name, key, block[key][_Q8].shape, ref)
-                continue
-            arr = np.array(node, dtype=np.float32)  # an owned copy
-            if transposed:
-                arr = arr.T
-            _check_shape(name, key, arr.shape, ref)
-            block[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        for key, ref in refs.items():
+            node, layout = _flax_node(block_vars, name, mod, key)
+            block[key] = _port_leaf(node, layout, dev)
+            got = block[key][_Q8] if isinstance(block[key], dict) \
+                else block[key]
+            _check_shape(name, key, got.shape, ref)
         out[name] = block
     return out
 
@@ -134,9 +218,10 @@ def _check_shape(name: str, key: str, shape, ref) -> None:
 def init_variables(graph, seed: int = 0, *, device=None) -> dict:
     """The port's own seeded initialisation, drawn on the CPU from a
     ``torch.Generator`` (so a seed gives the same weights on every
-    device) and moved to ``device``: Dense weights and embeddings
-    ``N(0, 1/fan_in)``, learned positions ``N(0, 0.02^2)``, LayerNorm
-    scales 1, biases 0."""
+    device) and moved to ``device``: Dense, Conv and LSTM weights and
+    embeddings ``N(0, 1/fan_in)``, learned positions ``N(0, 0.02^2)``,
+    LayerNorm and BatchNorm scales 1, biases 0, BatchNorm running means 0
+    and variances 1 (flax's starting statistics)."""
     dev = default_device(device)
     gen = torch.Generator().manual_seed(seed)
     out = {}
@@ -149,13 +234,14 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
         for key, ref in mod.state_dict().items():
             _, owner, leaf = _owner_and_leaf(mod, key)
             shape = tuple(ref.shape)
-            if isinstance(owner, nn.LayerNorm):
-                t = torch.ones(shape) if leaf == "weight" else torch.zeros(
-                    shape)
-            elif leaf == "bias":
+            if isinstance(owner, (nn.LayerNorm, BatchNorm)) and \
+                    leaf in ("weight", "var"):
+                t = torch.ones(shape)
+            elif leaf.startswith("bias") or leaf == "mean":
                 t = torch.zeros(shape)
-            elif isinstance(owner, (Dense, nn.Embedding)):
-                t = torch.randn(shape, generator=gen) * shape[1] ** -0.5
+            elif isinstance(owner, (Dense, nn.Embedding, Conv, BiLSTM)):
+                fan_in = int(np.prod(shape[1:]))
+                t = torch.randn(shape, generator=gen) * fan_in ** -0.5
             else:  # the learned position table
                 t = torch.randn(shape, generator=gen) * 0.02
             block[key] = t.to(dev)

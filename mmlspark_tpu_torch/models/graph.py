@@ -16,13 +16,28 @@ identity check per call. Variables are treated as immutable, like a JAX
 pytree: to change weights, pass a new dict. Train mode runs each block
 on the dict's own tensors through ``torch.func.functional_call``, so
 gradients reach them.
+
+A block's variables hold its parameters and its statistics (the
+BatchNorm running mean and variance, registered as buffers — flax's
+``batch_stats`` collection): :meth:`NamedGraph.stat_keys` names the
+latter, which the trainer carries beside the parameters and does not
+differentiate. In train mode a block that keeps statistics computes new
+ones and leaves them in its ``new_stats`` attribute; ``apply`` collects
+them into the variables it returns, as the JAX package's ``apply``
+returns flax's mutated ``batch_stats``.
+
+``apply(output_node=...)`` runs the prefix ending at that block, and
+:meth:`NamedGraph.cut` makes a graph of that prefix (the reference's
+``AsComposite`` graph surgery, CNTKModel.scala:97-108).
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
+import itertools
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 from torch.func import functional_call
@@ -43,6 +58,10 @@ class NamedGraph:
     blocks: list[tuple[str, torch.nn.Module]]
     #: static metadata: expected input shape (per example, no batch dim)
     input_shape: tuple[int, ...] = ()
+    #: dtype used for compute (bfloat16 feeds the tensor cores; params
+    #: stay f32). Informational, as in the JAX package: each block casts
+    #: to its own compute dtype
+    compute_dtype: Any = None
     extra: dict = field(default_factory=dict)
     _bound: Any = field(default=None, init=False, repr=False)
 
@@ -54,6 +73,16 @@ class NamedGraph:
     def layer_names(self) -> list[str]:
         """Ordered node names."""
         return [n for n, _ in self.blocks]
+
+    def _check_node(self, node: str | int | None) -> str | None:
+        return resolve_node(self.layer_names, node, self.name)
+
+    def stat_keys(self, block_name: str) -> frozenset:
+        """The keys of block ``block_name``'s variables that are statistics
+        (buffers: BatchNorm's running mean and variance), not trained
+        parameters."""
+        mod = dict(self.blocks)[block_name]
+        return frozenset(k for k, _ in mod.named_buffers())
 
     def _block_variables(self, variables: dict, block_name: str) -> dict:
         try:
@@ -96,29 +125,39 @@ class NamedGraph:
             mod.to_empty(device="meta")
         self._bound = None
 
-    def apply(self, variables: dict, x, train: bool = False, mask=None,
-              remat: bool = False):
-        """Forward pass through every block.
+    def apply(self, variables: dict, x, output_node: str | int | None = None,
+              train: bool = False, mask=None, remat: bool = False):
+        """Forward pass; stops after ``output_node`` when given (a headless
+        net).
 
         Eval mode (the default) returns the output, run under
-        ``no_grad`` on the bound variables. Train mode returns ``(out,
-        variables)``, as the JAX package's does (the port's blocks keep
-        no batch statistics, so the variables come back as they went
-        in), and runs each block on the dict's own tensors, so
+        ``no_grad`` on the bound variables, the blocks' statistics as
+        they are. Train mode returns ``(out, updated_variables)``, as the
+        JAX package's does: a block that keeps statistics normalises with
+        its batch's and comes back with new running ones in
+        ``updated_variables``; every other entry is the tensor that went
+        in. Train mode runs each block on the dict's own tensors, so
         ``backward()`` reaches them; ``remat`` recomputes each block's
         activations in the backward (``torch.utils.checkpoint``) instead
         of keeping them. ``mask`` ((B,) 0/1 real-row mask) goes to the
-        blocks whose ``forward`` accepts it.
+        blocks whose ``forward`` accepts it, and ``train`` to those that
+        accept it.
         """
+        stop = self._check_node(output_node)
         if not train:
             self.bind(variables)
             with torch.no_grad():
-                for _, mod in self.blocks:
+                for block_name, mod in self.blocks:
                     x = mod(x, **_mask_kwarg(mod, mask))
+                    if block_name == stop:
+                        break
             return x
+        updated = dict(variables)
         for block_name, mod in self.blocks:
             params = self._block_variables(variables, block_name)
             kwargs = _mask_kwarg(mod, mask)
+            if _accepts_kwarg(mod, "train"):
+                kwargs["train"] = True
             if remat:
                 # the blocks draw no random numbers, so no RNG state is
                 # kept for the recompute (which also keeps a captured
@@ -127,7 +166,86 @@ class NamedGraph:
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = _call_block(mod, params, x, kwargs)
-        return x, variables
+            stats = _take_new_stats(mod)
+            if stats:
+                updated[block_name] = {**params, **stats}
+            if block_name == stop:
+                break
+        return x, updated
+
+    def cut(self, node: str | int) -> "NamedGraph":
+        """A new graph truncated after ``node`` (AsComposite equivalent).
+        Its blocks are copies on the ``meta`` device, so binding one
+        graph's variables never rebinds the other's."""
+        stop = self._check_node(node)
+        idx = self.layer_names.index(stop)
+        return NamedGraph(
+            name=f"{self.name}@{stop}",
+            blocks=[(n, _meta_copy(m)) for n, m in self.blocks[: idx + 1]],
+            input_shape=self.input_shape,
+            compute_dtype=self.compute_dtype,
+            extra=dict(self.extra),
+        )
+
+    def param_count(self, variables) -> int:
+        return count_params(variables)
+
+
+def resolve_node(layer_names: Sequence[str], node: str | int | None,
+                 graph_name: str) -> str | None:
+    """Resolve an output-node selector (name or index, the CNTKModel
+    setOutputNode variants, CNTKModel.scala:166-170) against ordered node
+    names; raises FriendlyError for unknown selectors."""
+    if node is None:
+        return None
+    if isinstance(node, int):
+        try:
+            return layer_names[node]
+        except IndexError:
+            raise FriendlyError(
+                f"output node index {node} out of range for "
+                f"{len(layer_names)} nodes"
+            )
+    if node not in layer_names:
+        raise FriendlyError(
+            f"no node '{node}' in graph '{graph_name}'; "
+            f"nodes: {list(layer_names)}"
+        )
+    return node
+
+
+def count_params(variables) -> int:
+    """Total element count of a variables nest (dicts of tensors or
+    arrays; a weight-quantized leaf counts its payload and scales)."""
+    if isinstance(variables, dict):
+        return sum(count_params(v) for v in variables.values())
+    return int(variables.numel() if isinstance(variables, torch.Tensor)
+               else variables.size)
+
+
+def _take_new_stats(mod) -> dict:
+    """The new statistics a train-mode call left on ``mod``'s submodules,
+    keyed as ``mod``'s variables are; the attributes are cleared."""
+    out = {}
+    for path, sub in mod.named_modules():
+        stats = getattr(sub, "new_stats", None)
+        if stats is None:
+            continue
+        sub.new_stats = None
+        prefix = f"{path}." if path else ""
+        out.update({prefix + k: t for k, t in stats.items()})
+    return out
+
+
+def _meta_copy(mod: torch.nn.Module) -> torch.nn.Module:
+    """A deep copy of ``mod`` whose parameters and buffers are new tensors
+    on the ``meta`` device (nothing bound is copied)."""
+    memo = {}
+    for t in itertools.chain(mod.parameters(), mod.buffers()):
+        meta = torch.empty_like(t, device="meta")
+        memo[id(t)] = (torch.nn.Parameter(meta, requires_grad=False)
+                       if isinstance(t, torch.nn.Parameter) else meta)
+    return copy.deepcopy(mod, memo)
 
 
 def _call_block(mod, params: dict, x, kwargs: dict):

@@ -1,6 +1,9 @@
 """Model-architecture registry: name -> NamedGraph builder — the port of
 ``mmlspark_tpu/models/registry.py``. The port registers only what its
-slices have ported: ``transformer_lm``, ``mlp`` and ``linear``."""
+slices have ported: ``transformer_lm``, ``mlp``, ``linear``,
+``resnet20_cifar10``, ``resnet50`` and ``bilstm_tagger``. A serialized
+``TPUModel`` stores ``(model_name, model_config)`` and rebuilds its graph
+here at load time."""
 
 from __future__ import annotations
 
@@ -34,7 +37,14 @@ def build_model(name: str, **config: Any) -> NamedGraph:
     return _BUILDERS[name](**config)
 
 
+def registered_models() -> list[str]:
+    _ensure_loaded()
+    return sorted(_BUILDERS)
+
+
 def _ensure_loaded() -> None:
     # builder modules self-register on import
+    import mmlspark_tpu_torch.models.bilstm  # noqa: F401
     import mmlspark_tpu_torch.models.mlp  # noqa: F401
+    import mmlspark_tpu_torch.models.resnet  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401

@@ -4,20 +4,25 @@
 Weight-only int8 (W8): the large leaves of a variables dict (ndim >= 2,
 at least ``min_size`` elements, float) become per-output-channel
 symmetric int8 with a float32 scale, and small leaves (biases, norm
-parameters) stay as they are. Dequantization runs once per program call
-(``serve/engine.py``), so the device holds the int8 copy between calls.
-Activations stay bf16: this is a bandwidth lever, not an int8-GEMM one.
+parameters, BatchNorm statistics) stay as they are. Dequantization runs
+once per program call (``serve/engine.py``, ``stages/dnn_model.py``), so
+the device holds the int8 copy between calls. Activations stay bf16: this
+is a bandwidth lever, not an int8-GEMM one.
 
 A quantized leaf is a dict ``{_Q8: int8 payload, _SCALE: f32 scale}`` in
 place of the float tensor. The payload has the port leaf's layout; the
 scale holds the JAX package's values, shaped to broadcast against the
 payload: flax quantizes per output channel, the LAST axis of the flax
 leaf, so a ``Dense`` weight — (out, in) in the port, transposed from
-flax's (in, out) — takes an (out, 1) scale, and an embedding table or
-the learned position table (not transposed) a (1, d) one. The arithmetic
-is JAX's, bit for bit: ``scale = absmax / 127`` in f32 (a zero scale
-becomes 1), ``q = clip(rint(x / scale), -127, 127)``, and dequantization
-``q.to(dtype) * scale.to(dtype)``, the product in ``dtype``.
+flax's (in, out) — takes an (out, 1) scale, a conv weight — OIHW in the
+port, HWIO in flax — an (out, 1, 1, 1) one, the LSTM's packed gate
+weights a (4H, 1) one, and an embedding table or the learned position
+table (not transposed) a (1, d) one
+(:func:`~mmlspark_tpu_torch.models.bridge.flax_channel_axis`). The
+arithmetic is JAX's, bit for bit: ``scale = absmax / 127`` in f32 over
+every other axis (a zero scale becomes 1), ``q = clip(rint(x / scale),
+-127, 127)``, and dequantization ``q.to(dtype) * scale.to(dtype)``, the
+product in ``dtype``.
 """
 
 from __future__ import annotations
@@ -44,11 +49,12 @@ def _is_quantized_leaf(x: Any) -> bool:
 
 
 def quantize_leaf(t: torch.Tensor, channel_axis: int) -> dict:
-    """One 2-D float tensor as ``{_Q8, _SCALE}``, one scale per index of
-    ``channel_axis`` (the flax leaf's last axis, wherever the port's
-    layout puts it)."""
+    """One float tensor (ndim >= 2) as ``{_Q8, _SCALE}``, one scale per
+    index of ``channel_axis`` (the flax leaf's last axis, wherever the
+    port's layout puts it), the absmax taken over every other axis."""
     x = t.float()
-    scale = x.abs().amax(dim=1 - channel_axis, keepdim=True) / 127.0
+    others = [d for d in range(x.ndim) if d != channel_axis % x.ndim]
+    scale = x.abs().amax(dim=others, keepdim=True) / 127.0
     scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
     return {_Q8: q, _SCALE: scale}
@@ -60,10 +66,9 @@ def quantize_weights(graph, variables: dict, *,
     ``variables`` (``{block: {name: tensor}}``) with ndim >= 2 and at
     least ``min_size`` elements; every other leaf is passed through, the
     same tensor. ``graph`` names each leaf's owning module, which decides
-    the channel axis (see the module docstring); the port's weights are
-    2-D. The serving engine passes ``min_size=0``, so every projection
-    goes int8."""
-    from mmlspark_tpu_torch.models.bridge import flax_transposed
+    the channel axis (see the module docstring). The serving engine
+    passes ``min_size=0``, so every projection goes int8."""
+    from mmlspark_tpu_torch.models.bridge import flax_channel_axis
 
     out = {}
     for name, mod in graph.blocks:
@@ -77,7 +82,7 @@ def quantize_weights(graph, variables: dict, *,
                 block[key] = t
                 continue
             block[key] = quantize_leaf(
-                t, 0 if flax_transposed(mod, key) else 1)
+                t, flax_channel_axis(mod, key, t.ndim))
         out[name] = block
     return out
 

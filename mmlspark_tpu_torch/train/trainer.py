@@ -3,16 +3,27 @@ execution — the port of ``mmlspark_tpu/train/trainer.py``.
 
 ``SPMDTrainer.train(x, y)`` owns the epoch loop over fixed-shape batches
 from :func:`~mmlspark_tpu_torch.data.feed.batch_iterator` (the JAX
-package's seeded order, padded tail and validity mask). Each step runs
-the graph in train mode, a mask-weighted mean loss, ``backward()``, the
-global gradient norm, the optimizer update and the in-graph anomaly
-quarantine: a non-finite loss or gradient norm, or a norm past
-``max_grad_norm``, keeps the old parameters and optimizer state
-(its step count included), so a skipped step is a pure data advance and
-costs no host sync. The quarantine's streak and total stay on the
-device; the host reads them at the ``log_every`` cadence, when it already
-syncs for the loss, and aborts after ``anomaly_limit`` consecutive bad
-steps.
+package's seeded order, padded tail and validity mask; token rows, float
+rows or float NHWC images alike). Each step runs the graph in train
+mode, a mask-weighted mean loss, ``backward()``, the global gradient
+norm, the optimizer update and the in-graph anomaly quarantine: a
+non-finite loss or gradient norm, or a norm past ``max_grad_norm``,
+keeps the old parameters, optimizer state (its step count included) and
+model statistics, so a skipped step is a pure data advance and costs no
+host sync.
+
+The variables split as the JAX trainer's do (``_split_variables``):
+the trained parameters, and the rest — the statistics a block keeps
+(:meth:`~mmlspark_tpu_torch.models.graph.NamedGraph.stat_keys`:
+BatchNorm's running mean and variance). The rest is not differentiated;
+train mode returns new values for it, which the step writes in place
+(JAX's ``new_rest``, kept at its old values on a quarantined step), and
+under gradient accumulation each micro-batch's forward starts from the
+statistics the one before it left, as JAX's scan carries them.
+
+The quarantine's streak and total stay on the device; the host reads
+them at the ``log_every`` cadence, when it already syncs for the loss,
+and aborts after ``anomaly_limit`` consecutive bad steps.
 
 The step is one program, as the JAX trainer jits it: on the card the
 first step runs eagerly (a real step of the trajectory, and the
@@ -32,14 +43,15 @@ the CPU the step runs eagerly.
 
 Resilience, as in the JAX package (its ``docs/TRAINING.md``):
 
-- **Checkpoints** (``checkpoint_dir``): parameters, optimizer state and
-  the anomaly carries go through :class:`~mmlspark_tpu_torch.train.
-  resilience.AtomicCheckpointStore` at ``checkpoint_every`` and at the
-  end, with the loss history and ``steps_per_epoch`` in the manifest. A
-  resume restores the newest intact checkpoint (a corrupt one is
-  quarantined and the one before it tried), skips the batches of the
-  epoch already taken, and reproduces the uninterrupted run bit for bit
-  (an eager step and a replayed one give the same bits).
+- **Checkpoints** (``checkpoint_dir``): parameters, the rest (manifest
+  key ``rest``), optimizer state and the anomaly carries go through
+  :class:`~mmlspark_tpu_torch.train.resilience.AtomicCheckpointStore`
+  at ``checkpoint_every`` and at the end, with the loss history and
+  ``steps_per_epoch`` in the manifest. A resume restores the newest
+  intact checkpoint (a corrupt one is quarantined and the one before it
+  tried), skips the batches of the epoch already taken, and reproduces
+  the uninterrupted run bit for bit (an eager step and a replayed one
+  give the same bits).
 - **Fault hooks** (``faults=``): ``train.step`` before each dispatch,
   ``train.data`` before each batch is used (``poison`` NaN-corrupts the
   first float column), ``train.checkpoint`` between the payload and the
@@ -52,12 +64,13 @@ Resilience, as in the JAX package (its ``docs/TRAINING.md``):
   next_accum_rung`) and captures the step again for the new rung: one
   program a rung.
 - **Integrity audits** (``audit_every``): the step also folds parameters
-  and optimizer state into a uint32 carry (``ops/tree_checksum.py``),
-  only where a device flag is set, so one captured program serves audit
-  and non-audit steps. At the cadence the host folds its copy and
-  compares; a mismatch is replayed from the last clean state and judged
-  ``transient_sdc`` or ``software_nondeterminism``. With
-  ``audit_every=0`` the step holds no fold at all.
+  and optimizer state (not the rest, as in the JAX package) into a
+  uint32 carry (``ops/tree_checksum.py``), only where a device flag is
+  set, so one captured program serves audit and non-audit steps. At the
+  cadence the host folds its copy and compares; a mismatch is replayed
+  from the last clean state and judged ``transient_sdc`` or
+  ``software_nondeterminism``. With ``audit_every=0`` the step holds no
+  fold at all.
 
 The optimizers are optax's: ``adam`` (b1 0.9, b2 0.999, eps 1e-8,
 bias-corrected), ``adamw`` (adam plus the decoupled ``weight_decay * p``
@@ -416,16 +429,23 @@ class SPMDTrainer:
                                                    device=dev)
         # the trainer's own leaves: updated in place, never the caller's
         variables = {
-            b: {k: t.detach().to(dev, copy=True).requires_grad_(True)
-                for k, t in block.items()}
+            b: {k: t.detach().to(dev, copy=True) for k, t in block.items()}
             for b, block in init_variables.items()
         }
-        params = [t for block in variables.values() for t in block.values()]
+        # the trained parameters and the rest (the blocks' statistics):
+        # two views of variables' tensors
+        stat_keys = {b: self.graph.stat_keys(b) for b in variables}
+        weights = {b: {k: t.requires_grad_(True) for k, t in block.items()
+                       if k not in stat_keys[b]}
+                   for b, block in variables.items()}
+        rest = {b: {k: t for k, t in block.items() if k in stat_keys[b]}
+                for b, block in variables.items() if stat_keys[b]}
+        params = [t for block in weights.values() for t in block.values()]
         opt_state = opt.init(params)
         streak = torch.zeros((), dtype=torch.int32, device=dev)
         anoms = torch.zeros((), dtype=torch.int32, device=dev)
         # everything a checkpoint holds; its tensors are the step's state
-        state = {"params": variables, "opt_state": opt_state,
+        state = {"params": weights, "rest": rest, "opt_state": opt_state,
                  "anomaly": {"streak": streak, "total": anoms}}
         state_tensors = integrity.tree_leaves(state)
 
@@ -437,16 +457,18 @@ class SPMDTrainer:
             # no host sync: K steps a dispatch run back to back
             return host_to_device(np.ascontiguousarray(a), dev)
 
-        def loss_of(bx, by, bm):
-            out, _ = self.graph.apply(variables, bx, train=True, mask=bm,
-                                      remat=cfg.remat)
-            return masked_loss(cfg.loss, out, by, bm)
+        def loss_of(current, bx, by, bm):
+            """The loss on one batch from ``current`` variables, and the
+            variables with the new statistics."""
+            out, updated = self.graph.apply(current, bx, train=True,
+                                            mask=bm, remat=cfg.remat)
+            return masked_loss(cfg.loss, out, by, bm), updated
 
         # -- the integrity audit's state: the fold's leaves, its carry and
         # the device flags that gate it
         audit_every = max(int(cfg.audit_every), 0)
         audit = audit_every > 0
-        fold_tree = (variables, opt_state)
+        fold_tree = (weights, opt_state)
         fold_leaves = integrity.tree_leaves(fold_tree) if audit else []
         plan = FoldPlan(fold_leaves) if audit and dev.type == "cuda" \
             else None
@@ -462,19 +484,22 @@ class SPMDTrainer:
                 for p in params:
                     p.grad = None
                 if accum == 1:
-                    loss = loss_of(bx, by, bm)
+                    loss, current = loss_of(variables, bx, by, bm)
                     loss.backward()
                     denom = None
                 else:
                     # strided split (row i -> micro i % accum); each micro
                     # contributes its loss SUM and mask count, normalized
-                    # once — the JAX package's two exactness rules
+                    # once — the JAX package's two exactness rules; the
+                    # statistics carry from micro to micro
                     lsum = csum = torch.zeros((), device=dev)
+                    current = variables
                     for i in range(accum):
                         mm = bm[i::accum]
                         cnt = mm.float().sum()
-                        weighted = loss_of(bx[i::accum], by[i::accum], mm) \
-                            * torch.clamp(cnt, min=1.0)
+                        micro, current = loss_of(current, bx[i::accum],
+                                                 by[i::accum], mm)
+                        weighted = micro * torch.clamp(cnt, min=1.0)
                         weighted.backward()
                         lsum = lsum + weighted.detach()
                         csum = csum + cnt
@@ -494,10 +519,15 @@ class SPMDTrainer:
                     new_streak = torch.where(bad, streak + 1,
                                              torch.zeros_like(streak))
                     bad_count = bad.int()
+                    new_rest = [(t, torch.where(bad, t, current[b][k]))
+                                for b, block in rest.items()
+                                for k, t in block.items()]
                     # the update and the quarantine's select, in place
                     opt.update(params, grads, opt_state, bad)
                     streak.copy_(new_streak)
                     anoms.add_(bad_count)
+                    for t, new in new_rest:
+                        t.copy_(new)
                     if audit:
                         tree_fold(fold_leaves, out=chk, flag=flag[0],
                                   plan=plan)
@@ -646,7 +676,7 @@ class SPMDTrainer:
             precedes it and the next audit's host fold sees it."""
             seed = self._faults.corrupt_spec("train.step", tick=tick)
             if seed is not None:
-                integrity.corrupt_replica(variables, seed)
+                integrity.corrupt_replica(weights, seed)
 
         def pull_guard(b: dict, tick: int) -> dict:
             """The ``train.data`` hook: transients retried, ``poison``

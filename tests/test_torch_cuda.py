@@ -1252,3 +1252,109 @@ def test_audited_step_is_one_program_and_adjudicates(cuda):
     for block, leaves in want.items():
         for name, w in leaves.items():
             assert torch.equal(got[block][name], w), (block, name)
+
+
+# -- the stage layer and the CNNs -----------------------------------------------
+
+
+def _f32_port(graph):
+    for _, mod in graph.blocks:
+        for m in mod.modules():
+            if hasattr(m, "dtype"):
+                m.dtype = torch.float32
+    return graph
+
+
+@pytest.mark.parametrize("name,cfg,shape", [
+    ("resnet20_cifar10", {}, (8, 32, 32, 3)),
+    ("resnet50", {"input_size": 64}, (4, 64, 64, 3)),
+])
+def test_resnet_forward_on_card_matches_cpu(cuda, name, cfg, shape):
+    """cuDNN's channels_last convolutions against the port's f32 CPU
+    forward on the same weights (f32 compute, TF32 off): within 1e-3 of
+    the largest logit; bf16 on the card within 3e-2 of it."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.models.bridge import variables_to
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(
+        np.float32))
+    graph = build_model(name, **cfg)
+    cpu_vars = init_variables(graph, 0, device="cpu")
+    card_vars = variables_to(cpu_vars, cuda)
+    want_bf16 = graph.apply(cpu_vars, x)
+    got_bf16 = graph.apply(card_vars, x.to(cuda)).cpu()
+    _f32_port(graph)
+    want = graph.apply(cpu_vars, x)
+    got = graph.apply(card_vars, x.to(cuda)).cpu()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-3 * scale
+    assert (got_bf16 - want_bf16).abs().max().item() <= 3e-2 * scale
+
+
+def test_tpu_model_programs_and_eager_twin(cuda, monkeypatch):
+    """TPUModel on the card: one captured program per key, replayed for
+    every batch, and the same scores and launch counts (the flash forward)
+    as an eager twin whose programs are never captured."""
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.stages import TPUModel
+    from mmlspark_tpu_torch.stages import dnn_model
+    from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
+
+    cfg = dict(vocab_size=64, d_model=128, heads=2, depth=2, max_len=64,
+               attn_impl="flash")
+    graph = build_model("transformer_lm", **cfg)
+    weights = init_variables(graph, 0, device="cpu")
+    rows = np.random.default_rng(0).integers(0, 64, size=(10, 64))
+    ds = Dataset({"tokens": rows})
+
+    def run(stage):
+        fa.fwd_launches = 0
+        out = stage.transform(ds)["scores"]
+        torch.cuda.synchronize()
+        return out, fa.fwd_launches
+
+    captured = TPUModel(model_name="transformer_lm", model_config=cfg,
+                        input_col="tokens", batch_size=4).set(weights=weights)
+    scores, launches = run(captured)
+
+    class EagerPrograms(ProgramCountingGraph):
+        def _capture(self, args):
+            return None
+
+    monkeypatch.setattr(dnn_model, "ProgramCountingGraph", EagerPrograms)
+    eager = captured.copy().set(weights=weights)
+    eager_scores, eager_launches = run(eager)
+    assert captured.program_count == eager.program_count == 1
+    assert captured.capture_seconds > 0 and eager.capture_seconds == 0
+    assert launches == eager_launches == 3 * cfg["depth"]
+    np.testing.assert_array_equal(scores, eager_scores)
+
+
+def test_captured_train_step_updates_batch_statistics(cuda):
+    """The ResNet trainer's captured step writes the running statistics
+    in place, step after step, as its eager twin on the CPU does (f32,
+    TF32 off: within 1e-4 relative after three steps)."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(24, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=24)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        graph = _f32_port(build_model("resnet20_cifar10", width=8))
+        init = init_variables(graph, 0, device="cpu")
+        trainer = SPMDTrainer(graph, TrainConfig(batch_size=8, log_every=1,
+                                                 optimizer="sgd",
+                                                 learning_rate=1e-2),
+                              device=dev)
+        out[dev] = (trainer.train(x, y, init_variables=init), init, trainer)
+    (card, init, trainer), (cpu, _, _) = out["cuda"], out["cpu"]
+    assert trainer.telemetry.counter("retrace.train.step").value == 1
+    key = "ResBlock_0.ConvBN_2.BatchNorm_0.var"
+    got, want = card["stage2"][key].cpu(), cpu["stage2"][key]
+    assert not torch.equal(want, init["stage2"][key])
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -348,7 +348,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.core.integrity, mmlspark_tpu_torch.models.mlp, "
         "mmlspark_tpu_torch.ops.tree_checksum, "
         "mmlspark_tpu_torch.train.resilience, "
-        "mmlspark_tpu_torch.train.demo\n"
+        "mmlspark_tpu_torch.train.demo, mmlspark_tpu_torch.stages, "
+        "mmlspark_tpu_torch.core.serialize, mmlspark_tpu_torch.core.stage, "
+        "mmlspark_tpu_torch.core.schema, mmlspark_tpu_torch.core.params, "
+        "mmlspark_tpu_torch.core.logging_utils, "
+        "mmlspark_tpu_torch.models.resnet, mmlspark_tpu_torch.models.bilstm\n"
+        "from mmlspark_tpu_torch.models import build_model\n"
+        "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger'):\n"
+        "    build_model(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'mmlspark_tpu') or m.startswith(('jax.', 'flax.', "
@@ -374,7 +381,12 @@ def test_port_sources_name_no_jax_import():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     for name in ("train/resilience.py", "train/demo.py", "models/mlp.py",
-                 "ops/tree_checksum.py", "core/integrity.py"):
+                 "ops/tree_checksum.py", "core/integrity.py",
+                 "core/params.py", "core/schema.py", "core/stage.py",
+                 "core/serialize.py", "core/logging_utils.py",
+                 "models/resnet.py", "models/bilstm.py",
+                 "stages/dnn_model.py", "stages/dnn_learner.py",
+                 "stages/__init__.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):

@@ -70,7 +70,7 @@ def _flax_leaf(jv, name, key, tg):
     from mmlspark_tpu_torch.models.bridge import (
         _LEAVES,
         _owner_and_leaf,
-        flax_transposed,
+        flax_channel_axis,
     )
 
     mod = dict(tg.blocks)[name]
@@ -79,7 +79,7 @@ def _flax_leaf(jv, name, key, tg):
     for part in (path.split(".") if path else []) + [
             _LEAVES.get(type(owner), {}).get(leaf, leaf)]:
         node = node[part]
-    return node, flax_transposed(mod, key)
+    return node, flax_channel_axis(mod, key, 2) == 0
 
 
 def _assert_matches_jax(tg, port_q, jax_q):
