@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``mmlspark_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``csrc/``, holds each
 against its plain PyTorch version, drives the serving paths and the
-training path at the full width of the repo's serve model, and the stage
+training path at the full width of the repo's serve model, the stage
 layer (``TPUModel``, ``DNNLearner``) over ResNet-20, ResNet-50, the
-BiLSTM tagger and the flash LM, and prints the measured numbers.
+BiLSTM tagger and the flash LM, the switch-MoE LM served and trained,
+and the image path (decode, ``ImageFeaturizer`` over ResNet-50, the
+model zoo), and prints the measured numbers.
 
     python3 chip_smoke.py
 
@@ -172,7 +174,47 @@ Phases (each one fails the run with a non-zero exit on error):
    the BiLSTM tagger at its default widths (cuDNN's LSTM) over 1,024
    rows of 128 tokens against the CPU's forward. Each with its peak
    device memory and seconds;
-8. numbers: each kernel's, its plain version's and (where one exists)
+8. the switch-MoE LM (the ``moe`` line), each run a main path with the
+   counts set to 0 just before it and read just after:
+   ``transformer_lm_moe`` at the serve model's widths with 8 experts,
+   d_ff 2048 and capacity factor 1.25 (~151 M parameters, seeded random
+   weights) through the dense bf16 engine and the paged bf16
+   prefix-cache engine on the random schedule, each with its warm pass
+   and eager twin (as in phase 3). Gates: every request completes; the
+   decode kernel launched exactly ``depth`` times a micro-step; one
+   prefill program a distinct prompt length (MoE prefills at exact
+   length) under the engine's pin of ``cache_len - 1``; every stream
+   equal to the port's ``generate()`` and paged equal to dense, or first
+   differing at a near tie (margins from each stream's own cached
+   decode: a scoring forward routes through the capacity path, which may
+   drop tokens the dropless decode keeps); a small float32 MoE's scoring
+   forward and cached decode step within 1e-4 of the CPU's. Reported:
+   cold and warm tokens/s beside the eager twin's, TTFT, programs,
+   capture seconds, graph pool bytes, peak memory, and a replayed T=32
+   block under ``torch.profiler`` (busy share; device ms of the decode
+   kernels, of all matrix products and of the rest) with the MoE FFN's
+   pieces (router, expert-weight gather, expert products) timed alone
+   from CUDA graphs at the block's shapes. Then ``SPMDTrainer`` on the
+   same model with ``attn_impl="flash"``, batch 8 x 512, 8 adam steps:
+   losses finite and falling, the sown load-balance loss positive, each
+   attention kernel launched ``depth`` times a step on the tensor-core
+   route, one step program; and one float32 step of a small MoE (the
+   loss with ``moe_aux_weight``) on the card against the CPU, within
+   phase 5's tolerances;
+9. the image path (the ``image`` line): the port's native decoder's
+   build status (with the compiler's message; a missing decoder is host
+   code, printed, not a failure) and host decode images/s over the
+   committed fixtures; ``ImageFeaturizer`` over ResNet-50 at 224 cut to
+   ``pool`` on 2,048 seeded uint8 256x256 images (resized, rounded and
+   scaled on the card a batch of 256 at a time, straight into the
+   captured program) — images/s beside the model alone, the resize's
+   device ms, and 16 images' features within 1e-2 of the CPU's float32
+   forward on the same resized input; 64 images of mixed sizes through
+   the host-resize path; and ``ResNet20_Digits04`` fetched by
+   ``ModelDownloader`` from the committed ``models/zoo_repo`` through a
+   ``file://`` URI, featurizing the committed fixture images (numpy-made
+   ones where no decoder runs);
+10. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -1872,17 +1914,18 @@ def make_trainer(graph, recorder=None):
         device=DEVICE)
 
 
-def run_training(label: str, model: dict, steps: int, seed: int):
-    """One training main path: ``steps`` adam steps through
-    ``SPMDTrainer``, the counts set to 0 just before and read just after,
-    and every dense-attention call counted. Returns the summary and the
-    trained variables."""
+def run_training(label: str, model: dict, steps: int, seed: int,
+                 name: str = "transformer_lm"):
+    """One training main path: ``steps`` adam steps of model ``name``
+    through ``SPMDTrainer``, the counts set to 0 just before and read
+    just after, and every dense-attention call counted. Returns the
+    summary and the trained variables."""
     import torch
 
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.models import transformer
 
-    graph = build_model("transformer_lm", **model)
+    graph = build_model(name, **model)
     variables = init_variables(graph, seed, device=DEVICE)
     x, y = progression_rows(steps * TRAIN_BATCH, seed)
     trainer = make_trainer(graph)
@@ -1954,39 +1997,56 @@ def check_train_step_vs_cpu(seed: int = 3) -> dict:
     """One training step of the full-width float32 flash model — forward,
     loss, backward — on the card (the kernels) and on the CPU (their
     plain versions), from the same weights and the same 2 x 512 batch."""
+    from mmlspark_tpu_torch.models import init_variables
+
+    graph = f32_graph(attn_impl="flash")
+    x, y = progression_rows(2, seed)
+    return train_step_card_vs_cpu(
+        "full-width f32 train step", graph,
+        init_variables(graph, seed, device="cpu"), x, y,
+        SERVE_MODEL["depth"])
+
+
+def train_step_card_vs_cpu(label: str, graph, weights: dict, x, y,
+                           depth: int, aux_weight: float = 0.0) -> dict:
+    """One float32 training step of ``graph`` — forward, the masked loss
+    plus ``aux_weight`` times the sown losses (the trainer's
+    ``moe_aux_weight``), backward — on the card (the kernels) and on the
+    CPU (their plain versions), from the same weights and batch: the loss
+    within 1e-4 relative, every gradient within 1e-3 of its leaf's
+    largest, each attention kernel launched ``depth`` times on the
+    f32-FMA route."""
     import torch
 
-    from mmlspark_tpu_torch.models import init_variables
     from mmlspark_tpu_torch.train import masked_loss
+    from mmlspark_tpu_torch.train.trainer import sown_aux_loss
 
     import mmlspark_tpu_torch.ops.flash_attention as fa
 
-    graph = f32_graph(attn_impl="flash")
-    weights = init_variables(graph, seed, device="cpu")
-    x, y = progression_rows(2, seed)
     results = {}
-    before = {n: getattr(fa, n) for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
     for dev in ("cpu", DEVICE):
+        # the card's launches (the CPU's plain versions launch nothing)
+        before = {n: getattr(fa, n) for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
         variables = {
             b: {k: t.detach().to(dev, copy=True).requires_grad_(True)
                 for k, t in leaves.items()}
             for b, leaves in weights.items()
         }
-        mask = torch.ones(2, dtype=torch.bool, device=dev)
-        out, _ = graph.apply(variables, torch.from_numpy(x).to(dev),
-                             train=True, mask=mask)
+        mask = torch.ones(len(x), dtype=torch.bool, device=dev)
+        out, updated = graph.apply(variables, torch.from_numpy(x).to(dev),
+                                   train=True, mask=mask)
         loss = masked_loss("softmax_xent", out,
                            torch.from_numpy(y).to(dev), mask)
+        loss = loss + aux_weight * sown_aux_loss(updated)
         loss.backward()
         results[dev] = (loss.item(), {
             f"{b}.{k}": t.grad.cpu() for b, leaves in variables.items()
             for k, t in leaves.items()})
     added = {n: getattr(fa, n) - before[n] for n in before}
     # float32: every attention kernel on the f32-FMA route, none on mma
-    depth = SERVE_MODEL["depth"]
     if added != {**dict.fromkeys(ATTN_COUNTERS, depth),
                  **dict.fromkeys(ATTN_MMA_COUNTERS, 0)}:
-        raise AssertionError(f"train step card vs CPU: launches {added}")
+        raise AssertionError(f"{label} card vs CPU: launches {added}")
     (cpu_loss, cpu_grads), (loss, grads) = results["cpu"], results[DEVICE]
     loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
     grad_rel = {}
@@ -1995,14 +2055,14 @@ def check_train_step_vs_cpu(seed: int = 3) -> dict:
         scale = want.abs().max().item()
         grad_rel[name] = err / scale if scale else err
         if not err <= 1e-3 * scale:
-            raise AssertionError(f"train step card vs CPU: {name} grads "
+            raise AssertionError(f"{label} card vs CPU: {name} grads "
                                  f"differ by {err} (leaf max {scale})")
     worst = max(grad_rel, key=grad_rel.get)
-    log(f"full-width f32 train step, card vs CPU: loss {loss} vs "
-        f"{cpu_loss} (rel {loss_rel:.3g}), worst grad {worst} "
-        f"{grad_rel[worst]:.3g} of its leaf's max")
+    log(f"{label}, card vs CPU: loss {loss} vs {cpu_loss} (rel "
+        f"{loss_rel:.3g}), worst grad {worst} {grad_rel[worst]:.3g} of its "
+        "leaf's max")
     if not np.isfinite(loss) or not loss_rel <= 1e-4:
-        raise AssertionError(f"train step loss {loss} vs CPU {cpu_loss}")
+        raise AssertionError(f"{label} loss {loss} vs CPU {cpu_loss}")
     return {"loss": loss, "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
             "worst_grad": worst, "worst_grad_rel_err": grad_rel[worst]}
 
@@ -2544,10 +2604,13 @@ def profile_train_step(trained: dict) -> dict:
                     "retrace.train.step").value)
 
 
-def profile_decode_block(graph, variables) -> dict:
+def profile_decode_block(graph, variables, kinds=None) -> dict:
     """Where one steady decode block's time goes: all 8 slots live, one
     T=32 block under ``torch.profiler``; the kernels' device time against
-    the block's wall time gives the device's busy and idle shares."""
+    the block's wall time gives the device's busy and idle shares.
+    ``kinds`` ({kind: name substrings}) also sums the device ms of the
+    kernels whose names hold each kind's substrings (``other``: the
+    rest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2564,10 +2627,21 @@ def profile_decode_block(graph, variables) -> dict:
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return dict(device_profile(prof, wall_ms), block=DECODE_BLOCK,
-                slots_live=SLOTS,
-                decode_compile_count=engine.decode_compile_count,
-                replayed=engine.decode_compile_count == 1)
+    out = dict(device_profile(prof, wall_ms), block=DECODE_BLOCK,
+               slots_live=SLOTS,
+               decode_compile_count=engine.decode_compile_count,
+               replayed=engine.decode_compile_count == 1)
+    if kinds:
+        by_kind = dict.fromkeys([*kinds, "other"], 0.0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    e.key.startswith("ProfilerStep"):
+                continue
+            kind = next((k for k, keys in kinds.items()
+                         if any(key in e.key for key in keys)), "other")
+            by_kind[kind] += e.self_device_time_total / 1e3
+        out["device_ms_by_kind"] = by_kind
+    return out
 
 
 # -- timing ----------------------------------------------------------------------
@@ -3623,6 +3697,550 @@ def check_dnn_stages() -> dict:
     return out
 
 
+# -- the switch-MoE LM (ROADMAP.md Queue 1 item 18) ------------------------------
+
+#: the MoE LM at full width: the serve model's widths, the family's
+#: default experts and capacity factor, d_ff = 4 x d_model (~151 M
+#: parameters, 0.30 GB in bf16)
+MOE_MODEL = dict(SERVE_MODEL, n_experts=8, d_ff=2048, capacity_factor=1.25)
+#: the card-vs-CPU float32 checks: a small MoE with head dim 64
+SMALL_MOE = dict(vocab_size=512, d_model=128, heads=2, depth=2, n_experts=4,
+                 max_len=128)
+#: f32 logits of the small MoE, card vs CPU: the same f32 arithmetic
+#: summed in other orders through two layers
+MOE_F32_TOL = 1e-4
+#: the trainer's default weight on the sown load-balance loss
+MOE_AUX_WEIGHT = 1e-2
+#: the kernels of a MoE decode block, by name, for its profile
+MOE_KINDS = {
+    "attention": ("decode_partial_kernel", "decode_combine_kernel"),
+    "matmul": ("gemm", "nvjet", "cutlass", "sm90_", "sm80_", "xmma"),
+}
+
+
+def moe_graph(f32: bool = False, **kw):
+    import torch
+
+    from mmlspark_tpu_torch.models import build_model
+
+    graph = build_model("transformer_lm_moe", **kw)
+    if f32:
+        for _, mod in graph.blocks:
+            for m in mod.modules():
+                if hasattr(m, "dtype"):
+                    m.dtype = torch.float32
+    return graph
+
+
+def moe_forced_logits(graph, variables, tokens, prompt_len: int):
+    """The logits each generated token of a MoE stream was picked from,
+    recomputed the way the stream was made: the prompt prefilled at once
+    (capacity routing), then the stream's own tokens fed back one decode
+    step at a time (dropless routing). Row i predicts token
+    ``prompt_len + i``; f32."""
+    import torch
+
+    from mmlspark_tpu_torch.models.generate import _cached_apply, init_cache
+
+    toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(DEVICE)
+    p, n = prompt_len, len(tokens)
+    cache = init_cache(graph, variables, 1, n)
+    logits, cache = _cached_apply(graph, variables, toks[None, :p], cache, 0)
+    rows = [logits[0, -1].float()]
+    for pos in range(p, n - 1):
+        logits, cache = _cached_apply(graph, variables,
+                                      toks[None, pos:pos + 1], cache, pos,
+                                      step=True)
+        rows.append(logits[0, 0].float())
+    return torch.stack(rows)
+
+
+def check_moe_streams(graph, variables, label: str, got: dict, want: dict,
+                      prompt_lens: dict) -> dict:
+    """Each MoE stream of ``got`` against its twin in ``want`` (token
+    arrays by request): equal, or first differing at a near tie — the
+    twin's top-2 margin below BF16_LOGIT_TOL — with every token the
+    differing stream emitted within BF16_LOGIT_TOL of its step's best
+    logit. ``check_near_ties`` for MoE: the margins come from each
+    stream's own cached decode (``moe_forced_logits``), since a full
+    scoring forward routes every token through the capacity path, which
+    may drop tokens the dropless decode keeps."""
+    import torch
+
+    diverged, worst = [], 0.0
+    for rid in sorted(want):
+        g, w = np.asarray(got[rid]), np.asarray(want[rid])
+        if g.shape == w.shape and np.array_equal(g, w):
+            continue
+        p = prompt_lens[rid]
+        n = min(len(g), len(w))
+        first = int(np.argmax(g[:n] != w[:n])) if \
+            (g[:n] != w[:n]).any() else n
+        top2 = moe_forced_logits(graph, variables, w, p)[first - p] \
+            .sort().values[-2:] if first >= p else None
+        margin = float(top2[1] - top2[0]) if top2 is not None else None
+        if first < p or not margin < BF16_LOGIT_TOL:
+            raise AssertionError(
+                f"{label} request {rid}: differs from its twin at token "
+                f"{first} (prompt {p}), top-2 margin {margin}")
+        steps = moe_forced_logits(graph, variables, g, p)
+        picked = steps.gather(1, torch.from_numpy(
+            g[p:].astype(np.int64))[:, None].to(DEVICE))[:, 0]
+        gap = float((steps.max(dim=1).values - picked).max())
+        worst = max(worst, gap)
+        if gap > BF16_LOGIT_TOL:
+            raise AssertionError(f"{label} request {rid}: an emitted token "
+                                 f"is {gap} below its step's best")
+        diverged.append({"request": int(rid), "token": first,
+                         "margin": margin})
+    log(f"{label}: streams equal their twin's or first differ at a near "
+        f"tie: {diverged}; largest emitted-token gap {worst:.4g}")
+    return {"diverged": diverged, "max_emitted_gap": worst}
+
+
+def moe_ffn_pieces_ms(variables) -> dict:
+    """Device ms of one decode micro-step's MoE FFN pieces in one layer at
+    the engine's shapes (8 tokens, bf16 expert weights as the engine
+    keeps them), each replayed from one CUDA graph over every layer's
+    weights in turn (so each call reads its own, cold): the router
+    (softmax, argmax, the chosen probability), the gather of each token's
+    expert weights, and the expert products (two batched products, bias
+    and gelu)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.parallel.expert import router_probs
+
+    gen = torch.Generator().manual_seed(25)
+    x = torch.randn((SLOTS, MOE_MODEL["d_model"]), generator=gen).to(
+        DEVICE, torch.bfloat16)
+    layers = [(v["moe.gate"], *(v[f"moe.experts.{k}"].to(torch.bfloat16)
+                                for k in ("w_in", "b_in", "w_out",
+                                          "b_out")))
+              for name, v in variables.items() if "moe.gate" in v]
+    expert = router_probs(x, layers[0][0]).argmax(-1)
+    gathered = [(x, w_in[expert], b_in[expert], w_out[expert],
+                 b_out[expert]) for _, w_in, b_in, w_out, b_out in layers]
+
+    def router(x, gate):
+        probs = router_probs(x, gate)
+        e = probs.argmax(-1)
+        return probs.gather(-1, e[:, None])
+
+    def gather(w_in, b_in, w_out, b_out):
+        return w_in[expert], b_in[expert], w_out[expert], b_out[expert]
+
+    def products(x, w_in, b_in, w_out, b_out):
+        h = F.gelu(torch.einsum("nd,ndf->nf", x, w_in) + b_in,
+                   approximate="tanh")
+        return torch.einsum("nf,nfd->nd", h, w_out) + b_out
+
+    return {
+        "router_ms": graph_ms(router, [(x, g) for g, *_ in layers]),
+        "weight_gather_ms": graph_ms(gather, [tuple(w) for _, *w in layers]),
+        "expert_products_ms": graph_ms(products, gathered),
+    }
+
+
+def check_moe_vs_cpu(seed: int = 22) -> dict:
+    """The small MoE in float32 on the card against the CPU on identical
+    weights: the scoring forward (capacity routing, the flash forward
+    kernel), and a prefill then one decode step (dropless routing, the
+    ``flash_decode`` kernel) over float32 caches: logits within
+    MOE_F32_TOL."""
+    import torch
+
+    from mmlspark_tpu_torch.models import init_variables
+    from mmlspark_tpu_torch.models.generate import _cached_apply
+
+    graph = moe_graph(f32=True, attn_impl="flash", **SMALL_MOE)
+    n = SMALL_MOE["max_len"] // 2
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, SMALL_MOE["vocab_size"], size=(2, n)).astype(np.int32))
+    d = SMALL_MOE["d_model"] // SMALL_MOE["heads"]
+    out = {}
+    for dev in ("cpu", DEVICE):
+        variables = init_variables(graph, seed, device=dev)
+        x = ids.to(dev)
+        full = graph.apply(variables, x)
+        cache = {f"block{i}": tuple(
+            torch.zeros((2, n, SMALL_MOE["heads"], d), device=dev)
+            for _ in range(2)) for i in range(SMALL_MOE["depth"])}
+        _, cache = _cached_apply(graph, variables, x[:, :n - 1], cache, 0)
+        step, _ = _cached_apply(
+            graph, variables, x[:, n - 1:], cache,
+            torch.full((2,), n - 1, dtype=torch.int32, device=dev),
+            step=True)
+        out[dev] = (full.cpu(), step.cpu())
+    errs = {}
+    for i, name in enumerate(("forward", "decode_step")):
+        got, want = out[DEVICE][i], out["cpu"][i]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"small f32 MoE {name}: non-finite logits")
+        errs[name] = (got - want).abs().max().item()
+    log(f"small f32 MoE, card vs CPU: max abs errs {errs}")
+    if not max(errs.values()) <= MOE_F32_TOL:
+        raise AssertionError(f"small f32 MoE card vs CPU: {errs}")
+    return errs
+
+
+def check_moe() -> dict:
+    """The ``moe`` line: the switch-MoE LM at full width served by the
+    dense and the paged prefix-cache bf16 engines on the random schedule
+    (each a main path with its warm pass and eager twin, through
+    ``graphed_run``), every stream against the port's ``generate()`` and
+    dense against paged; one replayed T=32 block profiled; the small f32
+    MoE's logits card vs CPU; then ``SPMDTrainer`` on the same model with
+    the flash kernels, its aux loss, and one f32 step of the small MoE
+    card vs CPU."""
+    import torch
+
+    from mmlspark_tpu_torch.models import generate, init_variables
+    from mmlspark_tpu_torch.train.trainer import sown_aux_loss
+
+    graph = moe_graph(**MOE_MODEL)
+    variables = init_variables(graph, 21, device=DEVICE)
+    prompts = random_schedule()
+    lengths = {len(p) for p in prompts}
+    depth = MOE_MODEL["depth"]
+    out = {"model": MOE_MODEL,
+           "parameters": graph.param_count(variables),
+           "distinct_prompt_lengths": len(lengths)}
+    runs = {}
+    for label, kw, counter in (
+        ("moe dense bf16", {}, "launches"),
+        ("moe paged bf16", dict(paged=True, page_size=PAGE_SIZE,
+                                num_pages=paged_num_pages(),
+                                prefix_cache=True), "paged_launches"),
+    ):
+        run, engine = graphed_run(label, graph, variables, prompts, counter,
+                                  **kw)
+        del engine
+        gc.collect()
+        pr = run["programs"]
+        want = depth * run["micro_steps"]
+        if run["counts"][counter] != want:
+            raise AssertionError(f"{label}: {counter} = "
+                                 f"{run['counts'][counter]}, wanted {want}")
+        # exact-length prefill: one program a distinct prompt length
+        if pr["prefill_compile_count"] != len(lengths) or \
+                pr["num_prefill_buckets"] != CACHE_LEN - 1:
+            raise AssertionError(f"{label}: prefill programs {pr}, "
+                                 f"{len(lengths)} distinct prompt lengths")
+        runs[label] = run
+    prompt_lens = {rid: len(p) for rid, p in enumerate(prompts)}
+    gen = {rid: generate(graph, variables, p[None], MAX_NEW,
+                         device=DEVICE)[0].cpu().numpy()
+           for rid, p in enumerate(prompts)}
+    tokens = {label: {rid: r.tokens for rid, r in run["results"].items()}
+              for label, run in runs.items()}
+    for label, run in runs.items():
+        run["vs_generate"] = check_moe_streams(
+            graph, variables, f"{label} vs generate()", tokens[label], gen,
+            prompt_lens)
+        out[label] = dict(engine_summary(run), vs_generate=run["vs_generate"])
+    out["paged_vs_dense"] = check_moe_streams(
+        graph, variables, "moe paged vs dense", tokens["moe paged bf16"],
+        tokens["moe dense bf16"], prompt_lens)
+    del runs, tokens
+    gc.collect()
+    profile = profile_decode_block(graph, variables, MOE_KINDS)
+    pieces = moe_ffn_pieces_ms(variables)
+    steps = depth * DECODE_BLOCK
+    profile["moe_ffn_pieces_ms_per_block"] = {
+        k: v * steps for k, v in pieces.items()}
+    profile["moe_ffn_pieces_ms_per_layer_step"] = pieces
+    out["profile"] = profile
+    out["small_f32_card_vs_cpu_max_abs_err"] = check_moe_vs_cpu()
+    del graph, variables
+    gc.collect()
+
+    model = dict(MOE_MODEL, attn_impl="flash")
+    training, trained = run_training("moe full width", model,
+                                     TRAIN_STEPS, seed=23,
+                                     name="transformer_lm_moe")
+    x, _ = progression_rows(TRAIN_BATCH, 24)
+    with torch.no_grad():
+        _, updated = moe_graph(**model).apply(
+            trained, torch.from_numpy(x).to(DEVICE), train=True)
+    aux = float(sown_aux_loss(updated))
+    if not (np.isfinite(aux) and aux > 0):
+        raise AssertionError(f"moe training: aux loss {aux}")
+    training["aux_loss_after"] = aux
+    del trained, updated
+    gc.collect()
+    small = moe_graph(f32=True, attn_impl="flash", **SMALL_MOE)
+    sx = np.random.default_rng(26).integers(
+        0, SMALL_MOE["vocab_size"], size=(2, SMALL_MOE["max_len"])).astype(
+        np.int32)
+    training["train_step_f32_small_card_vs_cpu"] = train_step_card_vs_cpu(
+        "small f32 MoE train step", small,
+        init_variables(small, 27, device="cpu"), sx, np.roll(sx, -1, 1),
+        SMALL_MOE["depth"], aux_weight=MOE_AUX_WEIGHT)
+    out["training"] = training
+    log(f"moe: {out}")
+    return out
+
+
+# -- the image path (ROADMAP.md Queue 1 item 17) ----------------------------------
+
+#: ImageFeaturizer over ResNet-50 at 224 (the dnn_stages configuration),
+#: cut one layer (``pool``, 2048-d), on seeded uint8 256x256 images
+#: resized on the card
+FEAT_IMAGES, FEAT_SIZE, FEAT_BATCH = 2048, 256, 256
+#: the featurized net's config (the resize target is its input size)
+FEAT_CONFIG: dict = {}
+#: features of FEAT_CHECKED images against the CPU's float32 forward on
+#: the same resized input: bf16 convolutions round each output (the
+#: logits sit ~0.5% off, dnn_stages), so allow 1% of the largest
+FEAT_CHECKED, FEAT_REL_TOL = 16, 1e-2
+#: the ragged host path: images of mixed sizes
+RAGGED_IMAGES, RAGGED_SIZES = 64, (160, 320)
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures", "images")
+ZOO_REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "models", "zoo_repo")
+
+
+def uint8_images(n: int, size, seed: int) -> np.ndarray:
+    """n seeded uint8 HWC images of ``size`` (h, w), made in bulk."""
+    return np.random.default_rng(seed).integers(
+        0, 256, size=(n, *size, 3), dtype=np.uint8)
+
+
+def check_decoder() -> dict:
+    """The port's native decoder: built or not (with the compiler's
+    message), which decoder runs, and host decode images/s over the
+    committed fixtures. A missing decoder is host code: printed, not a
+    failure."""
+    from mmlspark_tpu_torch.ops import decode, native_build
+
+    native = native_build.load_native("decode") is not None
+    out = {"native_built": native,
+           "native_build_error": native_build.build_error("decode"),
+           "pil_available": decode._pil_image() is not None}
+    files = [os.path.join(FIXTURES, f) for f in sorted(os.listdir(FIXTURES))]
+    blobs = [open(f, "rb").read() for f in files]
+    if native or out["pil_available"]:
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for b in blobs:
+                decode.decode_image(b)
+        out["host_decode_images_per_sec"] = \
+            reps * len(blobs) / (time.perf_counter() - t0)
+    else:
+        out["host_decode_images_per_sec"] = None
+    out["ctf"] = check_ctf()
+    log(f"image decoder: {out}")
+    return out
+
+
+def check_ctf() -> dict:
+    """The port's native CTF parser: built or not, and a seeded dataset
+    written and read back (natively where it built) equal."""
+    import tempfile
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.data.ctf import read_ctf, write_ctf
+    from mmlspark_tpu_torch.ops import native_build
+
+    rng = np.random.default_rng(33)
+    feats = rng.normal(size=(512, 32))
+    feats[rng.random(feats.shape) < 0.6] = 0.0
+    ds = Dataset({"label": rng.integers(0, 5, 512).astype(np.float64),
+                  "features": feats})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.ctf")
+        write_ctf(ds, path)
+        back = read_ctf(path, feature_dim=32)
+    equal = bool(np.array_equal(back["features"], feats)
+                 and np.array_equal(back["label"], ds["label"]))
+    if not equal:
+        raise AssertionError("CTF round trip differs")
+    return {"native_built": native_build.load_native("ctf") is not None,
+            "native_build_error": native_build.build_error("ctf"),
+            "round_trip_equal": equal}
+
+
+def check_featurizer() -> dict:
+    """ImageFeaturizer over ResNet-50 at 224 on FEAT_IMAGES seeded uint8
+    images of 256x256 (resized, rounded and scaled on the card, a batch
+    at a time, straight into the captured programs), as a main path:
+    images/s beside the model alone, the resize's own device ms, and the
+    features of FEAT_CHECKED images against the CPU's float32 forward on
+    the same resized input."""
+    import torch
+
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.stages import ImageFeaturizer, TPUModel
+    from mmlspark_tpu_torch.stages.image import resize_scale
+
+    graph = build_model("resnet50", **FEAT_CONFIG)
+    size = graph.input_shape[0]
+    weights = init_variables(graph, 8, device=DEVICE)
+    images = uint8_images(FEAT_IMAGES, (FEAT_SIZE, FEAT_SIZE), seed=30)
+    ds = Dataset({"image": images})
+    model = TPUModel(model_name="resnet50", model_config=FEAT_CONFIG,
+                     input_col="image", batch_size=FEAT_BATCH,
+                     device=DEVICE).set(weights=weights)
+    feat = ImageFeaturizer(model=model, cut_output_layers=1,
+                           batch_size=FEAT_BATCH, scale=1 / 255)
+    cold = timed_path(lambda: feat.transform(ds)["features"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, wall_ms, counts = timed_path(lambda: feat.transform(ds)["features"])
+    peak = torch.cuda.max_memory_allocated()
+    scorer = feat._scorer
+    chunk = torch.from_numpy(images[:FEAT_BATCH]).to(DEVICE)
+    x = resize_scale(chunk, size, size, 1 / 255)
+    model_ms = replay_ms(scorer, x)
+    # the resize alone, over four device-resident chunks in turn
+    chunks = [(torch.from_numpy(images[i:i + FEAT_BATCH]).to(DEVICE),)
+              for i in range(0, 4 * FEAT_BATCH, FEAT_BATCH)]
+    resize_t = time_ms(lambda c: resize_scale(c, size, size, 1 / 255),
+                       chunks, reps=20)
+    # the same resized input through the CPU's float32 forward; and the
+    # CPU's own resize against the card's
+    n = FEAT_CHECKED
+    resized = x[:n].cpu()
+    want = cpu_forward("resnet50", FEAT_CONFIG, weights, resized.numpy(),
+                       output_node="pool")
+    err = rel_err(got[:n], want)
+    cpu_resized = resize_scale(torch.from_numpy(images[:n]), size, size,
+                               1 / 255)
+    level = ((cpu_resized - resized).abs() * 255).round()
+    if got.shape != (FEAT_IMAGES, 2048) or not np.isfinite(got).all() or \
+            err > FEAT_REL_TOL or scorer.program_count != 1:
+        raise AssertionError(f"featurizer: {got.shape}, vs CPU f32 {err}, "
+                             f"{scorer.program_count} programs")
+    out = {
+        "model": {"name": "resnet50", "input_size": size,
+                  "output": "pool"},
+        "images": FEAT_IMAGES, "source_size": FEAT_SIZE,
+        "batch": FEAT_BATCH,
+        "images_per_sec": FEAT_IMAGES / (wall_ms / 1e3),
+        "wall_s": wall_ms / 1e3, "cold_wall_s": cold[1] / 1e3,
+        "model_only_ms_per_batch": model_ms,
+        "model_only_images_per_sec": FEAT_BATCH / (model_ms / 1e3),
+        "resize_device_ms_per_batch": resize_t.ms,
+        "resize_call_ms_per_batch": resize_t.call_ms,
+        "resize_device_timer_covered": resize_t.covered,
+        "host_uint8_bytes": int(images.nbytes),
+        "peak_memory_bytes": peak, "programs": scorer.program_count,
+        "capture_s": scorer.capture_seconds,
+        "features_vs_cpu_f32_rel_err": err,
+        "card_vs_cpu_resize_max_levels": float(level.max()),
+        "card_vs_cpu_resize_differing_share": float((level > 0).float()
+                                                     .mean()),
+        "launch_counts_nonzero": {k: v for k, v in counts.items() if v},
+    }
+    log(f"featurizer: {out}")
+    return out
+
+
+def check_ragged_featurizer() -> dict:
+    """RAGGED_IMAGES images of mixed sizes through ImageFeaturizer's host
+    path (each resized on the host, then scored on the card), against the
+    same host-resized images through the model's own stage."""
+    from mmlspark_tpu_torch.core.schema import ImageRow
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.ops import image_ops
+    from mmlspark_tpu_torch.stages import ImageFeaturizer, TPUModel
+
+    rng = np.random.default_rng(31)
+    rows = [ImageRow(path=str(i), data=uint8_images(
+        1, tuple(int(v) for v in rng.integers(*RAGGED_SIZES, size=2)),
+        seed=100 + i)[0]) for i in range(RAGGED_IMAGES)]
+    graph = build_model("resnet50", **FEAT_CONFIG)
+    size = graph.input_shape[0]
+    weights = init_variables(graph, 8, device=DEVICE)
+    model = TPUModel(model_name="resnet50", model_config=FEAT_CONFIG,
+                     input_col="image", batch_size=32, device=DEVICE).set(
+        weights=weights)
+    feat = ImageFeaturizer(model=model, cut_output_layers=1, batch_size=32,
+                           scale=1 / 255)
+    got, wall_ms, _ = timed_path(
+        lambda: feat.transform(Dataset({"image": rows}))["features"])
+    x = np.stack([image_ops.resize(r.data, size, size)
+                  for r in rows]).astype(np.float32) / 255
+    want = model.copy(output_node="pool").set(weights=weights).transform(
+        Dataset({"image": x}))["scores"]
+    err = rel_err(got, want)
+    if got.shape != (RAGGED_IMAGES, 2048) or err > 1e-3:
+        raise AssertionError(f"ragged featurizer: {got.shape}, against the "
+                             f"stage on host-resized images {err}")
+    out = {"images": RAGGED_IMAGES, "sizes": list(RAGGED_SIZES),
+           "images_per_sec": RAGGED_IMAGES / (wall_ms / 1e3),
+           "wall_s": wall_ms / 1e3, "vs_host_resized_stage_rel_err": err}
+    log(f"ragged featurizer: {out}")
+    return out
+
+
+def check_zoo_featurizer(decoder: dict) -> dict:
+    """``ResNet20_Digits04`` fetched by ``ModelDownloader`` from the
+    committed repo through a ``file://`` URI (sha256-verified), loaded as
+    the port's TPUModel, featurizing the committed fixture images where a
+    decoder runs here (numpy-made ones where none does), the ``pool``
+    features against the CPU's float32 forward."""
+    import tempfile
+
+    from mmlspark_tpu_torch.core.stage import PipelineStage
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.data.readers import read_images
+    from mmlspark_tpu_torch.models.zoo import ModelDownloader
+    from mmlspark_tpu_torch.stages import ImageFeaturizer, TPUModel
+
+    with tempfile.TemporaryDirectory() as local:
+        dl = ModelDownloader(local, remote=f"file://{ZOO_REPO}")
+        schema = dl.download_by_name("ResNet20_Digits04")
+        stage = PipelineStage.load(dl.local_path(schema))
+    if not isinstance(stage, TPUModel):
+        raise AssertionError(f"zoo payload loaded as {type(stage)}")
+    stage.set(device=DEVICE)
+    if decoder["native_built"] or decoder["pil_available"]:
+        ds = read_images(FIXTURES)
+        source = "committed fixtures"
+        images = np.stack([r.data for r in ds["image"]])
+    else:
+        images = uint8_images(24, (32, 32), seed=32)
+        ds = Dataset({"image": images})
+        source = "numpy-made (no decoder here)"
+    feat = ImageFeaturizer(model=stage, cut_output_layers=1, batch_size=8,
+                           scale=1 / 255)
+    got, wall_ms, _ = timed_path(lambda: feat.transform(ds)["features"])
+    want = cpu_forward(stage.model_name, stage.model_config,
+                       feat._scorer._dev_weights,
+                       images.astype(np.float32) / 255, output_node="pool")
+    err = rel_err(got, want)
+    if got.shape != (len(images), 64) or err > STAGE_LOGIT_TOL:
+        raise AssertionError(f"zoo featurizer: {got.shape}, vs CPU f32 "
+                             f"{err}")
+    out = {"model": schema.name, "sha256": schema.hash, "images": source,
+           "n": len(images), "wall_ms": wall_ms,
+           "features_vs_cpu_f32_rel_err": err}
+    log(f"zoo featurizer: {out}")
+    return out
+
+
+def check_image() -> dict:
+    """The ``image`` line: the decoder's build status and host rate, the
+    ResNet-50 featurizer on the card, the ragged host path, and the zoo
+    backbone on the fixtures."""
+    out = {"decoder": check_decoder()}
+    for label, fn in (("featurizer_resnet50", check_featurizer),
+                      ("ragged", check_ragged_featurizer),
+                      ("zoo_resnet20_digits04",
+                       lambda: check_zoo_featurizer(out["decoder"]))):
+        t0 = time.perf_counter()
+        out[label] = fn()
+        out[label]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+    return out
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -3699,17 +4317,32 @@ def main() -> int:
     t0 = time.perf_counter()
     dnn_stages = check_dnn_stages()
     log(f"dnn_stages phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe = check_moe()
+    log(f"moe phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    image = check_image()
+    log(f"image phase took {time.perf_counter() - t0:.1f}s")
 
+    # each kernel's launches on the main paths: the first slices' runs
+    # plus the MoE engines' (decode) and the MoE training run's
+    # (attention)
+    moe_counts = {label: moe[label]["launch_counts"]
+                  for label in ("moe dense bf16", "moe paged bf16")}
     launches = {
-        "launches": dense["counts"]["launches"],
+        "launches": dense["counts"]["launches"]
+        + moe_counts["moe dense bf16"]["launches"],
         "q8_launches": header["header dense int8"]["counts"]["q8_launches"],
         "paged_launches":
-            header["header paged bf16"]["counts"]["paged_launches"],
+            header["header paged bf16"]["counts"]["paged_launches"]
+            + moe_counts["moe paged bf16"]["paged_launches"],
         "paged_q8_launches":
             header["header paged int8"]["counts"]["paged_q8_launches"],
     }
+    moe_train = moe["training"]["launch_counts"]
     attn_rows, attn_backward = measure_attention_kernels(
-        attn_errors, training["launch_counts"])
+        attn_errors, {k: v + moe_train[k]
+                      for k, v in training["launch_counts"].items()})
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
             optim_equal, training["launch_counts"]["fused_optim_launches"]),
@@ -3745,6 +4378,8 @@ def main() -> int:
     print(json.dumps({"resilience": resilience}))
     print(json.dumps({"train_resilience": train_resilience}, default=str))
     print(json.dumps({"dnn_stages": dnn_stages}))
+    print(json.dumps({"moe": moe}))
+    print(json.dumps({"image": image}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

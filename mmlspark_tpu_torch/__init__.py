@@ -21,7 +21,11 @@ counted as the JAX package counts its compiled programs
 ``PipelineStage``, ``Pipeline``, stage serialization on the JAX package's
 format, the full ``Dataset`` — carries ``TPUModel`` and ``DNNLearner``
 over ResNet-20, ResNet-50, the BiLSTM tagger, the MLP family and the
-transformer LM; the convolutions and the LSTM are cuDNN's.
+transformer LM; the convolutions and the LSTM are cuDNN's. The
+switch-MoE LM (``transformer_lm_moe``, ``parallel/expert.py``) is served
+and trained on the same paths, and the image pipeline — the native
+decoder, the readers, ``ImageTransformer``/``ImageFeaturizer`` and the
+model zoo — feeds ``TPUModel``, resizing on the card.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

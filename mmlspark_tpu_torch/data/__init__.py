@@ -1,4 +1,6 @@
-"""Data: the columnar ``Dataset`` and the fixed-shape batch feed."""
+"""Data: the columnar ``Dataset``, the fixed-shape batch feed, the file
+readers (``readers``: binary files, images, CSV/parquet), CTF read/write
+(``ctf``) and the offline sample digits (``sample_data``)."""
 
 from mmlspark_tpu_torch.data.dataset import Dataset
 from mmlspark_tpu_torch.data.feed import (

@@ -1,6 +1,7 @@
-"""Models: named-block graphs, the registry, the transformer LM, the MLP
-and linear family, the ResNets, the BiLSTM tagger, the weight bridge from
-flax, and generation (greedy, sampled, beam search)."""
+"""Models: named-block graphs, the registry, the transformer LM and its
+switch-MoE twin, the MLP and linear family, the ResNets, the BiLSTM
+tagger, the weight bridge from flax, and generation (greedy, sampled,
+beam search)."""
 
 from mmlspark_tpu_torch.models.bilstm import bilstm_tagger
 from mmlspark_tpu_torch.models.bridge import (
@@ -10,6 +11,7 @@ from mmlspark_tpu_torch.models.bridge import (
 from mmlspark_tpu_torch.models.generate import beam_search, generate
 from mmlspark_tpu_torch.models.graph import FINAL_NODE, NamedGraph
 from mmlspark_tpu_torch.models.mlp import linear, mlp
+from mmlspark_tpu_torch.models.moe import transformer_lm_moe
 from mmlspark_tpu_torch.models.registry import (
     build_model,
     register_model,
@@ -34,4 +36,5 @@ __all__ = [
     "resnet20_cifar10",
     "resnet50",
     "transformer_lm",
+    "transformer_lm_moe",
 ]

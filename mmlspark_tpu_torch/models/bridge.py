@@ -33,6 +33,15 @@ else from ``params``), and the BiLSTM tagger (``models/bilstm.py``)::
     bilstm/params/OptimizedLSTMCell_0/h{i,f,g,o}/bias   -> "bias_hh"
     bilstm/params/OptimizedLSTMCell_1/...  -> the same names + "_reverse"
 
+and the switch-MoE LM (``models/moe.py``), whose MoE leaves keep flax's
+layout (untransposed; ``ln1``, ``ln2`` and ``attn`` as in
+``transformer_lm``)::
+
+    block{i}/params/moe/gate                -> block{i}["moe.gate"] (D, E)
+    block{i}/params/moe/experts/w_in        -> "moe.experts.w_in"  (E, D, F)
+    block{i}/params/moe/experts/{b_in,w_out,b_out}
+                                            -> "moe.experts.{...}"
+
 A flax Dense ``kernel`` is (in, out); the port's weight is (out, in), so
 it is transposed on the way in, and a flax Conv ``kernel`` (kh, kw, in,
 out) becomes the port's (out, in, kh, kw). Weight-quantized flax
@@ -54,6 +63,7 @@ from torch import nn
 from mmlspark_tpu_torch.core.env import default_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.models.bilstm import DIRECTIONS, GATES, BiLSTM
+from mmlspark_tpu_torch.models.moe import ExpertParams, MoEFFN
 from mmlspark_tpu_torch.models.resnet import BatchNorm, Conv
 from mmlspark_tpu_torch.models.transformer import Dense
 from mmlspark_tpu_torch.ops.quantize import _Q8, _SCALE
@@ -219,7 +229,9 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
     """The port's own seeded initialisation, drawn on the CPU from a
     ``torch.Generator`` (so a seed gives the same weights on every
     device) and moved to ``device``: Dense, Conv and LSTM weights and
-    embeddings ``N(0, 1/fan_in)``, learned positions ``N(0, 0.02^2)``,
+    embeddings ``N(0, 1/fan_in)``, the MoE router and expert weights
+    ``N(0, 1/fan_in)`` over their second-last axis (biases 0), learned
+    positions ``N(0, 0.02^2)``,
     LayerNorm and BatchNorm scales 1, biases 0, BatchNorm running means 0
     and variances 1 (flax's starting statistics)."""
     dev = default_device(device)
@@ -237,8 +249,11 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
             if isinstance(owner, (nn.LayerNorm, BatchNorm)) and \
                     leaf in ("weight", "var"):
                 t = torch.ones(shape)
-            elif leaf.startswith("bias") or leaf == "mean":
+            elif leaf.startswith("bias") or leaf in ("mean", "b_in",
+                                                     "b_out"):
                 t = torch.zeros(shape)
+            elif isinstance(owner, (MoEFFN, ExpertParams)):
+                t = torch.randn(shape, generator=gen) * shape[-2] ** -0.5
             elif isinstance(owner, (Dense, nn.Embedding, Conv, BiLSTM)):
                 fan_in = int(np.prod(shape[1:]))
                 t = torch.randn(shape, generator=gen) * fan_in ** -0.5

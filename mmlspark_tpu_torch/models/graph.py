@@ -24,7 +24,12 @@ latter, which the trainer carries beside the parameters and does not
 differentiate. In train mode a block that keeps statistics computes new
 ones and leaves them in its ``new_stats`` attribute; ``apply`` collects
 them into the variables it returns, as the JAX package's ``apply``
-returns flax's mutated ``batch_stats``.
+returns flax's mutated ``batch_stats``. A block that sows auxiliary
+losses (the MoE router's load-balance loss, ``models/moe.py``) leaves
+them in its ``new_losses`` attribute in train mode; ``apply`` returns
+them under ``updated[block]["losses"]`` (flax's sown ``losses``
+collection, keyed by the sowing submodule's path), never carries them
+into the next call and never binds them.
 
 ``apply(output_node=...)`` runs the prefix ending at that block, and
 :meth:`NamedGraph.cut` makes a graph of that prefix (the reference's
@@ -47,6 +52,9 @@ from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
 #: conventional name of the final (logits) node
 FINAL_NODE = "z"
+#: the key of a block's sown per-call losses in the variables ``apply``
+#: returns in train mode
+LOSSES = "losses"
 
 
 @dataclass(eq=False)
@@ -85,13 +93,18 @@ class NamedGraph:
         return frozenset(k for k, _ in mod.named_buffers())
 
     def _block_variables(self, variables: dict, block_name: str) -> dict:
+        """Block ``block_name``'s variables, without the losses a
+        train-mode call sowed (per-call values, not state)."""
         try:
-            return variables[block_name]
+            block = variables[block_name]
         except KeyError as e:
             raise FriendlyError(
                 f"variables lack block '{block_name}' of graph "
                 f"'{self.name}'; have {sorted(variables)}"
             ) from e
+        if LOSSES in block:
+            block = {k: v for k, v in block.items() if k != LOSSES}
+        return block
 
     def size_input(self, example_shape) -> None:
         """Size the blocks that learn their input width from the first
@@ -166,9 +179,12 @@ class NamedGraph:
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = _call_block(mod, params, x, kwargs)
-            stats = _take_new_stats(mod)
-            if stats:
+            stats = _take_new(mod, "new_stats")
+            losses = _take_new(mod, "new_losses")
+            if stats or losses:
                 updated[block_name] = {**params, **stats}
+            if losses:
+                updated[block_name][LOSSES] = losses
             if block_name == stop:
                 break
         return x, updated
@@ -223,15 +239,17 @@ def count_params(variables) -> int:
                else variables.size)
 
 
-def _take_new_stats(mod) -> dict:
-    """The new statistics a train-mode call left on ``mod``'s submodules,
-    keyed as ``mod``'s variables are; the attributes are cleared."""
+def _take_new(mod, attr: str) -> dict:
+    """What a train-mode call left in attribute ``attr`` (``new_stats``:
+    statistics; ``new_losses``: sown losses) of ``mod``'s submodules,
+    keyed by the submodule's path as ``mod``'s variables are; the
+    attributes are cleared."""
     out = {}
     for path, sub in mod.named_modules():
-        stats = getattr(sub, "new_stats", None)
+        stats = getattr(sub, attr, None)
         if stats is None:
             continue
-        sub.new_stats = None
+        setattr(sub, attr, None)
         prefix = f"{path}." if path else ""
         out.update({prefix + k: t for k, t in stats.items()})
     return out

@@ -1,7 +1,8 @@
 """Model-architecture registry: name -> NamedGraph builder — the port of
 ``mmlspark_tpu/models/registry.py``. The port registers only what its
 slices have ported: ``transformer_lm``, ``mlp``, ``linear``,
-``resnet20_cifar10``, ``resnet50`` and ``bilstm_tagger``. A serialized
+``resnet20_cifar10``, ``resnet50``, ``bilstm_tagger`` and
+``transformer_lm_moe``. A serialized
 ``TPUModel`` stores ``(model_name, model_config)`` and rebuilds its graph
 here at load time."""
 
@@ -46,5 +47,6 @@ def _ensure_loaded() -> None:
     # builder modules self-register on import
     import mmlspark_tpu_torch.models.bilstm  # noqa: F401
     import mmlspark_tpu_torch.models.mlp  # noqa: F401
+    import mmlspark_tpu_torch.models.moe  # noqa: F401
     import mmlspark_tpu_torch.models.resnet  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401

@@ -131,13 +131,15 @@ class TokenPosEmbed(nn.Module):
 
 
 def compute_dtype_variables(graph, variables: dict) -> dict:
-    """``variables`` with every ``Dense`` leaf (weight and bias) cast once
-    to the compute dtype its caller passes (the ``dtype`` of the module
-    that owns the Dense): a new dict, the other leaves the same tensors.
-    ``Dense.forward`` casts its parameters to that dtype on every call, and
-    a cast to the dtype a tensor already has returns it unchanged, so the
-    model's outputs are bit-equal on either dict. The serving engine keeps
-    the cast copy in place of the f32 leaves, which it then never reads."""
+    """``variables`` with every ``Dense`` leaf (weight and bias) — and
+    every leaf a child module lists in ``COMPUTE_DTYPE_LEAVES`` (the MoE
+    expert weights, ``models/moe.py``) — cast once to the compute dtype
+    its caller passes (the ``dtype`` of the module that owns it): a new
+    dict, the other leaves the same tensors. The forward casts those
+    parameters to that dtype on every call, and a cast to the dtype a
+    tensor already has returns it unchanged, so the model's outputs are
+    bit-equal on either dict. The serving engine keeps the cast copy in
+    place of the f32 leaves, which it then never reads."""
     out = {}
     for name, mod in graph.blocks:
         block = dict(variables[name])
@@ -146,9 +148,9 @@ def compute_dtype_variables(graph, variables: dict) -> dict:
             if not isinstance(dtype, torch.dtype):
                 continue
             for child, sub in owner.named_children():
-                if not isinstance(sub, Dense):
-                    continue
-                for leaf in ("weight", "bias"):
+                leaves = (("weight", "bias") if isinstance(sub, Dense)
+                          else getattr(sub, "COMPUTE_DTYPE_LEAVES", ()))
+                for leaf in leaves:
                     key = ".".join(filter(None, (path, child, leaf)))
                     t = block.get(key)
                     if isinstance(t, torch.Tensor) and t.is_floating_point():

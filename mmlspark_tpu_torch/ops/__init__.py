@@ -18,4 +18,9 @@
   ``csrc/tree_checksum.cu``
 - :mod:`kernel_build` — builds ``csrc/*.cu`` with ``nvcc`` on first use,
   and holds the C signature of every entry point
+- :mod:`native_build` — builds the host libraries ``native/decode.cpp``
+  and ``native/ctf.cpp`` with the system C++ compiler on first use
+- :mod:`decode` — JPEG/PNG bytes to BGR (native, then PIL)
+- :mod:`image_ops` — the OpenCV-semantics image ops on the host, and the
+  batched NHWC resize on the caller's device
 """

@@ -1,0 +1,157 @@
+"""Top-1 switch routing for a mixture-of-experts FFN on one device — the
+single-device half of ``mmlspark_tpu/parallel/expert.py``.
+
+The expert FFN weights are stacked on a leading dim of ``n_experts``.
+Tokens route top-1 over a float32 softmax router with capacity-bounded
+dispatch: one-hot ``(G, S, E, C)`` dispatch and combine tensors scatter
+the tokens into an ``(E, C, D)`` buffer a group, the experts run as one
+batched product over the stacked dim, and the results gather back
+weighted by the router probability. Tokens past an expert's capacity
+are dropped (the residual keeps them in the block output). Decode steps
+route droplessly (:func:`moe_ffn_dropless`).
+
+Everything is fixed-shape arithmetic, as in the JAX package: every
+one-hot is a comparison with an ``arange`` (an all-zero row for a
+position past capacity, where ``F.one_hot`` would raise and, on the
+card, sync the host), with no ``nonzero``, boolean indexing or host
+read, so a step captures into one CUDA graph per shape. The casts
+follow JAX's order: the router runs in f32 on the compute-dtype input,
+the dispatch and combine products in f32, the expert products in the
+compute dtype. No Pallas kernel stands behind MoE in the JAX package;
+the products are ``torch.einsum`` here as they are XLA's there.
+
+Not here: ``EXPERT_RULES`` and the check of ``n_experts`` against a
+mesh's ``expert`` axis, which wait for the meshes (ROADMAP.md Queue 1
+item 13).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from mmlspark_tpu_torch.core.exceptions import ParamError
+
+
+def _one_hot(idx, n: int):
+    """f32 one-hot of integer ``idx`` over ``n`` classes by comparison:
+    an index outside [0, n) gives an all-zero row (``jax.nn.one_hot``'s
+    rule)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def router_probs(x, gate_w):
+    """Softmax router over experts in f32. x: (..., D); gate_w: (D, E)."""
+    # f32 routing whatever the compute dtype: gate decisions are
+    # precision-sensitive
+    return torch.softmax(x.float() @ gate_w.float(), dim=-1)
+
+
+def moe_dispatch(probs, capacity: int, mask=None):
+    """Dispatch and combine tensors from router probabilities.
+
+    probs: (..., N, E) per-token expert probabilities (leading dims are
+    independent groups, JAX's ``vmap``); mask: optional (..., N) 0/1
+    real-token mask — padding tokens route nowhere, consume no capacity
+    and are left out of the balance loss. Returns ``(dispatch, combine,
+    aux)``: the f32 (..., N, E, C) scatter mask, its gate-weighted
+    version, and the Switch load-balance loss ``E * sum_e f_e p_e`` per
+    group.
+    """
+    e = probs.shape[-1]
+    expert = probs.argmax(dim=-1)  # top-1; ties to the first index
+    onehot = _one_hot(expert, e)  # (..., N, E)
+    if mask is not None:
+        onehot = onehot * mask.float()[..., None]
+    # each token's place in its expert's queue (exclusive cumsum, exact
+    # in f32)
+    pos = torch.cumsum(onehot, dim=-2) * onehot - onehot
+    kept = (pos < capacity).float() * onehot  # overflow dropped
+    slot = _one_hot(pos.long(), capacity)  # (..., N, E, C)
+    dispatch = kept[..., None] * slot
+    gate = (probs * kept).sum(-1)  # chosen-expert prob, 0 when dropped
+    combine = dispatch * gate[..., None, None]
+    n_real = onehot.sum(dim=(-2, -1)).clamp(min=1.0)
+    frac = onehot.sum(dim=-2) / n_real[..., None]
+    if mask is not None:
+        w = mask.float()[..., None]
+        mean_prob = (probs * w).sum(-2) / w.sum(dim=(-2, -1)).clamp(
+            min=1.0)[..., None]
+    else:
+        mean_prob = probs.mean(dim=-2)
+    aux = e * (frac * mean_prob).sum(-1)
+    return dispatch, combine, aux
+
+
+def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
+            capacity_factor: float = 1.25, mask=None,
+            group_size: int = 1024):
+    """Top-1 switch FFN. x: (B, T, D); w_in: (E, D, F); w_out: (E, F, D);
+    mask: optional (B,) real-row mask (padding rows route nowhere).
+
+    Tokens route in groups of ``group_size`` (the token dim padded up to
+    a multiple with masked tokens, so a prime token count keeps full
+    groups), with ``capacity = max(int(capacity_factor * S / E), 1)``
+    per group and expert — Python ints from static shapes. Returns
+    ``(out, aux)``; ``out`` in ``x``'s dtype.
+    """
+    b, t, d = x.shape
+    e = w_in.shape[0]
+    n = b * t
+    flat = x.reshape(n, d)
+    tok_mask = (mask.float().repeat_interleave(t) if mask is not None
+                else torch.ones(n, device=x.device))
+    s = min(group_size, n)
+    pad = (-n) % s
+    if pad:
+        flat = F.pad(flat, (0, 0, 0, pad))
+        tok_mask = F.pad(tok_mask, (0, pad))
+    g = (n + pad) // s
+    capacity = max(int(capacity_factor * s / e), 1)
+    probs = router_probs(flat, gate_w).reshape(g, s, e)
+    dispatch, combine, aux = moe_dispatch(probs, capacity,
+                                          tok_mask.reshape(g, s))
+    aux = aux.mean()
+    grouped = flat.reshape(g, s, d)
+    dt = x.dtype
+    buf = torch.einsum("gsec,gsd->gecd", dispatch,
+                       grouped.float()).to(dt)
+    h = torch.einsum("gecd,edf->gecf", buf, w_in.to(dt))
+    h = F.gelu(h + b_in[None, :, None, :].to(dt), approximate="tanh")
+    y = torch.einsum("gecf,efd->gecd", h, w_out.to(dt))
+    y = y + b_out[None, :, None, :].to(dt)
+    out = torch.einsum("gsec,gecd->gsd", combine, y.float())
+    out = out.reshape(n + pad, d)[:n]
+    return out.reshape(b, t, d).to(dt), aux
+
+
+def moe_ffn_dropless(x, gate_w, w_in, b_in, w_out, b_out):
+    """Dropless top-1 routing for DECODE steps: each token gathers its
+    argmax expert's weights ((N, D, F) per-token reads, affordable at
+    decode batch sizes) and is scaled by its gate probability as the
+    capacity path scales a kept token, so wherever that path drops
+    nothing the two agree. No aux loss: balance is a training concern."""
+    b, t, d = x.shape
+    dt = x.dtype
+    flat = x.reshape(b * t, d)
+    probs = router_probs(flat, gate_w)  # (N, E) f32
+    expert = probs.argmax(dim=-1)
+    gate = probs.gather(-1, expert[:, None])[:, 0]
+    h = torch.einsum("nd,ndf->nf", flat, w_in[expert].to(dt))
+    h = F.gelu(h + b_in[expert].to(dt), approximate="tanh")
+    y = torch.einsum("nf,nfd->nd", h, w_out[expert].to(dt))
+    y = y + b_out[expert].to(dt)
+    out = y.float() * gate[:, None]
+    return out.reshape(b, t, d).to(dt)
+
+
+def validate_experts(n_experts: int, mesh=None) -> None:
+    """At least two experts; a mesh (and so its ``expert`` axis) is not
+    ported yet (ROADMAP.md Queue 1 item 13)."""
+    if n_experts < 2:
+        raise ParamError(f"need >= 2 experts, got {n_experts}")
+    if mesh is not None:
+        raise ParamError(
+            "meshes are not ported yet (ROADMAP.md Queue 1 item 13); "
+            "build without mesh"
+        )

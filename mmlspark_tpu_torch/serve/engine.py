@@ -27,8 +27,13 @@ programs run eagerly and are counted the same way. A program that fails
 to capture raises; there is no eager fallback.
 
 Prefill is bucketed by prompt length: prompts right-pad to power-of-two
-buckets (causality makes the pads invisible). Block sizes clamp to a
-power-of-two ladder and to the smallest remaining budget, so budget
+buckets (causality makes the pads invisible). MoE models
+(``transformer_lm_moe``) prefill at exact length, as the JAX engine
+does: expert-capacity routing is not causal (a pad would consume
+capacity that can change a real token's expert), so they take one
+prefill (and prefix-cache resume) program per distinct prompt
+(remainder) length, under a pin of ``cache_len - 1``. Block sizes clamp
+to a power-of-two ladder and to the smallest remaining budget, so budget
 exhaustion only ever lands on a block boundary. The pool's buffers and
 its per-slot positions and live mask are updated in place where the JAX
 engine donates them.
@@ -262,6 +267,8 @@ class ServeEngine:
                 f"{snapshot_every_ticks}"
             )
         self._prefill_chunk = prefill_chunk
+        # MoE models prefill at exact length (see the module docstring)
+        self._bucketed = not graph.extra.get("n_experts")
         self._async_host = bool(async_host)
         #: the in-flight decode block's record (async mode): set at
         #: dispatch, consumed by the NEXT tick's fetch
@@ -424,7 +431,9 @@ class ServeEngine:
     def prefill_bucket(self, prompt_len: int) -> int:
         """Padded length the prefill runs at for a prompt of
         ``prompt_len``: the next power of two >= max(prompt_len, 8),
-        capped at ``cache_len``."""
+        capped at ``cache_len``; a MoE engine's is the exact length."""
+        if not self._bucketed:
+            return prompt_len
         bucket = 8
         while bucket < prompt_len:
             bucket *= 2

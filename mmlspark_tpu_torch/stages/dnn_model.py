@@ -253,23 +253,34 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         return dataset.with_column(col, arr, dataset.meta_of(col))
 
     def _transform(self, dataset: Dataset) -> Dataset:
-        if self.weights is None:
-            raise FriendlyError("no weights set; fit or set_model_location first",
-                                self.uid)
         dev = default_device(self.device)
         ds = self._coerce_input(dataset)
         # blocks that learn their input width from the first input (the
         # MLP family, as a flax Dense does) take it from the rows
         self.graph().size_input(ds[self.input_col].shape[1:])
+        batches = ((torch.from_numpy(b[self.input_col]), b[MASK_COL])
+                   for b in batch_iterator(ds, [self.input_col],
+                                           self.batch_size))
+        return dataset.with_column(self.output_col, self.score(batches, dev))
+
+    def score(self, batches, dev: torch.device) -> np.ndarray:
+        """The outputs of the net over ``batches`` — ``(x, mask)`` pairs of
+        fixed-shape input rows, on the host or already on ``dev``, and
+        the boolean mask of the real ones — concatenated on the host.
+
+        Async pipeline (replaces the reference's strictly serial
+        per-minibatch JNI copy->evaluate->copy loop, CNTKModel.scala:51-88):
+        a host batch is copied in from pinned memory and its program
+        enqueued without a host sync, so batch i+1's copy overlaps batch
+        i's compute; each output is copied back behind an event and
+        fetched ``feed_depth`` batches later."""
+        if self.weights is None:
+            raise FriendlyError("no weights set; fit or set_model_location first",
+                                self.uid)
         weights = self._device_weights(dev)
         fwd = self._forward()
         on_card = dev.type == "cuda"
         cast_bf16 = self.feed_dtype == "bfloat16"
-        # Async pipeline (replaces the reference's strictly serial
-        # per-minibatch JNI copy->evaluate->copy loop, CNTKModel.scala:51-88):
-        # the copy in and the program are enqueued without a host sync, so
-        # batch i+1's copy overlaps batch i's compute; each output is copied
-        # back behind an event and fetched ``feed_depth`` batches later.
         inflight: list = []
         outs = []
 
@@ -282,11 +293,10 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
                     host = host.float()  # numpy has no bfloat16; exact
                 outs.append(host.numpy()[mask])
 
-        for b in batch_iterator(ds, [self.input_col], self.batch_size):
-            x = torch.from_numpy(b[self.input_col])
+        for x, mask in batches:
             if cast_bf16 and x.is_floating_point():
                 x = x.to(torch.bfloat16)
-            if on_card:
+            if on_card and x.device.type != "cuda":
                 x = x.pin_memory().to(dev, non_blocking=True)
             y = fwd(weights, x)
             if on_card:
@@ -298,12 +308,11 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
                 event.record()
             else:
                 host, event = y.clone(), None
-            inflight.append((host, event, b[MASK_COL]))
+            inflight.append((host, event, mask))
             drain(self.feed_depth)
         drain(0)
-        result = (
+        return (
             np.concatenate(outs, axis=0)
             if outs
             else np.zeros((0,), dtype=np.float32)
         )
-        return dataset.with_column(self.output_col, result)

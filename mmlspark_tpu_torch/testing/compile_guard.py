@@ -26,6 +26,15 @@ written at their own addresses (the KV pool, positions, weights), so
 they are not copied, and a replay with tensors at other addresses
 raises.
 
+Python's cyclic garbage collector is held off while a graph is captured
+(:func:`no_cyclic_gc`; ``torch.cuda.graph`` collects once just before).
+A collection that ran inside the capture could free objects from earlier
+work — captured graphs, pinned buffers, events — whose release makes
+CUDA calls that are illegal while a stream is capturing, and so
+invalidates the capture: a program then fails to capture for a reason
+outside it (``tests/test_torch_cuda.py::
+test_collection_inside_a_capture_cannot_invalidate_it``).
+
 The kernel wrappers count their launches in Python, and a replay runs no
 Python, so a capture records each launch counter's delta and every
 replay adds it (:data:`LAUNCH_COUNTER_MODULES`). A program that fails to
@@ -52,6 +61,7 @@ or, pinning both serve programs to the engine's own ceilings at once::
 
 from __future__ import annotations
 
+import gc
 import importlib
 import time
 from contextlib import contextmanager
@@ -234,7 +244,8 @@ class ProgramCountingGraph:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool.handle()):
+            with no_cyclic_gc(), torch.cuda.graph(graph,
+                                                  pool=self.pool.handle()):
                 out = self._fn(*statics)
         except Exception as e:
             raise RuntimeError(
@@ -251,6 +262,20 @@ class ProgramCountingGraph:
         self.capture_seconds += time.perf_counter() - t0
         delta = {k: after[k] - before[k] for k in before}
         return _Program(graph, args, statics, out, delta, self._state)
+
+
+@contextmanager
+def no_cyclic_gc() -> Iterator[None]:
+    """Python's automatic cyclic garbage collection held off for the
+    block, and restored after it (an explicit ``gc.collect()`` still
+    runs)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 @contextmanager

@@ -21,6 +21,15 @@ train mode returns new values for it, which the step writes in place
 under gradient accumulation each micro-batch's forward starts from the
 statistics the one before it left, as JAX's scan carries them.
 
+A block that sows losses (the MoE router's load-balance loss,
+``models/moe.py``) returns them in train mode under
+``updated[block]["losses"]``; the step adds ``moe_aux_weight`` times
+their sum to the loss (JAX's ``_sown_aux_loss``), inside the captured
+step, and never carries them into the state, its checkpoints or the
+returned variables. Under gradient accumulation the aux loss is each
+micro-batch's, weighted with its loss (the JAX package's documented
+non-equivalence).
+
 The quarantine's streak and total stay on the device; the host reads
 them at the ``log_every`` cadence, when it already syncs for the loss,
 and aborts after ``anomaly_limit`` consecutive bad steps.
@@ -120,6 +129,7 @@ from mmlspark_tpu_torch.core.telemetry import (
 from mmlspark_tpu_torch.data.dataset import Dataset
 from mmlspark_tpu_torch.data.feed import MASK_COL, batch_iterator
 from mmlspark_tpu_torch.models import bridge
+from mmlspark_tpu_torch.models.graph import LOSSES
 from mmlspark_tpu_torch.ops.fused_optim import moment_names, optimizer_update
 from mmlspark_tpu_torch.ops.tree_checksum import FoldPlan, as_uint32, tree_fold
 from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
@@ -267,6 +277,17 @@ class _Optimizer:
                          self.lr(state["count"]), bad,
                          weight_decay=self.weight_decay,
                          momentum=self.momentum)
+
+
+def sown_aux_loss(variables: dict):
+    """The sum of every loss a train-mode forward sowed (the
+    ``updated[block]["losses"]`` dicts, ``models/graph.py``); 0.0 when
+    none exist."""
+    total = 0.0
+    for block in variables.values():
+        for loss in block.get(LOSSES, {}).values():
+            total = total + loss.sum()
+    return total
 
 
 def masked_loss(kind: str, logits, labels, mask):
@@ -462,7 +483,10 @@ class SPMDTrainer:
             variables with the new statistics."""
             out, updated = self.graph.apply(current, bx, train=True,
                                             mask=bm, remat=cfg.remat)
-            return masked_loss(cfg.loss, out, by, bm), updated
+            loss = masked_loss(cfg.loss, out, by, bm)
+            if any(LOSSES in block for block in updated.values()):
+                loss = loss + cfg.moe_aux_weight * sown_aux_loss(updated)
+            return loss, updated
 
         # -- the integrity audit's state: the fold's leaves, its carry and
         # the device flags that gate it

@@ -16,7 +16,7 @@ sequence equal. Tolerances on the scores (sums of log-probs):
   logit tolerances of ``tests/test_torch_model.py`` (the chosen token's
   logit and a step's log-sum-exp; every step but a beam's few
   low-probability ones contributes almost nothing to the error).
-The MoE case waits for ``models/moe.py``.
+The MoE case is in ``test_torch_moe_serve.py``.
 """
 
 from __future__ import annotations

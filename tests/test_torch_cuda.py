@@ -836,6 +836,60 @@ def test_capture_that_syncs_the_host_raises(cuda):
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
 
 
+def test_collection_inside_a_capture_cannot_invalidate_it(cuda):
+    """A cyclic garbage collection that ran inside a capture used to free
+    earlier programs' graphs, pinned buffers and events there — CUDA
+    calls that are illegal while a stream captures — and the capture
+    failed for a reason outside it (``test_async_streams_bit_equal_sync
+    [paged_int8]`` after the file's earlier tests). Here such a cycle
+    becomes garbage inside the capture and the collector comes due
+    there; the capture holds it off, so the program captures, replays
+    right, and the cycle is collected after."""
+    import gc
+    import weakref
+
+    from mmlspark_tpu_torch.testing import ProgramCountingGraph
+
+    x = torch.arange(4.0, device=cuda)
+    holder = {}
+
+    def leave_garbage():
+        old = ProgramCountingGraph(lambda t: t * 2, label="old")
+        old(x)  # eager, then captured: the cycle holds a CUDA graph
+        host = torch.empty(4, pin_memory=True)
+        host.copy_(x, non_blocking=True)  # a pinned buffer with an event
+        event = torch.cuda.Event()
+        event.record()
+        cycle = [old, host, event]
+        cycle.append(cycle)
+        holder["cycle"] = cycle
+        return weakref.ref(old)
+
+    def churn(t):
+        if torch.cuda.is_current_stream_capturing():
+            holder.pop("cycle")  # garbage now, kept only by its cycle
+            threshold = gc.get_threshold()
+            gc.set_threshold(1, 1, 1)  # the collector comes due
+            try:
+                junk = [[object()] for _ in range(8)]
+            finally:
+                gc.set_threshold(*threshold)
+            del junk
+        return t + 1
+
+    for _ in range(2):
+        alive = leave_garbage()
+        torch.cuda.synchronize()
+        prog = ProgramCountingGraph(churn, label="victim")
+        y = prog(x)  # eager; then captured
+        y = prog(x + 1)  # replayed
+        torch.cuda.synchronize()
+        assert torch.equal(y, x + 2)
+        assert gc.isenabled()
+        gc.collect()
+        assert alive() is None  # collected after the capture
+
+
 # -- chunked prefill, the async host loop, the resilience layer ----------------
 
 
@@ -1358,3 +1412,168 @@ def test_captured_train_step_updates_batch_statistics(cuda):
     got, want = card["stage2"][key].cpu(), cpu["stage2"][key]
     assert not torch.equal(want, init["stage2"][key])
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# -- the switch-MoE LM and the image path ------------------------------------------
+
+
+def _overfit_moe():
+    """A small MoE LM overfit on the card to a periodic stream (1..4
+    cycling; the JAX package's ``overfit_periodic_lm`` recipe: adam at
+    5e-2, 40 steps on one row) by the port's trainer, so greedy picks
+    have wide margins."""
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    graph = build_model("transformer_lm_moe", vocab_size=8, d_model=64,
+                        heads=1, depth=2, max_len=64, n_experts=2,
+                        capacity_factor=2.0, attn_impl="flash")
+    x = ((np.arange(32)[None] % 4) + 1).astype(np.int32)
+    trainer = SPMDTrainer(graph, TrainConfig(
+        epochs=40, batch_size=1, learning_rate=5e-2, log_every=40,
+        shuffle=False))
+    return graph, trainer.train(x, np.roll(x, -1, axis=1)), x[0]
+
+
+def test_moe_engines_match_generate_and_each_other(cuda):
+    """The MoE LM's dense and paged prefix-cache engines on the card (a
+    ragged, joining schedule): every stream equal to the port's
+    ``generate()`` on the card and dense equal to paged; the decode
+    kernels launched ``depth`` times a micro-step; the dense engine made
+    one prefill program a distinct prompt length, the paged one resumed
+    its prefix hits."""
+    from mmlspark_tpu_torch.models import generate
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables, row = _overfit_moe()
+    prompts = [row[:n] for n in (5, 1, 17, 9, 23, 17)]
+    budgets = [12, 7, 20, 16, 9, 11]
+    want = [generate(graph, variables, p[None], n)[0].cpu().numpy()
+            for p, n in zip(prompts, budgets)]
+    streams = {}
+    for label, kw, counter in (
+            ("dense", {}, "launches"),
+            ("paged", dict(paged=True, page_size=8, prefix_cache=True),
+             "paged_launches")):
+        engine = ServeEngine(graph, variables, slots=3, cache_len=64,
+                             decode_block=8, **kw)
+        setattr(fa, counter, 0)
+        results, rids = {}, []
+        for p, n in zip(prompts[:3], budgets[:3]):
+            rids.append(engine.submit(p, n))
+        for _ in range(2):
+            results.update({r.id: r for r in engine.step()})
+        for p, n in zip(prompts[3:], budgets[3:]):
+            rids.append(engine.submit(p, n))
+        results.update(engine.run())
+        torch.cuda.synchronize()
+        if label == "dense":
+            dense_programs = engine.prefill_compile_count
+        steps = sum(int(t) * c
+                    for t, c in engine.metrics.decode_blocks.items())
+        assert getattr(fa, counter) == 2 * steps
+        streams[label] = [results[r].tokens for r in rids]
+        for got, w in zip(streams[label], want):
+            np.testing.assert_array_equal(got, w)
+    # dense: every prompt prefilled at its exact length; paged: the
+    # prefix hits resumed their remainders instead
+    lengths = len({len(p) for p in prompts})
+    assert dense_programs == lengths
+    assert engine.pool.prefix_hits >= 1 and engine.resume_compile_count >= 1
+    assert engine.prefill_compile_count < lengths
+
+
+def test_captured_moe_training_step_bit_equal_to_eager(cuda, monkeypatch):
+    """Four adam steps of a float32 MoE LM (the aux loss in the loss)
+    through the trainer, its step captured after step 0 and replayed,
+    against the same steps run eagerly on the card: bit-equal losses
+    and parameters, one program, one fused-optimizer launch a step."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.ops import fused_optim as fo
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+    from mmlspark_tpu_torch.train import trainer as trainer_mod
+
+    graph = _f32_port(build_model(
+        "transformer_lm_moe", vocab_size=64, d_model=64, heads=1, depth=2,
+        max_len=48, n_experts=4, attn_impl="flash"))
+    x = torch.randint(0, 64, (16, 48), generator=torch.Generator()
+                      .manual_seed(0)).numpy()
+    weights = init_variables(graph, 2, device="cuda")
+
+    def run():
+        trainer = SPMDTrainer(graph, TrainConfig(
+            batch_size=4, learning_rate=1e-3, log_every=1,
+            moe_aux_weight=1e-2))
+        before = fo.launches
+        out = trainer.train(x, x, init_variables=weights)
+        torch.cuda.synchronize()
+        return trainer, out, fo.launches - before
+
+    graphed, got, launches = run()
+    assert launches == 4
+    assert graphed.telemetry.counter("retrace.train.step").value == 1
+
+    class Eager:
+        def __init__(self, fn, **_):
+            self.fn = fn
+
+        def __call__(self, *args):
+            return self.fn(*args)
+
+    monkeypatch.setattr(trainer_mod, "ProgramCountingGraph", Eager)
+    eager, want, _ = run()
+    assert [h["loss"] for h in graphed.history] == \
+        [h["loss"] for h in eager.history]
+    for block, leaves in want.items():
+        assert "losses" not in got[block]
+        for name, w in leaves.items():
+            assert torch.equal(got[block][name], w), (block, name)
+
+
+def test_card_resize_matches_the_cpu(cuda):
+    """The featurizer's batched resize + round + scale on the card against
+    the CPU's on the same uint8 images: within one uint8 level on at most
+    0.5% of the values (the same filter summed in another order);
+    upsampling by an integer factor and equal sizes the same."""
+    from mmlspark_tpu_torch.stages.image import resize_scale
+
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, 256, 256, 3), dtype=np.uint8))
+    for size in (224, 97, 512, 256):
+        got = resize_scale(imgs.cuda(), size, size, 1.0).cpu()
+        want = resize_scale(imgs, size, size, 1.0)
+        diff = (got - want).abs()
+        assert diff.max().item() <= 1.0
+        assert (diff > 0).float().mean().item() <= 5e-3
+        if size in (512, 256):
+            assert torch.equal(got, want)
+
+
+def test_resnet50_featurizer_on_card_matches_cpu_f32(cuda):
+    """ImageFeaturizer over ResNet-50 (input 64) on the card, uint8 images
+    resized there, against the CPU's float32 forward on the card's
+    resized input: the ``pool`` features within 1e-2 of their largest
+    (bf16 convolutions on the card); one captured program."""
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.models.bridge import variables_to
+    from mmlspark_tpu_torch.stages import ImageFeaturizer, TPUModel
+    from mmlspark_tpu_torch.stages.image import resize_scale
+
+    cfg = {"input_size": 64}
+    weights = init_variables(build_model("resnet50", **cfg), 0,
+                             device="cuda")
+    imgs = np.random.default_rng(1).integers(0, 256, (10, 80, 80, 3),
+                                             dtype=np.uint8)
+    model = TPUModel(model_name="resnet50", model_config=cfg,
+                     input_col="image", batch_size=4).set(weights=weights)
+    feat = ImageFeaturizer(model=model, cut_output_layers=1, batch_size=4,
+                           scale=1 / 255)
+    got = feat.transform(Dataset({"image": imgs}))["features"]
+    assert got.shape == (10, 2048) and feat._scorer.program_count == 1
+    x = resize_scale(torch.from_numpy(imgs).cuda(), 64, 64, 1 / 255).cpu()
+    cpu = _f32_port(build_model("resnet50", **cfg))
+    want = cpu.apply(variables_to(weights, "cpu"), x,
+                     output_node="pool").numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 1e-2, err

@@ -7,7 +7,7 @@ geometry read by ``init_cache``.
 The models are the JAX package's overfit periodic LM
 (``testing/datagen.overfit_periodic_lm``) bridged into the port, so
 greedy picks have wide margins and tokens must be equal. The MoE cases
-wait for ``models/moe.py``.
+are in ``test_torch_moe_serve.py``.
 """
 
 from __future__ import annotations

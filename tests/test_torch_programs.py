@@ -119,6 +119,35 @@ def test_program_key_is_the_static_signature():
     assert dog.expected_programs == 1 and dog._cache_size() == 4
 
 
+def test_captures_hold_off_the_cyclic_collector():
+    """``no_cyclic_gc`` (around every capture) disables automatic cyclic
+    collection for its block and restores the collector's state after
+    it, also when the block raises; an explicit collect still runs."""
+    import gc
+
+    from mmlspark_tpu_torch.testing.compile_guard import no_cyclic_gc
+
+    assert gc.isenabled()
+    with no_cyclic_gc():
+        assert not gc.isenabled()
+        cycle = []
+        cycle.append(cycle)
+        del cycle
+        assert gc.collect() >= 1
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with no_cyclic_gc():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with no_cyclic_gc():
+            pass
+        assert not gc.isenabled()  # left as the caller had it
+    finally:
+        gc.enable()
+
+
 def test_mixed_length_soak_pins_compile_counts(lm):
     """Soak with mixed-length joiners: every prompt length in [1, 12]
     flows through 2 slots. The decode block makes one program per ladder

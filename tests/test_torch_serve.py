@@ -352,9 +352,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.core.serialize, mmlspark_tpu_torch.core.stage, "
         "mmlspark_tpu_torch.core.schema, mmlspark_tpu_torch.core.params, "
         "mmlspark_tpu_torch.core.logging_utils, "
-        "mmlspark_tpu_torch.models.resnet, mmlspark_tpu_torch.models.bilstm\n"
+        "mmlspark_tpu_torch.models.resnet, mmlspark_tpu_torch.models.bilstm, "
+        "mmlspark_tpu_torch.parallel, mmlspark_tpu_torch.parallel.expert, "
+        "mmlspark_tpu_torch.models.moe, mmlspark_tpu_torch.core.config, "
+        "mmlspark_tpu_torch.ops.native_build, mmlspark_tpu_torch.ops.decode, "
+        "mmlspark_tpu_torch.data.readers, mmlspark_tpu_torch.data.sample_data, "
+        "mmlspark_tpu_torch.ops.image_ops, mmlspark_tpu_torch.stages.image, "
+        "mmlspark_tpu_torch.models.zoo, mmlspark_tpu_torch.data.ctf\n"
         "from mmlspark_tpu_torch.models import build_model\n"
-        "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger'):\n"
+        "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
+        "'transformer_lm_moe'):\n"
         "    build_model(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
@@ -386,7 +393,11 @@ def test_port_sources_name_no_jax_import():
                  "core/serialize.py", "core/logging_utils.py",
                  "models/resnet.py", "models/bilstm.py",
                  "stages/dnn_model.py", "stages/dnn_learner.py",
-                 "stages/__init__.py"):
+                 "stages/__init__.py", "parallel/__init__.py",
+                 "parallel/expert.py", "models/moe.py", "core/config.py",
+                 "ops/native_build.py", "ops/decode.py", "data/readers.py",
+                 "data/sample_data.py", "ops/image_ops.py",
+                 "stages/image.py", "models/zoo.py", "data/ctf.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):
