@@ -5,8 +5,9 @@ against its plain PyTorch version, drives the serving paths and the
 training path at the full width of the repo's serve model, the stage
 layer (``TPUModel``, ``DNNLearner``) over ResNet-20, ResNet-50, the
 BiLSTM tagger and the flash LM, the switch-MoE LM served and trained,
-and the image path (decode, ``ImageFeaturizer`` over ResNet-50, the
-model zoo), and prints the measured numbers.
+the image path (decode, ``ImageFeaturizer`` over ResNet-50, the model
+zoo), and the replica planes (``ReplicaSet``, ``DisaggFleet`` with KV
+hand-offs), and prints the measured numbers.
 
     python3 chip_smoke.py
 
@@ -214,7 +215,36 @@ Phases (each one fails the run with a non-zero exit on error):
    ``ModelDownloader`` from the committed ``models/zoo_repo`` through a
    ``file://`` URI, featurizing the committed fixture images (numpy-made
    ones where no decoder runs);
-10. numbers: each kernel's, its plain version's and (where one exists)
+10. the replica planes (the ``fleet`` line), each run a main path with
+   the counts set to 0 just before it and read just after, every replica
+   an engine of phase 3's configuration: ``ReplicaSet(replicas=2)`` on
+   the dense bf16 pool over the random schedule — a clean run (cold, then
+   warm), a run with a kill of replica 0 at engine tick 6 (rebuilt from
+   its tick-4 snapshot), and a ``drain(1)`` at tick 4 — and
+   ``DisaggFleet(prefill_replicas=1, decode_replicas=2)`` over dense bf16
+   (random schedule), dense int8, paged prefix-cache bf16 and paged
+   prefix-cache int8 (header schedule; the int8 one then repeats the
+   header requests, which the fleet index serves decode-only). Gates:
+   every stream equal to the single engine's of the same pool on the
+   same schedule — or first differing at a near tie where a request
+   re-prefilled its emitted tokens (the drain's migrations, the kill's
+   restore: bf16 K/V recomputed by a prefill round otherwise than the
+   decode steps that made them) and on paged int8 (the decode replica
+   re-quantizes the prefix rows the prefill replica dequantized out of
+   its shared pages) — one failover, the device memory
+   held after it within 25% of the clean set's, the drained replica
+   retired, the prefill replica 0 decode launches and each decode
+   replica > 0, no hand-off fallback, no prefill program on a decode
+   replica and no decode program on the prefill replica, every repeat a
+   fleet-index hit. Reported: tokens/s beside the single engine's,
+   rebuild and recapture seconds, memory at the failover, per-replica
+   launches, payload bytes and production/adoption ms. Drills: a corrupt
+   hand-off falls back to a full prefill with equal streams; a tight
+   ``slo`` sheds and still completes every request; the engine's Chrome
+   trace written and parsed. Analytics: ``device_peak()`` resolves the
+   card from the table, and every program family's MFU and HBM share
+   (``metrics.perf``, costed on meta tensors) reads at or under 100%;
+11. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -4241,6 +4271,498 @@ def check_image() -> dict:
     return out
 
 
+#: the fleet phase: the kill tick (mid-schedule, after the first periodic
+#: snapshot), the drain tick, the requests of the corrupt drill
+FLEET_KILL_TICK, FLEET_DRAIN_TICK, DRILL_REQUESTS = 6, 4, 4
+#: the decode kernels' launch counters, by pool
+DECODE_COUNTERS = ("launches", "q8_launches", "paged_launches",
+                   "paged_q8_launches")
+
+
+def fleet_kwargs(**kw) -> dict:
+    """Every replica's engine configuration: the single engine's."""
+    return dict(slots=SLOTS, cache_len=CACHE_LEN, decode_block=DECODE_BLOCK,
+                max_queue=N_REQUESTS, retry_backoff_s=0.0, device=DEVICE,
+                **kw)
+
+
+class FleetProbe:
+    """Per-replica decode launches and the hand-off's costs, read by
+    wrapping ``ServeEngine.step``, ``_hand_off``, ``_adopt_payload`` and
+    the payload checksum for the probe's life (the replicas step one at a
+    time, so a step's counter delta is that replica's alone). A timed
+    production or adoption runs between two device syncs of the probe's
+    own (4 a request, not the engine's), so it holds its own device work
+    only: production is the clone plus the checksum, whose host copy
+    waits for the clone; adoption is the re-verify plus the slot
+    write."""
+
+    def __init__(self):
+        self.launches: dict = {}
+        self.handoffs: list = []
+        self.adoptions: list = []
+        self.checksum_ms: list = []
+        self.verify_ms: list = []
+
+    def __enter__(self):
+        import time as _time
+
+        import mmlspark_tpu_torch.ops.flash_attention as fa
+        from mmlspark_tpu_torch.core import integrity
+        from mmlspark_tpu_torch.serve.engine import ServeEngine
+
+        self._saved = (ServeEngine.step, ServeEngine._hand_off,
+                       ServeEngine._adopt_payload,
+                       integrity.payload_checksum, integrity.verify_payload)
+        step, hand_off, adopt, checksum, verify = self._saved
+        probe = self
+
+        def counts():
+            return {k: getattr(fa, k) for k in DECODE_COUNTERS}
+
+        def sync():
+            if DEVICE == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+
+        def timed(fn, sink, fence=False):
+            def inner(*a, **kw):
+                if fence:
+                    sync()
+                t0 = _time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if fence:
+                        sync()
+                    sink.append((_time.perf_counter() - t0) * 1e3)
+            return inner
+
+        def probed_step(self_):
+            before = counts()
+            try:
+                return step(self_)
+            finally:
+                key = f"replica{self_._replica}.{self_.role}"
+                tally = probe.launches.setdefault(
+                    key, dict.fromkeys(DECODE_COUNTERS, 0))
+                for k, v in counts().items():
+                    tally[k] += v - before[k]
+
+        def probed_hand_off(self_, *a, **kw):
+            sync()
+            t0 = _time.perf_counter()
+            hand_off(self_, *a, **kw)
+            sync()
+            pay = self_._outbox[-1]
+            probe.handoffs.append({
+                "ms": (_time.perf_counter() - t0) * 1e3,
+                "bytes": sum(t.numel() * t.element_size()
+                             for leaves in pay["kv"].values()
+                             for t in leaves),
+                "tokens": pay["length"]})
+
+        ServeEngine.step = probed_step
+        ServeEngine._hand_off = probed_hand_off
+        ServeEngine._adopt_payload = timed(adopt, self.adoptions,
+                                           fence=True)
+        integrity.payload_checksum = timed(checksum, self.checksum_ms)
+        integrity.verify_payload = timed(verify, self.verify_ms)
+        return self
+
+    def __exit__(self, *exc):
+        from mmlspark_tpu_torch.core import integrity
+        from mmlspark_tpu_torch.serve.engine import ServeEngine
+
+        (ServeEngine.step, ServeEngine._hand_off,
+         ServeEngine._adopt_payload, integrity.payload_checksum,
+         integrity.verify_payload) = self._saved
+        return False
+
+    def summary(self) -> dict:
+        def mean(xs):
+            return statistics.fmean(xs) if xs else None
+
+        def diff(a, b):
+            return a - b if a is not None and b is not None else None
+
+        n = len(self.handoffs)
+        produce = mean([h["ms"] for h in self.handoffs])
+        checksum = mean(self.checksum_ms[:n])
+        adopt, verify = mean(self.adoptions), mean(self.verify_ms)
+        return {
+            "launches_per_replica": self.launches,
+            "handoffs": n,
+            "payload_bytes_mean": mean([h["bytes"] for h in self.handoffs]),
+            "payload_tokens_mean": mean([h["tokens"] for h in
+                                         self.handoffs]),
+            # production: the clone of rows [0, p), then the checksum,
+            # whose host copy waits for the clone on the stream
+            "produce_ms_mean": produce,
+            "checksum_ms_mean": checksum,
+            "clone_ms_mean": diff(produce, checksum),
+            # adoption: the re-verify's host copy, then the slot write
+            "adopt_ms_mean": adopt,
+            "verify_ms_mean": verify,
+            "write_ms_mean": diff(adopt, verify),
+        }
+
+
+def drive_set(target, prompts, arrivals: dict | None = None) -> dict:
+    """``drive`` for a ReplicaSet or a DisaggFleet: the prompts arrive 2 a
+    tick, MAX_NEW tokens each, the launch counts set to 0 just before and
+    read just after. ``arrivals`` maps a tick to a callable run before
+    it (a drain). Returns the results keyed by global id, the counts and
+    the wall seconds."""
+    import torch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    submitted, results, tick = 0, {}, 0
+    while submitted < len(prompts) or target.busy:
+        if arrivals and tick in arrivals:
+            arrivals[tick]()
+        for _ in range(ARRIVALS_PER_TICK):
+            if submitted < len(prompts):
+                target.submit(prompts[submitted], MAX_NEW)
+                submitted += 1
+        for res in target.step():
+            results[res.id] = res
+        tick += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bad = {g: r.status for g, r in results.items()
+           if r.status != "completed" or r.generated != MAX_NEW}
+    if len(results) != len(prompts) or bad:
+        raise AssertionError(f"not every request completed: {bad}")
+    tokens = sum(r.generated for r in results.values())
+    return dict(results=results, counts=counts, wall_s=wall,
+                tokens_per_sec=tokens / wall)
+
+
+def held_bytes(base: int) -> int:
+    """Device bytes allocated over ``base`` after a collection."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - base
+
+
+def perf_families(engines) -> dict:
+    """Each program family's analytics across ``engines`` (the last
+    engine's figures where two report one family), gated: every share
+    at or under 100%."""
+    fams = {}
+    for engine in engines:
+        for family, f in engine.metrics.to_dict()["perf_families"].items():
+            fams[family] = {k: f[k] for k in (
+                "flops", "bytes_accessed", "cost_source", "dispatches",
+                "device_s", "mfu", "hbm_bw_util_pct")}
+    over = {k: f for k, f in fams.items()
+            if (f["mfu"] or 0) > 1.0 or (f["hbm_bw_util_pct"] or 0) > 100.0}
+    if over or not any(k.startswith("decode[T=") for k in fams) or \
+            not any(k.startswith("prefill[") for k in fams):
+        raise AssertionError(f"fleet analytics: families {fams}; over "
+                             f"100%: {over}")
+    if any(f["cost_source"] != "meta" for f in fams.values()):
+        raise AssertionError(f"fleet analytics: a family without a cost: "
+                             f"{fams}")
+    return fams
+
+
+def check_replica_set(graph, variables, dense: dict) -> dict:
+    """ReplicaSet(replicas=2) on the dense bf16 pool over the random
+    schedule: a clean run (cold, then warm), a kill of replica 0 mid-
+    schedule, and a drain of replica 1 under load; every stream equal to
+    the single engine's (``dense``); failover's rebuild and recapture
+    seconds and the device memory held with and without failovers."""
+    import torch
+
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.serve import ReplicaSet
+
+    prompts = random_schedule()
+    want = dense["results"]
+    out = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rs = ReplicaSet(graph, variables, replicas=2, **fleet_kwargs())
+    with FleetProbe() as probe:
+        cold = drive_set(rs, prompts)
+    check_near_ties(graph, variables, "replicas clean", cold["results"],
+                    want, exact=True)
+    for i in range(2):
+        fresh_metrics(rs.engine(i))
+    warm = drive_set(rs, prompts)
+    check_near_ties(graph, variables, "replicas clean warm",
+                    {g - N_REQUESTS: r for g, r in warm["results"].items()},
+                    want, exact=True)
+    out["clean"] = dict(
+        tokens_per_sec_cold=cold["tokens_per_sec"],
+        tokens_per_sec_warm=warm["tokens_per_sec"],
+        single_engine_tokens_per_sec_warm=dense["programs"][
+            "warm_tokens_per_sec"],
+        launch_counts=cold["counts"],
+        launches_per_replica=probe.launches,
+        capture_s=[rs.engine(i).capture_seconds for i in range(2)],
+        graph_pool_bytes=[rs.engine(i).graph_pool_bytes()
+                          for i in range(2)])
+    analytics = perf_families([rs.engine(i) for i in range(2)])
+    held_clean = held_bytes(base)
+    drained = drive_set(rs, prompts, {FLEET_DRAIN_TICK: lambda: rs.drain(1)})
+    # a migrated request re-prefills prompt + emitted tokens, whose bf16
+    # K/V round otherwise than the decode steps that made them: its
+    # stream may first differ at a near tie (the restore rule of the
+    # resilience phase)
+    ties_drain = check_near_ties(
+        graph, variables, "replicas drain",
+        {g - 2 * N_REQUESTS: r for g, r in drained["results"].items()},
+        want, exact=False)
+    if rs.replica_state(1) != "drained" or rs.drains_total != 1:
+        raise AssertionError("replicas drain: replica 1 did not retire")
+    out["drain"] = dict(tokens_per_sec=drained["tokens_per_sec"],
+                        launch_counts=drained["counts"],
+                        diverged=ties_drain["diverged"],
+                        migrated=sum(1 for e in rs.recorder.events()
+                                     if e["name"] == "migrated"))
+    del rs
+    gc.collect()
+
+    inj = FaultInjector([Fault("serve.decode", "kill", tick=FLEET_KILL_TICK,
+                               replica=0)])
+    rs = ReplicaSet(graph, variables, replicas=2, faults=inj,
+                    **fleet_kwargs())
+    timing = {}
+    inner = rs._failover
+
+    def timed_failover(rep, cause, reason):
+        timing["memory_before"] = held_bytes(base)
+        t0 = time.perf_counter()
+        inner(rep, cause, reason)
+        timing["rebuild_s"] = time.perf_counter() - t0
+        timing["memory_after"] = held_bytes(base)
+
+    rs._failover = timed_failover
+    killed = drive_set(rs, prompts)
+    ties_kill = check_near_ties(graph, variables, "replicas kill",
+                                killed["results"], want, exact=False)
+    held_killed = held_bytes(base)
+    if rs.replica_failovers_total != 1:
+        raise AssertionError(f"replicas kill: "
+                             f"{rs.replica_failovers_total} failovers")
+    if held_killed > 1.25 * held_clean:
+        raise AssertionError(
+            f"replicas kill: {held_killed} bytes held after the failover "
+            f"against {held_clean} without: the dead engine leaked")
+    out["kill"] = dict(
+        failovers=rs.replica_failovers_total, kill_tick=FLEET_KILL_TICK,
+        diverged=ties_kill["diverged"],
+        rebuild_s=timing["rebuild_s"],
+        recapture_s=rs.engine(0).capture_seconds,
+        memory_bytes_at_failover=timing["memory_before"],
+        memory_bytes_after_rebuild=timing["memory_after"],
+        memory_bytes_held_after_run=held_killed,
+        memory_bytes_held_clean=held_clean,
+        tokens_per_sec=killed["tokens_per_sec"],
+        launch_counts=killed["counts"])
+    del rs
+    gc.collect()
+    log(f"replica set: {out}")
+    return out, analytics
+
+
+def check_disagg(graph, variables, dense: dict, header: dict) -> dict:
+    """DisaggFleet(prefill_replicas=1, decode_replicas=2): dense bf16 on
+    the random schedule, dense int8 and paged prefix-cache bf16 and int8
+    on the header schedule, each against the single engine of its pool on
+    the same schedule (the paged int8 one then repeats its header
+    requests from the fleet index); per-replica decode launches (the
+    prefill replica's must be 0), the hand-off's bytes and ms, the fleet
+    index's hits."""
+    from mmlspark_tpu_torch.serve import DisaggFleet
+
+    paged = dict(paged=True, page_size=PAGE_SIZE,
+                 num_pages=paged_num_pages(), prefix_cache=True)
+    out = {}
+    for label, kw, prompts, want, counter, exact in (
+        ("dense_bf16", {}, random_schedule(), dense["results"],
+         "launches", True),
+        ("dense_int8", dict(kv_dtype="int8"), header_schedule(),
+         header["header dense int8"]["results"], "q8_launches", True),
+        ("paged_prefix_bf16", paged, header_schedule(),
+         header["header paged bf16"]["results"], "paged_launches", True),
+        # the decode replica re-quantizes the handed-off prefix rows,
+        # which the prefill replica dequantized out of its shared pages,
+        # with fresh per-page scales: a near tie may flip
+        ("paged_prefix_int8", dict(paged, kv_dtype="int8"),
+         header_schedule(), header["header paged int8"]["results"],
+         "paged_q8_launches", False),
+    ):
+        fleet = DisaggFleet(graph, variables, prefill_replicas=1,
+                            decode_replicas=2, **fleet_kwargs(**kw))
+        with FleetProbe() as probe:
+            run = drive_set(fleet, prompts)
+        ties = check_near_ties(graph, variables, f"disagg {label}",
+                               run["results"], want, exact=exact)
+        md = fleet.metrics_dict()
+        per = probe.launches
+        prefill_launches = sum(per.get("replica0.prefill", {}).values())
+        decode = [per.get(f"replica{i}.decode", {}).get(counter, 0)
+                  for i in (1, 2)]
+        if prefill_launches or not all(decode) or \
+                run["counts"][counter] != sum(decode):
+            raise AssertionError(f"disagg {label}: decode launches per "
+                                 f"replica {per}")
+        if md["handoffs_total"] < N_REQUESTS or \
+                md["handoff_fallbacks_total"] or \
+                fleet.engine(0).decode_compile_count or \
+                any(fleet.engine(i).prefill_compile_count for i in (1, 2)):
+            raise AssertionError(f"disagg {label}: {md}")
+        out[label] = dict(
+            tokens_per_sec=run["tokens_per_sec"],
+            launch_counts=run["counts"], handoffs_total=md["handoffs_total"],
+            fleet_prefix_hits_total=md["fleet_prefix_hits_total"],
+            fleet_prefill_tokens_saved_total=md[
+                "fleet_prefill_tokens_saved_total"],
+            ttft_ms_p99=md["ttft_ms_p99"], diverged=ties["diverged"],
+            **probe.summary())
+        if label == "paged_prefix_int8":
+            out[label].update(repeat_from_the_index(fleet, prompts, run))
+        del fleet
+        gc.collect()
+    log(f"disagg: {out}")
+    return out
+
+
+def repeat_from_the_index(fleet, prompts, first: dict) -> dict:
+    """The header requests again: each an exact repeat, so the fleet
+    index serves it decode-only (no prefill anywhere) with the first
+    pass's stream; the prefill replica's own prefix cache hit the shared
+    header in the first pass."""
+    repeats = prompts[::2]
+    prefills = fleet.engine(0).metrics.submitted
+    hits = fleet.fleet_prefix_hits_total
+    again = drive_set(fleet, repeats)
+    for i, (gid, res) in enumerate(sorted(again["results"].items())):
+        if not np.array_equal(res.tokens, first["results"][2 * i].tokens):
+            raise AssertionError(f"fleet index repeat {gid}: the stream "
+                                 "differs from the first pass")
+    md = fleet.metrics_dict()
+    local = fleet.engine(0).pool.paging_stats()["prefix_cache_hits_total"]
+    if md["fleet_prefix_hits_total"] - hits != len(repeats) or \
+            fleet.engine(0).metrics.submitted != prefills or not local:
+        raise AssertionError(f"fleet index: {md}; prefill replica's "
+                             f"prefix hits {local}")
+    return {"repeats": len(repeats),
+            "fleet_prefix_hits_total": md["fleet_prefix_hits_total"],
+            "fleet_prefill_tokens_saved_total": md[
+                "fleet_prefill_tokens_saved_total"],
+            "prefill_replica_prefix_hits": local,
+            "repeat_tokens_per_sec": again["tokens_per_sec"],
+            "repeat_launch_counts": again["counts"]}
+
+
+def check_fleet_drills(graph, variables, dense: dict) -> dict:
+    """A corrupted hand-off falls back to a full prefill with equal
+    streams; a tight SLO sheds admissions and still completes every
+    admitted request."""
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.serve import DisaggFleet, ServeEngine
+
+    prompts = random_schedule()[:DRILL_REQUESTS]
+    want = dense["results"]
+    inj = FaultInjector([Fault("serve.handoff", "corrupt", tick=0)])
+    fleet = DisaggFleet(graph, variables, prefill_replicas=1,
+                        decode_replicas=1, faults=inj, **fleet_kwargs())
+    run = drive_set(fleet, prompts)
+    check_near_ties(graph, variables, "corrupt hand-off", run["results"],
+                    want, exact=True)
+    md = fleet.metrics_dict()
+    if not (md["integrity_handoff_checksum_failures_total"] >= 1
+            and md["handoff_fallbacks_total"] >= 1):
+        raise AssertionError(f"corrupt hand-off: no fallback: {md}")
+    out = {"corrupt_handoff": dict(
+        integrity_handoff_checksum_failures_total=md[
+            "integrity_handoff_checksum_failures_total"],
+        handoff_fallbacks_total=md["handoff_fallbacks_total"])}
+    del fleet
+    engine = ServeEngine(graph, variables, slo="ttft_p99_ms=0.001,"
+                         "min_samples=1,window_s=600", **fleet_kwargs())
+    shed = drive_set(engine, random_schedule())
+    check_near_ties(graph, variables, "slo shed", shed["results"], want,
+                    exact=True)
+    d = engine.metrics.to_dict()
+    if not (d["slo_shed_ticks_total"] > 0 and d["slo_violations_total"] > 0):
+        raise AssertionError(f"slo shed: nothing shed: {d['slo']}")
+    out["slo_shed"] = dict(
+        slo_shed_ticks_total=d["slo_shed_ticks_total"],
+        slo_violations_total=d["slo_violations_total"],
+        completed=d["completed"], ttft_ms_p99=d["ttft_ms_p99"],
+        tokens_per_sec=shed["tokens_per_sec"])
+    out["trace"] = write_trace(engine)
+    del engine
+    gc.collect()
+    return out
+
+
+def write_trace(engine) -> dict:
+    """The engine's Chrome trace, written and parsed back."""
+    import tempfile
+
+    from mmlspark_tpu_torch.core.perf import export_chrome_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        export_chrome_trace(engine.recorder, path=path)
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    slices = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    if not any(e["name"].startswith("decode[T=") for e in slices):
+        raise AssertionError("trace: no decode dispatch slice")
+    return {"events": len(doc["traceEvents"]), "slices": len(slices)}
+
+
+def fleet_launches(fleet: dict) -> dict:
+    """The decode kernels' launches over every run of the fleet phase;
+    each kernel's must be > 0 (each pool ran a fleet)."""
+    total = dict.fromkeys(DECODE_COUNTERS, 0)
+    runs = [fleet["replica_set"][k]["launch_counts"]
+            for k in ("clean", "drain", "kill")]
+    for run in fleet["disagg"].values():
+        runs.append(run["launch_counts"])
+        if "repeat_launch_counts" in run:
+            runs.append(run["repeat_launch_counts"])
+    for counts in runs:
+        for k in DECODE_COUNTERS:
+            total[k] += counts[k]
+    if not all(total.values()):
+        raise AssertionError(f"fleet: a decode kernel was not launched: "
+                             f"{total}")
+    fleet["launch_counts"] = total
+    return total
+
+
+def check_fleet(graph, variables, dense: dict, header: dict) -> dict:
+    """The fleet phase: the replica set, the disaggregated fleet, the
+    drills and the analytics (``device_peak`` resolves the card)."""
+    from mmlspark_tpu_torch.core.perf import device_peak
+
+    peak = device_peak()
+    if DEVICE == "cuda" and peak.source != "table":
+        raise AssertionError(f"device_peak: {peak} is not the table's")
+    replicas, analytics = check_replica_set(graph, variables, dense)
+    return {
+        "replica_set": replicas,
+        "disagg": check_disagg(graph, variables, dense, header),
+        "drills": check_fleet_drills(graph, variables, dense),
+        "analytics": {"peak": peak.to_dict(), "families": analytics},
+    }
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -4323,21 +4845,29 @@ def main() -> int:
     t0 = time.perf_counter()
     image = check_image()
     log(f"image phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fleet = check_fleet(graph, variables, dense, header)
+    log(f"fleet phase took {time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
-    # plus the MoE engines' (decode) and the MoE training run's
-    # (attention)
+    # plus the MoE engines' (decode), the MoE training run's (attention)
+    # and the fleet phase's (decode)
     moe_counts = {label: moe[label]["launch_counts"]
                   for label in ("moe dense bf16", "moe paged bf16")}
+    fleet_counts = fleet_launches(fleet)
     launches = {
         "launches": dense["counts"]["launches"]
-        + moe_counts["moe dense bf16"]["launches"],
-        "q8_launches": header["header dense int8"]["counts"]["q8_launches"],
+        + moe_counts["moe dense bf16"]["launches"]
+        + fleet_counts["launches"],
+        "q8_launches": header["header dense int8"]["counts"]["q8_launches"]
+        + fleet_counts["q8_launches"],
         "paged_launches":
             header["header paged bf16"]["counts"]["paged_launches"]
-            + moe_counts["moe paged bf16"]["paged_launches"],
+            + moe_counts["moe paged bf16"]["paged_launches"]
+            + fleet_counts["paged_launches"],
         "paged_q8_launches":
-            header["header paged int8"]["counts"]["paged_q8_launches"],
+            header["header paged int8"]["counts"]["paged_q8_launches"]
+            + fleet_counts["paged_q8_launches"],
     }
     moe_train = moe["training"]["launch_counts"]
     attn_rows, attn_backward = measure_attention_kernels(
@@ -4380,6 +4910,7 @@ def main() -> int:
     print(json.dumps({"dnn_stages": dnn_stages}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"image": image}))
+    print(json.dumps({"fleet": fleet}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

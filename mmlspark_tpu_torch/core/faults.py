@@ -4,7 +4,8 @@ engine and the trainer — the port's own copy of
 nothing of the JAX package).
 
 The engine's hook points (``serve.prefill``, ``serve.decode``,
-``serve.device_get`` and the periodic-checkpoint ``serve.snapshot``) and
+``serve.device_get``, the periodic-checkpoint ``serve.snapshot`` and the
+hand-off's ``serve.handoff``), the supervisors' ``serve.health`` and
 the trainer's (``train.step``, ``train.data``, ``train.checkpoint``,
 ``train.restore``) fire into a :class:`FaultInjector`:
 
@@ -47,10 +48,13 @@ Real errors on the card:
 
 The site table keeps the JAX package's names, so one fault spec parses on
 both frameworks and, over the same traffic, draws the same faults. The
-port's serving engine fires the four ``serve.*`` sites above and its
-trainer the four ``train.*`` sites; the supervisor's ``serve.health``,
-the hand-off's ``serve.handoff`` and the multi-model ``serve.batch`` wait
-for the fleet planes (ROADMAP.md Queue 1 item 12).
+port's serving engine fires the four ``serve.*`` sites above and the
+hand-off's ``serve.handoff``, its supervisors (``serve/supervisor.py``,
+``serve/fleet.py``) the health probe's ``serve.health``, and its trainer
+the four ``train.*`` sites; the multi-model ``serve.batch`` waits for
+the multi-model engine (ROADMAP.md Queue 1 item 19). A fault's
+``replica`` pins it to one replica of a supervised set: every engine
+tags its firings with its replica index.
 """
 
 from __future__ import annotations

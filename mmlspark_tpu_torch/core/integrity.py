@@ -33,8 +33,9 @@ invisible to the next replay. The port trains on one device, so
 :func:`per_device_checksums` has one copy to fold and
 :func:`corrupt_replica` corrupts that copy.
 
-Not in this slice: the hand-off drill ``corrupt_payload``, which waits
-with the hand-offs (ROADMAP.md Queue 1 item 12).
+:func:`corrupt_payload` is the ``serve.handoff`` drill: one seeded bit
+flipped in one KV leaf of a hand-off payload, on the payload's device,
+between production and adoption.
 """
 
 from __future__ import annotations
@@ -232,6 +233,28 @@ def corrupt_replica(tree, seed: int):
     with torch.no_grad():
         leaf.copy_(_tensor_from_host(flipped, leaf))
     return tree, _device_id(tree)
+
+
+def corrupt_payload(payload: dict, seed: int) -> dict:
+    """The ``serve.handoff`` corrupt drill: a shallow copy of a hand-off
+    payload whose KV cache has one seeded bit flipped in one leaf (leaf
+    from ``default_rng(seed)``, bit by :func:`flip_bit_array`). The
+    flipped leaf is a NEW tensor on the original's device — the producer's
+    cache (which a fleet index may share) is untouched — so the payload
+    is indistinguishable from a wire flip until a checksum looks."""
+    pay = dict(payload)
+    leaves = tree_leaves(pay["kv"])
+    candidates = [i for i, leaf in enumerate(leaves)
+                  if np.size(_host_array(leaf))]
+    if not candidates:
+        return pay
+    rng = np.random.default_rng(seed)
+    leaf = leaves[candidates[int(rng.integers(len(candidates)))]]
+    flipped = flip_bit_array(_host_array(leaf), seed)
+    if isinstance(leaf, torch.Tensor):
+        flipped = _tensor_from_host(flipped, leaf).to(leaf.device)
+    pay["kv"] = _map(pay["kv"], lambda t: flipped if t is leaf else t)
+    return pay
 
 
 # -- sha256 surfaces (wire payloads, snapshots, checkpoints) --------------------

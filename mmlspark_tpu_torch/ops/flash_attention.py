@@ -46,6 +46,8 @@ other route and no fallback between the two.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -91,6 +93,42 @@ COUNTERS = ("launches", "q8_launches", "paged_launches",
             "paged_q8_launches", "fwd_launches", "fwd_mma_launches",
             "bwd_kv_launches", "bwd_q_launches", "bwd_kv_mma_launches",
             "bwd_q_mma_launches")
+
+#: the decode kernels' own FLOPs and bytes while a cost analysis runs
+#: (:func:`meta_cost`); None otherwise
+_meta_acc: dict | None = None
+
+
+@contextlib.contextmanager
+def meta_cost():
+    """Collect the decode kernels' FLOPs and bytes over a run on ``meta``
+    tensors (``core/perf.analyze_program_cost``): a ``ctypes`` launch is
+    invisible to a dispatch mode, so each decode wrapper, given ``meta``
+    tensors, launches nothing and adds its kernel's figures here
+    instead. Yields the ``{"flops", "bytes"}`` accumulator."""
+    global _meta_acc
+    prev, _meta_acc = _meta_acc, {"flops": 0, "bytes": 0}
+    try:
+        yield _meta_acc
+    finally:
+        _meta_acc = prev
+
+
+def _meta_decode(q, L: int, hk: int, kv_elem: int, extra_bytes: int):
+    """A decode call on ``meta`` tensors: no launch and no raise; the
+    output's shape, and the kernel's figures added to :func:`meta_cost`
+    by the formula of ``PERF.md``'s bounds — q.k and p.v at 2 FLOPs a
+    multiply-add, each K and V row read once, q in and out, the lengths —
+    over every one of the ``L`` positions (a meta tensor holds no live
+    lengths)."""
+    b, _, h, d = q.shape
+    if _meta_acc is not None:
+        _meta_acc["flops"] += 4 * b * L * h * d
+        _meta_acc["bytes"] += (2 * b * L * hk * d * kv_elem
+                               + 2 * b * h * d * q.element_size()
+                               + b * 4 + extra_bytes)
+    return torch.empty_like(q)
+
 
 #: smallest page and the page unit: the paged pool's API contract
 #: (``serve/paging.py``), kept from the JAX package, where a page's
@@ -402,6 +440,9 @@ def flash_decode(q, k, v, lengths, *, scale=None, k_scale=None,
     if q.device.type == "cpu":
         return flash_decode_reference(q, k, v, lengths, scale=scale,
                                       k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "meta":
+        return _meta_decode(q, k.shape[1], k.shape[2], k.element_size(),
+                            2 * 4 * b * k.shape[2] if quantized else 0)
     _require_cuda(q, "flash_decode")
     return _launch_dense(q, k, v, lengths, float(scale), k_scale, v_scale)
 
@@ -492,6 +533,12 @@ def paged_flash_decode(q, k_pages, v_pages, lengths, page_table, *,
             q, k_pages, v_pages, lengths, page_table, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
+    if q.device.type == "meta":
+        n_pages = page_table.shape[1]
+        return _meta_decode(
+            q, n_pages * ps, k_pages.shape[1], k_pages.element_size(),
+            b * n_pages * 4
+            + (2 * 4 * b * n_pages * k_pages.shape[1] if quantized else 0))
     _require_cuda(q, "paged_flash_decode")
     return _launch_paged(q, k_pages, v_pages, lengths, page_table,
                          float(scale), k_scale, v_scale)

@@ -124,11 +124,41 @@ prefill, resume or chunk forward and each decode block — as the JAX
 engine runs ``_deq`` inside each of its programs; the graph drops its
 binding after each call. It composes with both pools and both KV dtypes.
 
+**Observability**: one request span per lifecycle (``SpanTracer`` over
+the engine's ``FlightRecorder``: queued, admitted, prefill or hand-off,
+decode blocks, the terminal status), a ``tick`` and a ``dispatch`` event
+per tick and per program, and ``metrics.perf`` (``core/perf.py``): each
+program family (``prefill[B]``, ``resume[B]``, ``chunk[W]``,
+``decode[T=t]``) is costed once, on ``meta`` tensors, before its first
+dispatch, and every dispatch interval ending at an EXISTING sync point is
+attributed to it — MFU and HBM bandwidth with no new host sync. ``slo``
+(a spec string, ``SloTargets`` or a ``SloMonitor``) sheds new admissions
+while its budget burns; an idle engine always admits.
+
+**The replica plane** (``serve/supervisor.py``, ``serve/fleet.py``):
+``replica`` tags every fault-hook firing (replica-pinned faults target
+this engine) and namespaces the registry's names (``replica0.serve.*``);
+``registry`` hands the metrics a shared registry; ``queue_full``,
+``steal_all``/``adopt`` (a drain's migration: emitted tokens ride as a
+resume prefix) and ``health_counters`` (the probe surface; host only) are
+what a supervisor drives. ``role="prefill"`` engines run admission and
+prefill only and retire each request as ``"handed_off"``, leaving a
+payload in the outbox (``take_handoffs``): the prefill (or resume, or
+final chunk) program's K/V rows ``[0, p)`` CLONED out of the program's
+static outputs before any other program of the engine replays (the next
+prefill would overwrite them), the first token and the trace id, stamped
+with ``integrity.payload_checksum`` (the hand-off's one host copy).
+``role="decode"`` engines take payloads through ``adopt_handoff``: at
+admission the payload is re-verified and its K/V written straight into
+the leased slot by ``write_prefill`` (no program runs) through the
+``serve.handoff`` fault site; a payload that is corrupt or cannot land
+falls back to a full local prefill, and greedy determinism keeps the
+stream unchanged either way.
+
 Decode is greedy — the same tokens as ``generate()`` per request, which
 is the engine's correctness contract (int8 pools and int8 weights:
 within a token-flip budget of the bf16 streams). Not in this slice:
-meshes (ROADMAP.md Queue 1 item 13); spans, SLOs, replicas, the
-prefill/decode roles and KV hand-offs (item 12).
+meshes (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -149,10 +179,17 @@ from mmlspark_tpu_torch.core.faults import (
     is_transient,
 )
 from mmlspark_tpu_torch.core.integrity import SnapshotCorruption
+from mmlspark_tpu_torch.core.perf import (
+    ProgramCost,
+    SloMonitor,
+    SloTargets,
+    analyze_program_cost,
+    parse_slo_spec,
+)
 from mmlspark_tpu_torch.core.telemetry import (
     FlightRecorder,
-    MetricRegistry,
     RetraceWatchdog,
+    SpanTracer,
 )
 from mmlspark_tpu_torch.models.bridge import variables_to
 from mmlspark_tpu_torch.models.generate import (
@@ -179,21 +216,24 @@ from mmlspark_tpu_torch.testing.compile_guard import (
     ProgramCountingGraph,
     program_count,
 )
+from mmlspark_tpu_torch.utils.profiling import annotate
 
 
 class ServeEngine:
     def __init__(self, graph, variables, *, slots: int = 4,
                  cache_len: int | None = None, max_queue: int = 16,
                  pad_id: int = 0, decode_block: int = 32,
+                 recorder: FlightRecorder | None = None,
                  faults: FaultInjector | None = None,
                  retry_limit: int = 3, retry_backoff_s: float = 0.02,
-                 degrade_recover_ticks: int = 8,
+                 degrade_recover_ticks: int = 8, slo=None,
                  paged: bool = False, page_size: int | None = None,
                  num_pages: int | None = None, prefix_cache: bool = False,
+                 replica: int | None = None,
                  snapshot_every_ticks: int | None = None,
                  kv_dtype: str = "bf16", quantize_weights: bool = False,
-                 prefill_chunk: int | None = None,
-                 async_host: bool = False, device=None):
+                 role: str = "both", prefill_chunk: int | None = None,
+                 async_host: bool = False, registry=None, device=None):
         if not graph.extra.get("causal", False):
             raise FriendlyError(
                 f"serving needs a causal LM; '{graph.name}' has "
@@ -320,25 +360,67 @@ class ServeEngine:
             self.pool = SlotCachePool(graph, self.variables, slots,
                                       cache_len, device=self.device,
                                       kv_dtype=kv_dtype)
+        # the replica identity: tags every fault-hook firing (so
+        # replica-pinned faults target THIS engine) and namespaces the
+        # registry's metric names
+        if replica is not None and replica < 0:
+            raise FriendlyError(
+                f"replica index must be >= 0, got {replica}"
+            )
+        self._replica = replica
+        # the disaggregated fleet's role: "prefill" engines admit and
+        # prefill only, retiring each request as "handed_off" with its
+        # payload in the outbox; "decode" engines adopt payloads by
+        # direct KV write (and keep full prefill, the fallback); "both"
+        # is the homogeneous engine
+        if role not in ("both", "prefill", "decode"):
+            raise FriendlyError(
+                f"role must be 'both', 'prefill' or 'decode', got "
+                f"{role!r}"
+            )
+        self.role = role
+        #: hand-off payloads awaiting collection (prefill role)
+        self._outbox: list[dict] = []
+        #: engine-local request id -> the pending payload its admission
+        #: adopts
+        self._handoffs: dict[int, dict] = {}
         self._snapshot_every = snapshot_every_ticks
         self._last_snapshot: dict | None = None
         #: set once an EngineKilled escaped and the slots were parked
         self._dead = False
         self.metrics = ServeMetrics(
-            graph.name, slots, decode_block=self.decode_block,
+            graph.name, slots, registry=registry,
+            decode_block=self.decode_block,
             cache_pool_bytes_per_device=self.pool.device_bytes_per_device(),
             kv_dtype=kv_dtype, prefill_chunk=prefill_chunk or 0,
             async_host=self._async_host,
+            namespace=f"replica{replica}." if replica is not None else "",
         )
         if paged:
             self.metrics.attach_paging(self.pool.paging_stats)
+        #: the registry the metrics, the SLO monitor and the retrace
+        #: watchdogs record into
+        self.registry = self.metrics.registry
+        #: one span per request lifecycle, in the flight recorder
+        self.recorder = recorder if recorder is not None else FlightRecorder()
+        self._tracer = SpanTracer(self.recorder)
+        self._spans: dict[int, object] = {}
         self._sched = ContinuousBatchScheduler(self.pool,
                                                max_queue=max_queue)
         self._vocab = graph.extra.get("vocab_size")
         self._next_id = 0
         self._block = make_decode_block(graph, pad_id)
-        self.registry = MetricRegistry()
-        self.recorder = FlightRecorder()
+        # the SLO plane: a spec string, SloTargets or a SloMonitor; while
+        # its budget burns, new admissions wait (in-flight requests
+        # finish)
+        if isinstance(slo, str):
+            slo = parse_slo_spec(slo)
+        if isinstance(slo, SloTargets):
+            slo = SloMonitor(slo, recorder=self.recorder,
+                             registry=self.registry)
+        self._slo: SloMonitor | None = slo
+        if slo is not None:
+            self.metrics.attach_slo(slo)
         # the resilience layer; faults=None keeps every hook one
         # attribute check
         self._faults = faults
@@ -381,6 +463,9 @@ class ServeEngine:
         self._decode = self._program(
             self._decode_body, "serve.decode", self.num_decode_blocks,
             state_argnums=(0, 1, 2, 3))
+        #: each program family's analytic cost, worked out once in the
+        #: engine's life (``_analyze``, ``_analyze_block``)
+        self._costs: dict[str, ProgramCost] = {}
         #: ladder sizes whose decode program exists: a size's first call
         #: runs eagerly before its capture, so a capture failure leaves
         #: the pool's positions and live mask advanced
@@ -580,6 +665,8 @@ class ServeEngine:
             req = self._sched.preempt(slot)
             self._sched.requeue(req)
             self.metrics.record_preemption()
+            self._span_event(req.id, "preempted", tick=tick, slot=slot,
+                             prefix_len=len(req.prefix))
             self.recorder.record("preempted", tick=tick, id=req.id,
                                  slot=slot, prefix_len=len(req.prefix))
         self._admit_cap = max(1, self._admit_cap - 1)
@@ -622,6 +709,8 @@ class ServeEngine:
         else."""
         res = self._sched.fail(slot, tick)
         self.metrics.record_quarantine()
+        self._span_event(res.id, "quarantined", tick=tick, slot=slot,
+                         reason=reason)
         self.recorder.record("quarantine", tick=tick, id=res.id, slot=slot,
                              reason=reason)
         return res
@@ -633,13 +722,80 @@ class ServeEngine:
         self.pool.free(slot)
         res = self._sched.fail_unactivated(req, tick)
         self.metrics.record_quarantine()
+        self._span_event(req.id, "quarantined", tick=tick, slot=slot,
+                         reason=reason)
         self.recorder.record("quarantine", tick=tick, id=req.id, slot=slot,
                              reason=reason)
         return res
 
     def _fire(self, site: str, tick: int, request: int | None = None):
         if self._faults is not None:
-            self._faults.fire(site, tick=tick, request=request)
+            self._faults.fire(site, tick=tick, request=request,
+                              replica=self._replica)
+
+    # -- spans and analytics -------------------------------------------------
+
+    def _open_span(self, req, event: str, **attrs) -> None:
+        """Open request ``req``'s lifecycle span with its first event."""
+        span = self._tracer.span(
+            "request", tick=self.tick, id=req.id, trace=req.trace_id,
+            prompt_len=int(req.prompt.size),
+            max_new_tokens=req.max_new_tokens,
+        )
+        span.event(event, tick=self.tick, **attrs)
+        self._spans[req.id] = span
+
+    def _span_event(self, rid: int, name: str, **attrs) -> None:
+        span = self._spans.get(rid)
+        if span is not None:
+            span.event(name, **attrs)
+
+    def _end_span(self, rid: int, status: str, **attrs) -> None:
+        span = self._spans.pop(rid, None)
+        if span is not None:
+            span.end(status, **attrs)
+
+    def _analyze(self, family: str, body, *args) -> None:
+        """Register ``family``'s cost with the metrics before its first
+        dispatch. The cost is worked out once in the engine's life —
+        ``body`` runs on meta copies of ``args``: no device work, no
+        sync, no program made or counted — and kept, so metrics made
+        afresh take it without a second run."""
+        perf = self.metrics.perf
+        if perf.wants_program(family):
+            cost = self._costs.get(family)
+            if cost is None:
+                cost = self._costs[family] = analyze_program_cost(body,
+                                                                  *args)
+            perf.register_program(family, cost)
+
+    def _analyze_block(self, t_block: int, *args) -> str:
+        """Register the cost of the decode block of ``t_block``
+        micro-steps; returns its family. A block is ``t_block`` copies of
+        one micro-step plus the stacking of their tokens, so its cost is
+        affine in the block size: the body runs on meta tensors at 1 and
+        2 steps, once per engine, and the line is extended to every
+        ladder size."""
+        family = f"decode[T={t_block}]"
+        if not self.metrics.perf.wants_program(family):
+            return family
+        if family not in self._costs:
+            one, two = (self._costs.get(f"decode[T={t}]") for t in (1, 2))
+            if one is None or two is None:
+                one, two = (analyze_program_cost(self._decode_body, *args,
+                                                 t) for t in (1, 2))
+            if one.flops is None or two.flops is None:
+                cost = ProgramCost.unavailable()
+            else:
+                cost = ProgramCost(
+                    one.flops + (t_block - 1) * (two.flops - one.flops),
+                    one.bytes_accessed + (t_block - 1)
+                    * (two.bytes_accessed - one.bytes_accessed),
+                    one.source)
+            self._costs.update({"decode[T=1]": one, "decode[T=2]": two,
+                                family: cost})
+        self.metrics.perf.register_program(family, self._costs[family])
+        return family
 
     # -- introspection -----------------------------------------------------
 
@@ -725,6 +881,7 @@ class ServeEngine:
             raise
         self._next_id += 1
         self.metrics.record_submit()
+        self._open_span(req, "queued", queue_depth=self.queue_depth)
         return req.id
 
     def step(self) -> list[RequestResult]:
@@ -755,32 +912,61 @@ class ServeEngine:
         tick = self._sched.tick_count
         finished = self._sched.expire(tick)
         tokens_this_tick = 0
-        while (
-            self._sched.queue_depth
-            and self.pool.free_count
-            # memory-pressure degradation admits fewer concurrent
-            # requests than the pool has slots
-            and self.pool.leased_count < self._admit_cap
-        ):
-            req = self._sched.pop_next()
-            slot = self.pool.lease()
-            # preempted and restored requests re-prefill prompt + the
-            # tokens already emitted: greedy determinism makes the
-            # resumed stream equal to an uninterrupted one
-            seq = _sequence(req)
-            if self._chunk is not None:
-                # admission only STARTS the fill; _advance_fills runs
-                # every chunk
-                self._start_fill(req, slot, seq, tick)
-                continue
-            first, bucket = self._prefill(slot, seq, req.id, tick)
-            if first is None:
-                finished.append(self._quarantine_unactivated(
-                    req, slot, tick, "prefill_failed"))
-                continue
-            if self._first_token(req, slot, first, bucket, tick,
-                                 finished):
-                tokens_this_tick += 1
+        # SLO load shedding: while the budget burns, NEW admissions wait
+        # (in-flight requests keep decoding, so the overload drains); an
+        # idle engine admits regardless, or it could never observe the
+        # recovery
+        shedding = (
+            self._slo is not None and self._slo.should_shed
+            and self.pool.leased_count > 0
+        )
+        if shedding and self._sched.queue_depth:
+            self.metrics.record_slo_shed()
+            self.recorder.record("slo_shed", tick=tick,
+                                 queue_depth=self._sched.queue_depth)
+        with annotate("serve.admit"):
+            while (
+                not shedding
+                and self._sched.queue_depth
+                and self.pool.free_count
+                # memory-pressure degradation admits fewer concurrent
+                # requests than the pool has slots
+                and self.pool.leased_count < self._admit_cap
+            ):
+                req = self._sched.pop_next()
+                slot = self.pool.lease()
+                self._span_event(req.id, "admitted", tick=tick, slot=slot)
+                # preempted and restored requests re-prefill prompt + the
+                # tokens already emitted: greedy determinism makes the
+                # resumed stream equal to an uninterrupted one
+                seq = _sequence(req)
+                payload = self._handoffs.pop(req.id, None)
+                attempts = 0
+                if payload is not None:
+                    # another replica's prefill output for this exact
+                    # sequence, written straight into the slot
+                    first, attempts = self._adopt_payload(req, slot, seq,
+                                                          payload, tick)
+                    if first is not None:
+                        if self._first_token(req, slot, first, None, tick,
+                                             finished,
+                                             site="serve.handoff"):
+                            tokens_this_tick += 1
+                        continue
+                if self._chunk is not None:
+                    # admission only STARTS the fill; _advance_fills runs
+                    # every chunk
+                    self._start_fill(req, slot, seq, tick)
+                    continue
+                first, bucket, cache = self._prefill(slot, seq, req.id,
+                                                     tick, attempts)
+                if first is None:
+                    finished.append(self._quarantine_unactivated(
+                        req, slot, tick, "prefill_failed"))
+                    continue
+                if self._first_token(req, slot, first, bucket, tick,
+                                     finished, kv=cache):
+                    tokens_this_tick += 1
         if self._sched.filling:
             tokens_this_tick += self._advance_fills(tick, finished)
         # slot occupancy AS OF the decode block: a request can join and
@@ -796,8 +982,19 @@ class ServeEngine:
             self._sched.queue_depth, leased_this_tick, tick_s,
             tokens_emitted=tokens_this_tick,
         )
+        self.recorder.record("tick", tick=tick, ms=round(tick_s * 1e3, 3),
+                             tokens=tokens_this_tick)
         for res in finished:
             self.metrics.record_finish(res)
+            # a request retired before admission (a deadline) abandons
+            # its pending hand-off payload
+            self._handoffs.pop(res.id, None)
+            self._end_span(res.id, res.status, tick=res.finish_tick,
+                           generated=res.generated)
+        # once a tick, after the finish feed: the next tick's admission
+        # sees the freshest shed signal
+        if self._slo is not None:
+            self._slo.evaluate(tick=tick)
         if (
             self._snapshot_every is not None
             and self._sched.tick_count % self._snapshot_every == 0
@@ -805,14 +1002,19 @@ class ServeEngine:
             self.checkpoint()
         return finished
 
-    def _first_token(self, req, slot: int, first: int, bucket: int,
-                     tick: int, finished: list) -> bool:
-        """Admit a prefilled request with its first token: the poison
-        check, then activation. Returns whether the token was emitted
+    def _first_token(self, req, slot: int, first: int, bucket: int | None,
+                     tick: int, finished: list, *,
+                     site: str = "serve.prefill", kv=None) -> bool:
+        """Admit a prefilled (or adopted: ``bucket`` None, ``site``
+        ``serve.handoff``) request with its first token: the poison
+        check, then activation — or, on a prefill-role engine, the
+        hand-off of ``kv`` (the program's output cache, valid over the
+        request's sequence). Returns whether the token was emitted
         (False: quarantined)."""
         if self._faults is not None:
-            poison = self._faults.poison_value("serve.prefill", tick=tick,
-                                               request=req.id)
+            poison = self._faults.poison_value(site, tick=tick,
+                                               request=req.id,
+                                               replica=self._replica)
             if poison is not None:
                 first = int(poison)
         if not self._token_ok(first):
@@ -822,69 +1024,195 @@ class ServeEngine:
                 req, slot, tick, "poisoned_token"))
             return False
         self.metrics.record_first_token(req, tick, bucket)
+        if self.role == "prefill" and kv is not None and not (
+            len(req.prefix) + 1 >= req.max_new_tokens
+            or (req.eos_id is not None and first == req.eos_id)
+        ):
+            # a request the first token already finishes completes here
+            self._hand_off(req, slot, first, kv,
+                           len(req.prompt) + len(req.prefix), tick)
+            finished.append(self._sched.handoff_result(req, first, tick))
+            return True
         done = self._sched.activate(slot, req, first, tick)
         if done is not None:
             finished.append(done)
         return True
 
-    def _prefill(self, slot: int, seq: np.ndarray, rid: int,
-                 tick: int) -> tuple[int | None, int]:
-        """Prefill ``seq`` into ``slot`` behind the retry policy; returns
-        (the first greedy token — a host sync — or None when the retries
-        are spent; the bucket the forward ran at). A prefix-cache hit
-        runs only the remainder, over the cached prefix's gathered K/V; a
-        miss (or an entry evicted since the lookup) runs the whole
-        sequence on a batch-1 linear cache of one bucket."""
-        p = len(seq)
+    def _hand_off(self, req, slot: int, first: int, kv: dict, length: int,
+                  tick: int) -> None:
+        """A prefill-role terminal: the slot frees (a prefix cache's entry
+        keeps its pages) and the payload enters the outbox — K/V rows
+        ``[0, length)`` CLONED from ``kv``, a program's static output
+        that the engine's next replay overwrites, then stamped with the
+        payload checksum (its one host copy)."""
+        self.pool.free(slot)
+        payload = {
+            "id": req.id,
+            "prompt": np.asarray(req.prompt, np.int32),
+            "prefix": np.asarray(req.prefix, np.int32),
+            "length": length,
+            "first_token": int(first),
+            "kv": {name: tuple(t[:, :length].clone() for t in leaves)
+                   for name, leaves in kv.items()},
+            "max_new_tokens": req.max_new_tokens,
+            "eos_id": req.eos_id,
+            # the trace context rides the hand-off: the decode replica's
+            # span carries the same id
+            "trace_id": req.trace_id,
+        }
+        payload["checksum"] = integrity.payload_checksum(payload)
+        self._outbox.append(payload)
+        self.recorder.record("handoff_out", tick=tick, id=req.id,
+                             seq_len=length, trace=req.trace_id)
+
+    def _adopt_payload(self, req, slot: int, seq: np.ndarray, payload: dict,
+                       tick: int) -> tuple[int | None, int]:
+        """Land a hand-off payload in ``slot``: re-verify its checksum,
+        then write its K/V straight into the slot (no program runs)
+        through the ``serve.handoff`` fault site, behind the retry
+        policy. Returns (the first token, or None when the payload is
+        corrupt or could not land — the caller then prefills locally;
+        the attempts spent, which carry over into that prefill's
+        budget)."""
         attempts = 0
+        with annotate("serve.handoff"):
+            if self._faults is not None:
+                # the silent-corruption drill: a seeded bit-flip in one KV
+                # leaf between production and adoption
+                cseed = self._faults.corrupt_spec(
+                    "serve.handoff", tick=tick, request=req.id,
+                    replica=self._replica)
+                if cseed is not None:
+                    payload = integrity.corrupt_payload(payload, cseed)
+            ok, expected, actual = integrity.verify_payload(payload)
+            if not ok:
+                self.metrics.record_integrity_handoff_failure()
+                self.recorder.record("integrity.handoff_checksum",
+                                     tick=tick, id=req.id,
+                                     expected=expected, actual=actual)
+                self.metrics.record_handoff_fallback()
+                self.recorder.record("handoff_fallback", tick=tick,
+                                     id=req.id)
+                return None, attempts
+            p = len(seq)
+            tp = time.perf_counter()
+            while True:
+                try:
+                    self._fire("serve.handoff", tick, req.id)
+                    self.pool.write_prefill(slot, payload["kv"], p)
+                    if self._prefix_cache:
+                        self.pool.prefix_insert(slot, seq)
+                    break
+                except Exception as e:
+                    attempts += 1
+                    if not self._absorb(e, attempts, tick,
+                                        "serve.handoff"):
+                        self.metrics.record_handoff_fallback()
+                        self.recorder.record("handoff_fallback", tick=tick,
+                                             id=req.id)
+                        return None, attempts
+        ms = round((time.perf_counter() - tp) * 1e3, 3)
+        self.metrics.record_handoff_adopt()
+        self._span_event(req.id, "handoff_adopted", tick=tick, seq_len=p,
+                         ms=ms)
+        self.recorder.record("handoff_adopted", tick=tick, id=req.id,
+                             seq_len=p, ms=ms)
+        return int(payload["first_token"]), attempts
+
+    def _prefill(self, slot: int, seq: np.ndarray, rid: int, tick: int,
+                 attempts: int = 0) -> tuple[int | None, int, dict | None]:
+        """Prefill ``seq`` into ``slot`` behind the retry policy
+        (``attempts`` already spent count against it); returns (the first
+        greedy token — a host sync — or None when the retries are spent;
+        the bucket the forward ran at; the program's output cache, valid
+        over ``[0, len(seq))`` until the engine's next replay). A
+        prefix-cache hit runs only the remainder, over the cached
+        prefix's gathered K/V; a miss (or an entry evicted since the
+        lookup) runs the whole sequence on a batch-1 linear cache of one
+        bucket. The dispatch interval, ending at the existing sync, is
+        attributed to the program's family."""
+        p = len(seq)
         hit = (self.pool.prefix_lookup(seq, self.prefill_bucket)
                if self._prefix_cache else None)
-        if hit is not None:
-            entry, keep = hit
-            r = p - keep
-            bucket = self.prefill_bucket(r)
-            ids = self._padded(seq[keep:], bucket)
-            # the prefix's K/V gathered back into a linear cache: retries
-            # reuse it (a repeated write lands the same values)
-            lin = self.pool.gather_prefix(entry, keep)
+        with annotate("serve.prefill"):
+            if hit is not None:
+                entry, keep = hit
+                r = p - keep
+                bucket = self.prefill_bucket(r)
+                ids = self._padded(seq[keep:], bucket)
+                # the prefix's K/V gathered back into a linear cache:
+                # retries reuse it (a repeated write lands the same
+                # values)
+                lin = self.pool.gather_prefix(entry, keep)
+                family = f"resume[{bucket}]"
+                self._analyze(family, self._resume_body, self.variables,
+                              ids, lin, self._scalar(keep),
+                              self._scalar(r - 1))
+                tp = time.perf_counter()
+                while True:
+                    try:
+                        self._fire("serve.prefill", tick, rid)
+                        tok, cache = self._resume(
+                            self.variables, ids, lin, self._scalar(keep),
+                            self._scalar(r - 1))
+                        # map the shared pages FIRST (the slot's
+                        # references keep them alive through any eviction
+                        # the remainder write triggers), then scatter only
+                        # [keep, p)
+                        if not self.pool.map_prefix(slot, entry, keep):
+                            # evicted since the lookup: its pages may be
+                            # free or reallocated — fall back to the full
+                            # prefill
+                            hit = None
+                            break
+                        self.pool.write_prefill(slot, cache, p, start=keep)
+                        first = int(tok)
+                        self._prefilled(rid, family, tp, tick, bucket, keep)
+                        return first, bucket, cache
+                    except Exception as e:
+                        attempts += 1
+                        if not self._absorb(e, attempts, tick,
+                                            "serve.prefill"):
+                            return None, bucket, None
+            bucket = self.prefill_bucket(p)
+            ids = self._padded(seq, bucket)
+            family = f"prefill[{bucket}]"
+            self._analyze(family, self._prefill_body, self.variables, ids,
+                          self._scalar(p - 1))
+            tp = time.perf_counter()
             while True:
                 try:
                     self._fire("serve.prefill", tick, rid)
-                    tok, cache = self._resume(
-                        self.variables, ids, lin, self._scalar(keep),
-                        self._scalar(r - 1))
-                    # map the shared pages FIRST (the slot's references
-                    # keep them alive through any eviction the remainder
-                    # write triggers), then scatter only [keep, p)
-                    if not self.pool.map_prefix(slot, entry, keep):
-                        # evicted since the lookup: its pages may be free
-                        # or reallocated — fall back to the full prefill
-                        hit = None
-                        break
-                    self.pool.write_prefill(slot, cache, p, start=keep)
-                    return int(tok), bucket
+                    tok, cache = self._prefill_program(
+                        self.variables, ids, self._scalar(p - 1))
+                    # only the REAL prompt's K/V enter the slot; the pad
+                    # tail of the bucket cache is dropped (the program's
+                    # outputs are consumed before any other program
+                    # replays)
+                    self.pool.write_prefill(slot, cache, p)
+                    if self._prefix_cache:
+                        self.pool.prefix_insert(slot, seq)
+                    first = int(tok)
+                    self._prefilled(rid, family, tp, tick, bucket, 0)
+                    return first, bucket, cache
                 except Exception as e:
                     attempts += 1
-                    if not self._absorb(e, attempts, tick, "serve.prefill"):
-                        return None, bucket
-        bucket = self.prefill_bucket(p)
-        ids = self._padded(seq, bucket)
-        while True:
-            try:
-                self._fire("serve.prefill", tick, rid)
-                tok, cache = self._prefill_program(
-                    self.variables, ids, self._scalar(p - 1))
-                # only the REAL prompt's K/V enter the slot; the pad tail
-                # of the bucket cache is dropped (the program's outputs
-                # are consumed before any other program replays)
-                self.pool.write_prefill(slot, cache, p)
-                if self._prefix_cache:
-                    self.pool.prefix_insert(slot, seq)
-                return int(tok), bucket
-            except Exception as e:
-                attempts += 1
-                if not self._absorb(e, attempts, tick, "serve.prefill"):
-                    return None, bucket
+                    if not self._absorb(e, attempts, tick,
+                                        "serve.prefill"):
+                        return None, bucket, None
+
+    def _prefilled(self, rid: int, family: str, tp: float, tick: int,
+                   bucket: int, reused: int) -> None:
+        """Account one prefill whose first token is in hand: the dispatch
+        interval since ``tp`` (ending at the prefill's own sync) goes to
+        ``family``."""
+        prefill_s = time.perf_counter() - tp
+        ms = round(prefill_s * 1e3, 3)
+        self._span_event(rid, "prefill", tick=tick, bucket=bucket, ms=ms,
+                         reused=reused)
+        self.metrics.perf.record_dispatch(family, prefill_s, tokens=1)
+        self.recorder.record("dispatch", tick=tick, family=family, ms=ms,
+                             tokens=1)
 
     def _padded(self, tokens: np.ndarray, bucket: int):
         """``tokens`` right-padded to (1, ``bucket``) on the device."""
@@ -935,6 +1263,8 @@ class ServeEngine:
             carry = self._fresh_carry()
         self._sched.start_fill(slot, req, len(seq), keep,
                                {"cache": carry, "entry": entry}, tick)
+        self._span_event(req.id, "fill_started", tick=tick, total=len(seq),
+                         reused=keep)
 
     def _chunk_call(self, fs, ids, start: int, last: int):
         """One chunk program over the fill's carry. The program's carry
@@ -980,53 +1310,67 @@ class ServeEngine:
                 padded = seq[start:start + bucket]
                 last = bucket - 1
             ids = self._padded(padded, bucket)
+            family = f"chunk[{bucket}]"
+            self._analyze(family, self._resume_body, self.variables, ids,
+                          fs.carry["cache"], self._scalar(start),
+                          self._scalar(last))
             attempts = 0
+            tp = time.perf_counter()
             if not final:
                 ok = False
-                while True:
-                    try:
-                        self._fire("serve.prefill", tick, req.id)
-                        self._chunk_call(fs, ids, start, last)
-                        ok = True
-                        break
-                    except Exception as e:
-                        attempts += 1
-                        if not self._absorb(e, attempts, tick,
-                                            "serve.prefill"):
+                with annotate("serve.prefill"):
+                    while True:
+                        try:
+                            self._fire("serve.prefill", tick, req.id)
+                            self._chunk_call(fs, ids, start, last)
+                            ok = True
                             break
+                        except Exception as e:
+                            attempts += 1
+                            if not self._absorb(e, attempts, tick,
+                                                "serve.prefill"):
+                                break
                 if not ok:
                     self._sched.fill_done(slot)
                     finished.append(self._quarantine_unactivated(
                         req, slot, tick, "prefill_failed"))
                     continue
                 fs.filled += bucket
+                chunk_s = time.perf_counter() - tp
                 self.metrics.record_prefill_chunk()
+                # no host sync here: the interval is enqueue-side only;
+                # the device time rides the final chunk's sync
+                self.metrics.perf.record_dispatch(family, chunk_s)
                 self.recorder.record("prefill_chunk", tick=tick, id=req.id,
-                                     filled=fs.filled, total=fs.total)
+                                     filled=fs.filled, total=fs.total,
+                                     ms=round(chunk_s * 1e3, 3))
+                self._span_event(req.id, "prefill_chunk", tick=tick,
+                                 filled=fs.filled, total=fs.total)
                 continue
 
             # -- the final chunk: compute, land in the slot, sync ----------
             entry = fs.carry["entry"]
             first, stale = None, False
-            while True:
-                try:
-                    self._fire("serve.prefill", tick, req.id)
-                    tok, cache = self._chunk_call(fs, ids, start, last)
-                    # map the shared prefix pages FIRST, then scatter
-                    # only [keep, total)
-                    if entry is not None and not self.pool.map_prefix(
-                            slot, entry, fs.keep):
-                        stale = True
+            with annotate("serve.prefill"):
+                while True:
+                    try:
+                        self._fire("serve.prefill", tick, req.id)
+                        tok, cache = self._chunk_call(fs, ids, start, last)
+                        # map the shared prefix pages FIRST, then scatter
+                        # only [keep, total)
+                        if entry is not None and not self.pool.map_prefix(
+                                slot, entry, fs.keep):
+                            stale = True
+                            break
+                        self.pool.write_prefill(slot, cache, fs.total,
+                                                start=fs.keep)
+                        first = int(tok)
                         break
-                    self.pool.write_prefill(slot, cache, fs.total,
-                                            start=fs.keep)
-                    first = int(tok)
-                    break
-                except Exception as e:
-                    attempts += 1
-                    if not self._absorb(e, attempts, tick,
-                                        "serve.prefill"):
-                        break
+                    except Exception as e:
+                        attempts += 1
+                        if not self._absorb(e, attempts, tick,
+                                            "serve.prefill"):
+                            break
             if stale:
                 # the prefix entry was evicted since the fill started: the
                 # fill restarts from scratch (the stream is unchanged)
@@ -1042,7 +1386,11 @@ class ServeEngine:
             self.metrics.record_prefill_chunk()
             if self._prefix_cache and entry is None:
                 self.pool.prefix_insert(slot, seq)
-            if self._first_token(req, slot, first, bucket, tick, finished):
+            self._prefilled(req.id, family, tp, tick, bucket, fs.keep)
+            # a prefill-role hand-off fires at fill completion: the
+            # carry's rows [0, total) are the monolithic prefill's output
+            if self._first_token(req, slot, first, bucket, tick, finished,
+                                 kv=fs.carry["cache"]):
                 tokens += 1
         return tokens
 
@@ -1129,17 +1477,22 @@ class ServeEngine:
                 sel[list(lag)] = True
                 tok_d = torch.where(host_to_device(sel, self.device),
                                     prev["last"], tok_d)
-            issued = time.perf_counter()
+            pool = self.pool
+            family = self._analyze_block(t_block, self.variables,
+                                         pool.buffers, pool.positions,
+                                         pool.live, tok_d, rem_d, eos_d)
             try:
-                if self._paged:
-                    # pre-map every page this block can write; page
-                    # exhaustion walks the degradation ladder like an
-                    # allocator OOM
-                    self.pool.ensure_decode_pages(pre_pos, t_block)
-                # the hook fires BEFORE the call: an injected failure
-                # never touches the pool
-                self._fire("serve.decode", tick)
-                staged = self._decode_call(t_block, tok_d, rem_d, eos_d)
+                with annotate("serve.decode"):
+                    issued = time.perf_counter()
+                    if self._paged:
+                        # pre-map every page this block can write; page
+                        # exhaustion walks the degradation ladder like an
+                        # allocator OOM
+                        self.pool.ensure_decode_pages(pre_pos, t_block)
+                    # the hook fires BEFORE the call: an injected failure
+                    # never touches the pool
+                    self._fire("serve.decode", tick)
+                    staged = self._decode_call(t_block, tok_d, rem_d, eos_d)
             except Exception as e:
                 attempts += 1
                 if not self._absorb(e, attempts, tick, "serve.decode"):
@@ -1149,7 +1502,8 @@ class ServeEngine:
             self.pool.defer_frees(self._dispatch_gen)
             self._inflight = dict(
                 staged, states=states, pre_pos=pre_pos,
-                t_block=t_block, issued=issued, gen=self._dispatch_gen,
+                t_block=t_block, family=family, issued=issued,
+                gen=self._dispatch_gen, n_active=len(states),
                 overlapped=prev is not None)
             if prev is not None:
                 self.metrics.record_overlapped_dispatch()
@@ -1260,7 +1614,8 @@ class ServeEngine:
                            max(0.0, prev_done - inflight["issued"]))
         if self._faults is not None:
             toks_h = self._faults.poison_block(
-                "serve.device_get", toks_h, tick=tick, slots=live_rows())
+                "serve.device_get", toks_h, tick=tick, slots=live_rows(),
+                replica=self._replica)
         # token-stream validation: greedy tokens are argmax indices in
         # [0, vocab); quarantine a corrupted row BEFORE consume() folds it
         bad_rows = (toks_h < 0).any(axis=1)
@@ -1282,10 +1637,19 @@ class ServeEngine:
             c * (pre_pos[slot] + 1) + c * (c - 1) // 2
             for slot, c in consumed.items()
         )
+        exec_s = max(0.0, dispatch_s - queued_s)
+        n_active = inflight["n_active"]
         self.metrics.record_decode(
-            max(0.0, dispatch_s - queued_s), n_tokens, block=t_block,
+            n_active, exec_s, tokens_emitted=n_tokens, block=t_block,
             live_kv=live_kv, cache_len=self.cache_len,
         )
+        family = inflight["family"]
+        self.metrics.perf.record_dispatch(family, dispatch_s,
+                                          tokens=n_tokens, queued_s=queued_s)
+        decode_ms = round(exec_s * 1e3, 3)
+        self.recorder.record("dispatch", tick=tick, family=family,
+                             ms=decode_ms, queued_ms=round(queued_s * 1e3, 3),
+                             tokens=n_tokens)
         for slot, st in states.items():
             if slot in quarantined or consumed.get(slot) is None:
                 continue
@@ -1297,6 +1661,12 @@ class ServeEngine:
                     f"device live mask and host retirement disagree for "
                     f"slot {slot} (block T={t_block})"
                 )
+        for slot, st in states.items():
+            if consumed.get(slot) is not None:
+                self._span_event(st.req.id, "decode", tick=tick,
+                                 pos=pre_pos[slot], n_active=n_active,
+                                 block=t_block, tokens=consumed[slot],
+                                 step_ms=decode_ms)
         finished.extend(blk_finished)
         self._note_clean_dispatch(tick)
         self._close_frees(inflight["gen"])
@@ -1327,6 +1697,9 @@ class ServeEngine:
                     for res in self._sched.stall_pending(self.tick):
                         results[res.id] = res
                         self.metrics.record_finish(res)
+                        self._end_span(res.id, res.status,
+                                       tick=res.finish_tick,
+                                       generated=res.generated)
                     err = FriendlyError(
                         f"serve run() exceeded max_ticks ({max_ticks}) "
                         f"with {n_queued} queued and {n_active} active "
@@ -1339,38 +1712,220 @@ class ServeEngine:
                     results[res.id] = res
         return results
 
-    # -- cancel, kill, checkpoint and restore --------------------------------
+    # -- the replica plane (serve/supervisor.py, serve/fleet.py) -------------
+
+    @property
+    def queue_full(self) -> bool:
+        """True when the next ``submit`` would bounce off admission
+        control — the router's check before choosing a replica."""
+        return self._sched.queue_depth >= self._sched.max_queue
 
     def cancel(self, request_id: int) -> int | None:
-        """Cancel one pending request WITHOUT a terminal result: a queued
-        entry leaves the queue, an active or filling one frees its slot.
-        Returns the emitted-token count discarded, or None when the id is
-        unknown or terminal (or the engine is dead)."""
+        """Cancel one pending request WITHOUT a terminal result (a hedge's
+        losing copy, failover dedup): a queued entry leaves the queue, an
+        active or filling one frees its slot. Returns the emitted-token
+        count discarded, or None when the id is unknown or terminal (or
+        the engine is dead)."""
         if self._dead:
             return None
         emitted = self._sched.cancel(request_id)
         if emitted is None:
             return None
+        self._handoffs.pop(request_id, None)
         self.metrics.record_cancel()
+        self._end_span(request_id, "cancelled", tick=self.tick)
         self.recorder.record("cancelled", tick=self.tick, id=request_id,
                              emitted=emitted)
         return emitted
 
+    def steal_all(self) -> list[dict]:
+        """Hand off EVERY pending request for migration to another replica
+        (a zero-loss drain, or stall cleanup): active slots preempt (their
+        emitted tokens fold into resume prefixes, their slots free), then
+        the fills and the queue. Returns plain payload dicts for
+        :meth:`adopt` on the target engine; re-prefilling prompt + prefix
+        there continues each stream unchanged."""
+        reqs = self._sched.handoff_all() if not self._dead else []
+        out = []
+        for req in reqs:
+            # a pending KV payload stays behind: the adopting engine
+            # re-prefills from the prompt
+            self._handoffs.pop(req.id, None)
+            out.append({
+                "id": req.id,
+                "prompt": np.asarray(req.prompt, np.int32),
+                "prefix": np.asarray(req.prefix, np.int32),
+                "max_new_tokens": req.max_new_tokens,
+                "eos_id": req.eos_id,
+                "trace_id": req.trace_id,
+            })
+            self._end_span(req.id, "migrated", tick=self.tick,
+                           prefix_len=len(req.prefix))
+        if out:
+            self.recorder.record("handoff", tick=self.tick, n=len(out))
+        return out
+
+    def adopt(self, prompt, *, prefix=(), max_new_tokens: int,
+              eos_id: int | None = None,
+              trace_id: str | None = None) -> int:
+        """Admit a request MIGRATED from another replica (a drain or a
+        failover re-route): ``prefix`` is the tokens the source already
+        emitted, re-prefilled with the prompt so decode resumes where it
+        stopped. Bypasses ``max_queue`` — the request was admitted once
+        already. Returns the new engine-local id."""
+        prompt = np.asarray(prompt, np.int32)
+        prefix = np.asarray(prefix, np.int32)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise FriendlyError(
+                f"adopt needs a non-empty 1-D prompt, got shape "
+                f"{prompt.shape}"
+            )
+        if len(prefix) >= max_new_tokens:
+            raise FriendlyError(
+                f"adopted prefix ({len(prefix)} tokens) already meets "
+                f"the request budget ({max_new_tokens}); the source "
+                "replica should have retired it as completed"
+            )
+        if int(prompt.size) + max_new_tokens > self.cache_len:
+            raise FriendlyError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds this engine's cache_len "
+                f"({self.cache_len}); migrate to a replica with equal "
+                "cache geometry"
+            )
+        req = self._queue_migrated(prompt, prefix, max_new_tokens, eos_id,
+                                   trace_id)
+        self._open_span(req, "adopted", prefix_len=len(prefix))
+        return req.id
+
+    def take_handoffs(self) -> list[dict]:
+        """Drain the prefill-role outbox: every hand-off payload produced
+        since the last call, in hand-off order; [] on a dead engine (the
+        fleet re-routes those requests from its own ledger)."""
+        if self._dead:
+            return []
+        out, self._outbox = self._outbox, []
+        return out
+
+    def adopt_handoff(self, payload: dict) -> int:
+        """Admit a hand-off payload (what :meth:`take_handoffs` returns,
+        routed by ``serve/fleet.py``): like :meth:`adopt`, but carrying
+        the source's prefill K/V and first token, so admission writes the
+        K/V straight into the leased slot — no prefill program runs here
+        and the stream continues unchanged. A payload that is corrupt or
+        cannot land falls back to a full local prefill. Returns the new
+        engine-local id."""
+        prompt = np.asarray(payload["prompt"], np.int32)
+        prefix = np.asarray(payload.get("prefix", ()), np.int32)
+        max_new_tokens = int(payload["max_new_tokens"])
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise FriendlyError(
+                f"hand-off payload needs a non-empty 1-D prompt, got "
+                f"shape {prompt.shape}"
+            )
+        if len(prefix) + 1 > max_new_tokens:
+            raise FriendlyError(
+                f"hand-off prefix ({len(prefix)} tokens) + the first "
+                f"token exceed the request budget ({max_new_tokens}); "
+                "the prefill replica should have completed it locally"
+            )
+        if int(payload["length"]) != int(prompt.size) + len(prefix):
+            raise FriendlyError(
+                f"hand-off payload length ({payload['length']}) does "
+                f"not match prompt ({prompt.size}) + prefix "
+                f"({len(prefix)}); the payload is torn"
+            )
+        if int(prompt.size) + max_new_tokens > self.cache_len:
+            raise FriendlyError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds this engine's cache_len "
+                f"({self.cache_len}); hand off to a replica with equal "
+                "cache geometry"
+            )
+        req = self._queue_migrated(prompt, prefix, max_new_tokens,
+                                   payload.get("eos_id"),
+                                   payload.get("trace_id"))
+        self._handoffs[req.id] = dict(payload)
+        self._open_span(req, "handoff_queued",
+                        seq_len=int(payload["length"]))
+        return req.id
+
+    def _queue_migrated(self, prompt, prefix, max_new_tokens: int,
+                        eos_id, trace_id) -> ServeRequest:
+        """Queue a migrated request (no deadline, past ``max_queue``)
+        under a new engine-local id; the trace id survives the move."""
+        req = ServeRequest(
+            id=self._next_id,
+            prompt=prompt,
+            max_new_tokens=max_new_tokens,
+            eos_id=eos_id,
+            deadline_tick=None,
+            submit_tick=self.tick,
+            submit_wall=time.perf_counter(),
+            prefix=prefix,
+            trace_id=str(trace_id or f"t{self._next_id}"),
+        )
+        self._sched.queue.append(req)
+        self._next_id += 1
+        self.metrics.record_submit()
+        return req
+
+    def health_counters(self) -> dict:
+        """The supervisor's probe surface, host-side only (no device
+        sync): tick progress, queue and slot load, degradation, SLO burn
+        and the fault and retry totals."""
+        return {
+            "tick": self.tick,
+            "busy": self.busy,
+            "dead": self._dead,
+            "role": self.role,
+            "queue_depth": self.queue_depth,
+            "active": len(self._sched.active),
+            "filling": len(self._sched.filling),
+            "degraded": self.degraded,
+            "slo_burning": (
+                bool(self._slo.should_shed) if self._slo is not None
+                else False
+            ),
+            # consecutive burning SLO evaluations: the fleet
+            # autoscaler's scale-up signal
+            "slo_burn_ticks": (
+                int(self._slo.burn_ticks) if self._slo is not None else 0
+            ),
+            "retries_total": self.metrics.retries_total,
+            "quarantined_total": self.metrics.quarantined_total,
+            "faults_injected_total": self.metrics.faults_injected_total,
+            "tokens_generated": self.metrics.tokens_generated,
+        }
+
+    # -- kill, checkpoint and restore -------------------------------------------
+
     def _park_after_kill(self) -> None:
-        """Deterministic parking for a killed engine: the in-flight block
-        is dropped, the deferred-free window closes, and every leased
-        slot frees back to the pool (a paged pool's mappings release), so
-        an engine restored from the snapshot in the same process never
-        double-holds device state. The host's request bookkeeping is kept
-        for a post-mortem snapshot."""
+        """Deterministic parking for a killed engine: the outbox empties,
+        the in-flight block is dropped, the deferred-free window closes,
+        every leased slot frees back to the pool (a paged pool's mappings
+        release) and the captured programs are released, so an engine
+        restored from the snapshot in the same process never double-holds
+        device state. The host's request bookkeeping (and the program
+        counts) are kept for a post-mortem."""
         if self._dead:
             return
         self._dead = True
+        # undelivered hand-off payloads die with the engine: the fleet
+        # re-routes those requests from its ledger
+        self._outbox.clear()
         self._inflight = None
         self.pool.flush_frees(None)
         leased = self.pool.leased_slots()
         for slot in leased:
             self.pool.free(slot)
+        # the captured programs and their graph pool go too: a supervisor
+        # rebuilding replicas in this process must not hold one pool per
+        # failover
+        for program in (self._prefill_program, self._resume, self._chunk,
+                        self._decode):
+            if program is not None:
+                program._fn.release()
         self.recorder.record("killed", tick=self.tick,
                              parked_slots=len(leased))
 
@@ -1403,7 +1958,8 @@ class ServeEngine:
             # the silent-corruption drill: the flip lands AFTER the
             # checksum stamp, latent until a restore re-hashes
             cseed = self._faults.corrupt_spec("serve.snapshot",
-                                              tick=self.tick)
+                                              tick=self.tick,
+                                              replica=self._replica)
             if cseed is not None:
                 snap = integrity.flip_bit_json(snap, cseed)
         self._last_snapshot = snap
@@ -1507,6 +2063,8 @@ class ServeEngine:
                 trace_id=str(entry.get("trace") or f"t{int(entry['id'])}"),
             ))
             engine.metrics.record_submit()
+            req = engine._sched.queue[-1]
+            engine._open_span(req, "restored", prefix_len=len(req.prefix))
         # the restored engine's first recovery point IS its snapshot
         engine._last_snapshot = snapshot
         return engine

@@ -11,11 +11,9 @@ advances its fill one chunk a tick, and joins the decode batch when the
 fill completes. The resilience layer's transitions — quarantine
 (``fail``), preemption with a resume prefix, ``requeue`` and ``cancel`` —
 and the async engine's identity fence (``consume(..., states=)``) are
-here too.
-
-Not in this slice: the hand-off transitions (``handoff_all``,
-``handoff_result``) wait for the replica plane (ROADMAP.md Queue 1 item
-12).
+here too, and so are the replica plane's hand-off transitions:
+``handoff_all`` (a drain's migration of every pending request) and
+``handoff_result`` (a prefill-role engine's ``"handed_off"`` terminal).
 """
 
 from __future__ import annotations
@@ -63,9 +61,11 @@ class RequestResult:
     (budget or EOS reached), ``"expired"`` (deadline passed while queued
     or mid-decode), ``"failed"`` (quarantined by the engine's fault
     handling: a poisoned token stream, or a dispatch failure that retries
-    could not absorb) or ``"stalled"`` (``run()`` hit its ``max_ticks``
-    bound). ``tokens`` includes the prompt, like ``generate()``, and for a
-    non-completed status whatever was generated."""
+    could not absorb), ``"stalled"`` (``run()`` hit its ``max_ticks``
+    bound) or ``"handed_off"`` (a prefill-role engine finished the
+    prefill and shipped the KV to a decode replica). ``tokens`` includes
+    the prompt, like ``generate()``, and for a non-completed status
+    whatever was generated."""
 
     id: int
     status: str
@@ -324,6 +324,39 @@ class ContinuousBatchScheduler:
                 self.pool.free(slot)
                 return len(fs.req.prefix)
         return None
+
+    def handoff_all(self) -> list[ServeRequest]:
+        """Pop EVERY pending request for migration to another replica:
+        active slots preempt first (slots free, emitted tokens folded
+        into resume prefixes — re-prefilling prompt + prefix elsewhere
+        continues each stream unchanged), then mid-fill requests (the
+        fill restarts from scratch on the adopting replica), then the
+        queue in FIFO order. A zero-loss drain's hand-off."""
+        out = [self.preempt(slot) for slot in sorted(self.active)]
+        for slot in sorted(self.filling):
+            fs = self.filling.pop(slot)
+            self.pool.free(slot)
+            out.append(fs.req)
+        while self.queue:
+            out.append(self.queue.popleft())
+        return out
+
+    def handoff_result(self, req: ServeRequest, first_token: int,
+                       tick: int) -> RequestResult:
+        """Terminal record for a PREFILL-ROLE engine: the request's KV
+        and first token went to a decode replica, so it is terminal here
+        with status ``"handed_off"`` and never activates a decode slot.
+        ``tokens`` carries prompt + resume prefix + the first token — the
+        frontier the decode replica resumes from."""
+        return self._result(
+            req, "handed_off",
+            tokens=np.concatenate([
+                req.prompt, req.prefix,
+                np.asarray([first_token], np.int32),
+            ]),
+            generated=len(req.prefix) + 1,
+            first_token_tick=tick, tick=tick,
+        )
 
     def stall_pending(self, tick: int) -> list[RequestResult]:
         """Retire EVERY still-pending request (queued, active, filling)

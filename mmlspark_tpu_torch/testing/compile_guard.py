@@ -225,6 +225,13 @@ class ProgramCountingGraph:
     def _cache_size(self) -> int:
         return len(self._programs)
 
+    def release(self) -> None:
+        """Drop every captured graph — and with the last of them the
+        pool's memory — keeping the program count (a killed engine's
+        post-mortem reads it). A released key runs eagerly if called
+        again."""
+        self._programs = dict.fromkeys(self._programs)
+
     def __call__(self, *args):
         key = tuple(_signature(a) for a in args)
         if key not in self._programs:

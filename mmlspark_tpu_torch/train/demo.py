@@ -13,36 +13,19 @@ committed checkpoint — bit-exact, per the drill tests.
 
 Float features on purpose: ``train.data`` poison NaN-corrupts a feature
 row, which drives the grad-anomaly quarantine. With ``telemetry_dir`` the
-flight recorder's timeline lands in ``events.jsonl`` and the metrics dict
-in ``metrics.json``; the JAX demo's ``metrics.prom`` waits for the
-Prometheus exposition (ROADMAP.md Queue 1 item 12).
+flight recorder's timeline lands in ``events.jsonl``, the metrics dict in
+``metrics.json`` and the registry's Prometheus text exposition in
+``metrics.prom`` — the JAX demo's bundle, each file written atomically.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import tempfile
 
 import numpy as np
 
 from mmlspark_tpu_torch.core.exceptions import ParamError
-
-
-def _atomic_write(path: str, text: str) -> None:
-    """Write ``text`` to a temp file beside ``path``, then ``os.replace``
-    it: a kill mid-dump leaves the old file or the new one, never half."""
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
-                               prefix=os.path.basename(path) + ".",
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w", encoding="utf-8") as f:
-            f.write(text)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
@@ -140,9 +123,16 @@ def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
     if injector is not None:
         out["faults_injected"] = dict(injector.counts)
     if telemetry_dir:
+        from mmlspark_tpu_torch.core.telemetry import (
+            atomic_write_json,
+            atomic_write_text,
+        )
+
+        # a kill mid-dump never leaves a torn telemetry file
         os.makedirs(telemetry_dir, exist_ok=True)
-        _atomic_write(os.path.join(telemetry_dir, "events.jsonl"),
-                      recorder.dump())
-        _atomic_write(os.path.join(telemetry_dir, "metrics.json"),
-                      json.dumps(out, indent=1, default=str))
+        recorder.dump(os.path.join(telemetry_dir, "events.jsonl"))
+        atomic_write_json(os.path.join(telemetry_dir, "metrics.json"), out,
+                          indent=1, default=str)
+        atomic_write_text(os.path.join(telemetry_dir, "metrics.prom"),
+                          registry.to_prometheus())
     return out

@@ -1577,3 +1577,153 @@ def test_resnet50_featurizer_on_card_matches_cpu_f32(cuda):
                      output_node="pool").numpy()
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= 1e-2, err
+
+
+# -- the replica planes on the card -------------------------------------------
+
+
+def _decode_counts():
+    return {name: getattr(fa, name) for name in
+            ("launches", "q8_launches", "paged_launches",
+             "paged_q8_launches")}
+
+
+def _count_per_engine(engines):
+    """Wrap each engine's ``step`` to add the decode launch counters'
+    delta over the step to that engine's tally (the replicas step one at
+    a time, so each delta is that engine's alone)."""
+    tallies = []
+    for engine in engines:
+        tally = dict.fromkeys(_decode_counts(), 0)
+        inner = engine.step
+
+        def step(inner=inner, tally=tally):
+            before = _decode_counts()
+            try:
+                return inner()
+            finally:
+                for k, v in _decode_counts().items():
+                    tally[k] += v - before[k]
+
+        engine.step = step
+        tallies.append(tally)
+    return tallies
+
+
+def _fleet_prompts(seed: int):
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, 64, size=24)
+    return ([np.concatenate([head, rng.integers(0, 64, size=n)])
+             for n in (3, 9, 14)]
+            + [rng.integers(0, 64, size=n) for n in (4, 17, 30, 2, 11)])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(kv_dtype="int8"),
+    dict(paged=True, page_size=16, prefix_cache=True),
+], ids=["dense", "dense_int8", "paged_prefix"])
+def test_replica_and_fleet_streams_equal_the_single_engine(cuda, kw):
+    """A ReplicaSet of 2 and a DisaggFleet of 1 prefill + 2 decode
+    replicas over the same pool and KV dtype give every stream of a
+    single engine, bit for bit, on the card; the prefill replica
+    launches no decode kernel and the decode replicas make no prefill
+    program."""
+    from mmlspark_tpu_torch.serve import DisaggFleet, ReplicaSet, ServeEngine
+
+    graph, variables = _small_lm()
+    prompts = _fleet_prompts(7)
+    common = dict(slots=3, cache_len=64, decode_block=8, max_queue=16,
+                  retry_backoff_s=0.0, **kw)
+    single = ServeEngine(graph, variables, **common)
+    rids = [single.submit(p, 12) for p in prompts]
+    want = single.run()
+    counter = "q8_launches" if kw.get("kv_dtype") else (
+        "paged_launches" if kw.get("paged") else "launches")
+    rs = ReplicaSet(graph, variables, replicas=2, **common)
+    fleet = DisaggFleet(graph, variables, prefill_replicas=1,
+                        decode_replicas=2, **common)
+    tallies = _count_per_engine([fleet.engine(i) for i in range(3)])
+    for target in (rs, fleet):
+        gids = [target.submit(p, 12) for p in prompts]
+        got = target.run()
+        for gid, rid in zip(gids, rids):
+            np.testing.assert_array_equal(got[gid].tokens,
+                                          want[rid].tokens)
+    assert fleet.handoffs_total == len(prompts)
+    assert fleet.metrics_dict()["handoff_fallbacks_total"] == 0
+    assert sum(tallies[0].values()) == 0, tallies
+    assert all(t[counter] > 0 for t in tallies[1:]), tallies
+    assert fleet.engine(0).decode_compile_count == 0
+    assert all(fleet.engine(i).prefill_compile_count == 0 for i in (1, 2))
+
+
+def test_payload_held_across_a_second_prefill_adopts_correctly(cuda):
+    """The prefill program's outputs are static: the next replay of the
+    same bucket overwrites them. A payload taken only AFTER a second
+    prefill of that bucket still adopts by direct write (no fallback)
+    and continues to the single engine's stream — it holds a copy."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    rng = np.random.default_rng(3)
+    a, b = rng.integers(0, 64, size=12), rng.integers(0, 64, size=13)
+    common = dict(slots=2, cache_len=64, decode_block=8,
+                  retry_backoff_s=0.0)
+    single = ServeEngine(graph, variables, **common)
+    ra = single.submit(a, 10)
+    want = single.run()[ra].tokens
+    prefill = ServeEngine(graph, variables, role="prefill", **common)
+    for p in (a, b, a):  # three replays of the 16-token bucket's program
+        prefill.submit(p, 10)
+        prefill.step()
+    payloads = prefill.take_handoffs()
+    assert prefill.prefill_compile_count == 1 and len(payloads) == 3
+    decode = ServeEngine(graph, variables, role="decode", **common)
+    rid = decode.adopt_handoff(payloads[0])
+    got = decode.run()[rid].tokens
+    assert decode.metrics.handoffs_adopted_total == 1
+    assert decode.metrics.handoff_fallbacks_total == 0
+    assert decode.prefill_compile_count == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_failovers_leave_no_graph_pool_behind(cuda):
+    """Three kills and rebuilds: the dead engines' captured programs,
+    graph pools and KV pools are released, so the device memory a
+    replica set holds after its run is within 25% of a set that never
+    failed over (one leaked engine of this model would add ~50%)."""
+    import gc
+
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.serve import ReplicaSet
+
+    graph, variables = _wide_lm()
+    prompts = [np.random.default_rng(s).integers(0, 512, size=40)
+               for s in range(6)]
+
+    def held(faults):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        rs = ReplicaSet(graph, variables, replicas=2, slots=4,
+                        cache_len=256, decode_block=8, max_queue=8,
+                        snapshot_every_ticks=2, faults=faults,
+                        retry_backoff_s=0.0)
+        for p in prompts:
+            rs.submit(p, 40)
+        rs.run()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out = torch.cuda.memory_allocated() - base, \
+            rs.replica_failovers_total
+        del rs
+        return out
+
+    clean, n0 = held(None)
+    kills = FaultInjector([Fault("serve.decode", "kill", tick=t, replica=0)
+                           for t in (1, 3, 5)])
+    failed, n3 = held(kills)
+    assert (n0, n3) == (0, 3)
+    assert failed <= 1.25 * clean, (failed, clean)

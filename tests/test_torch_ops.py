@@ -116,18 +116,27 @@ def test_flash_decode_validation_matches_jax():
 
 
 def test_flash_decode_routes_by_device():
-    """A CPU tensor takes the plain version (no launch); a tensor on any
-    other non-CUDA device is refused rather than computed somewhere
-    else."""
+    """A CPU tensor takes the plain version (no launch); a ``meta`` tensor
+    (a cost analysis) launches nothing and counts the kernel's FLOPs and
+    bytes; a tensor on any other non-CUDA device is refused rather than
+    computed somewhere else."""
     q = torch.zeros(1, 1, 2, 8)
     k = torch.zeros(1, 4, 2, 8)
     before = fa.launches
     out = fa.flash_decode(q, k, k, torch.tensor([2], dtype=torch.int32))
     assert out.shape == q.shape and fa.launches == before
     meta = [t.to("meta") for t in (q, k)]
+    with fa.meta_cost() as cost:
+        out = fa.flash_decode(
+            meta[0], meta[1], meta[1],
+            torch.tensor([2], dtype=torch.int32, device="meta"))
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert fa.launches == before
+    # q.k and p.v over every one of the 4 positions, 2 heads of 8
+    assert cost["flops"] == 4 * 1 * 4 * 2 * 8
+    assert cost["bytes"] == 2 * 4 * 2 * 8 * 4 + 2 * 2 * 8 * 4 + 4
     with pytest.raises(ValueError, match="cuda"):
-        fa.flash_decode(meta[0], meta[1], meta[1],
-                        torch.tensor([2], dtype=torch.int32, device="meta"))
+        fa._require_cuda(meta[0], "flash_decode")
 
 
 # -- (b) the dense oracle, the masks and RoPE vs JAX ------------------------

@@ -318,9 +318,17 @@ def test_paged_flash_decode_validation_and_routing():
     out = fa.paged_flash_decode(q, pages, pages, lens, pt)
     assert out.shape == q.shape
     assert (fa.paged_launches, fa.paged_q8_launches) == before
+    # a meta tensor (a cost analysis) launches nothing and returns the
+    # output's shape; any other non-CUDA device is refused
     meta = [t.to("meta") for t in (q, pages, lens, pt)]
+    with fa.meta_cost() as cost:
+        out = fa.paged_flash_decode(meta[0], meta[1], meta[1], meta[2],
+                                    meta[3])
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert (fa.paged_launches, fa.paged_q8_launches) == before
+    assert cost["flops"] > 0 and cost["bytes"] > 0
     with pytest.raises(ValueError, match="cuda"):
-        fa.paged_flash_decode(meta[0], meta[1], meta[1], meta[2], meta[3])
+        fa._require_cuda(meta[0], "paged_flash_decode")
 
 
 # -- the paged engine against the JAX paged engine and the dense engine -------

@@ -290,7 +290,8 @@ def test_metrics_keys_are_the_jax_names():
     """Every key the port reports exists under the same name in the JAX
     ServeMetrics, and per-token latency divides by tokens emitted."""
     port = ServeMetrics("m", slots=2, decode_block=8)
-    port.record_decode(0.013, 13, block=8, live_kv=40, cache_len=32)
+    port.record_decode(2, 0.013, tokens_emitted=13, block=8, live_kv=40,
+                       cache_len=32)
     port.sample_tick(1, 2, 0.02, tokens_emitted=13)
     d = port.to_dict()
     assert set(d) <= set(JaxServeMetrics("m", 2).to_dict())
@@ -358,7 +359,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.ops.native_build, mmlspark_tpu_torch.ops.decode, "
         "mmlspark_tpu_torch.data.readers, mmlspark_tpu_torch.data.sample_data, "
         "mmlspark_tpu_torch.ops.image_ops, mmlspark_tpu_torch.stages.image, "
-        "mmlspark_tpu_torch.models.zoo, mmlspark_tpu_torch.data.ctf\n"
+        "mmlspark_tpu_torch.models.zoo, mmlspark_tpu_torch.data.ctf, "
+        "mmlspark_tpu_torch.core.perf, mmlspark_tpu_torch.serve.supervisor, "
+        "mmlspark_tpu_torch.serve.fleet, mmlspark_tpu_torch.serve.demo, "
+        "mmlspark_tpu_torch.utils.profiling, "
+        "mmlspark_tpu_torch.core.metrics_contracts\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
         "'transformer_lm_moe'):\n"
@@ -397,7 +402,9 @@ def test_port_sources_name_no_jax_import():
                  "parallel/expert.py", "models/moe.py", "core/config.py",
                  "ops/native_build.py", "ops/decode.py", "data/readers.py",
                  "data/sample_data.py", "ops/image_ops.py",
-                 "stages/image.py", "models/zoo.py", "data/ctf.py"):
+                 "stages/image.py", "models/zoo.py", "data/ctf.py",
+                 "core/perf.py", "serve/supervisor.py", "serve/fleet.py",
+                 "utils/profiling.py", "core/metrics_contracts.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):
