@@ -6,8 +6,9 @@ training path at the full width of the repo's serve model, the stage
 layer (``TPUModel``, ``DNNLearner``) over ResNet-20, ResNet-50, the
 BiLSTM tagger and the flash LM, the switch-MoE LM served and trained,
 the image path (decode, ``ImageFeaturizer`` over ResNet-50, the model
-zoo), and the replica planes (``ReplicaSet``, ``DisaggFleet`` with KV
-hand-offs), and prints the measured numbers.
+zoo), the replica planes (``ReplicaSet``, ``DisaggFleet`` with KV
+hand-offs), and multi-model serving over an ONNX-imported graph with the
+telemetry hub, and prints the measured numbers.
 
     python3 chip_smoke.py
 
@@ -244,7 +245,40 @@ Phases (each one fails the run with a non-zero exit on error):
    trace written and parsed. Analytics: ``device_peak()`` resolves the
    card from the table, and every program family's MFU and HBM share
    (``metrics.perf``, costed on meta tensors) reads at or under 100%;
-11. numbers: each kernel's, its plain version's and (where one exists)
+11. multi-model serving (the ``multimodel`` line), each run a main path
+   with the counts set to 0 just before it and read just after:
+   ``engine_from_spec`` over ``lm`` (the serve model on phase 3's weights
+   and configuration), ``r50`` (ResNet-50 at 224, ``max_batch=64``,
+   seeded weights drawn on the card) and ``ox`` (the serve model written
+   by the port's ONNX exporter at one 128-token row and imported back),
+   a ``TelemetryHub`` attached and scraped between ticks: phase 3's
+   random schedule 2 a tick beside 168 images (64 + 64 + 40, padded)
+   and 8 id rows.
+   Gates: every ``lm`` stream bit-equal to the dense engine's, its
+   program counts equal to it and one fetch a decode block (the hub adds
+   none), ``flash_decode`` launched ``depth`` times a micro-step; every
+   ``r50`` batch bit-equal to a direct apply of the same bucket-size
+   batch on the card, the padded batch within MM_PAD_TOL of the unpadded
+   one's; every ``ox`` row bit-equal to the imported graph's direct
+   apply and within MM_OX_F32_TOL of the native graph computing in f32
+   on the same weights; one program per bucket used, within
+   ``num_batch_buckets``; a warm pass adding no program; at
+   ``device_budget=1`` under a saturating ``lm`` each batch deployment
+   served within 3 ticks; a fresh ResNet-50 deployment absorbing a
+   ``serve.batch`` transient and walking an OOM down to bucket 32 and
+   back without a new program; the hub's timeline ordered by wall time,
+   one chain per request, its trace through JSON and ``GET /metrics`` on
+   an ephemeral loopback port with every deployment's labeled series;
+   ``close()`` leaving every graph pool empty; and ``ReplicaSet(models=
+   {"lm", "lm2"}, replicas=2)`` routing each request to its model's
+   replica, every stream equal to its dedicated engine's. Reported: warm
+   tokens/s beside the dense engine's, ``r50`` images/s through the
+   facade and its program alone beside ``dnn_stages``' figure, ``ox`` ms
+   a batch beside the native bf16 graph's (both replayed from a CUDA
+   graph), capture seconds and graph-pool bytes per deployment, and the
+   hub's refresh, export and bundle ms, beside the card's name and power
+   limit;
+12. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -4763,6 +4797,488 @@ def check_fleet(graph, variables, dense: dict, header: dict) -> dict:
     }
 
 
+# -- multi-model serving over an imported graph (ROADMAP.md Queue 1 item 19) --
+
+#: the batch deployments: ResNet-50 at 224 on the ladder 1-64, fed 64 + 64
+#: + 40 images (the last batch padded to 64), and the serve model exported
+#: to ONNX at one 128-token row (its reshape targets bake batch 1)
+MM_R50_BATCH, MM_R50_IMAGES, MM_R50_TIMED, MM_R50_SIZE = 64, 168, 256, 224
+MM_OX_LEN, MM_OX_ROWS = 128, 8
+#: the padded batch's real rows against the unpadded batch's direct
+#: apply: bf16 convolutions at another batch size may take another cuDNN
+#: algorithm; max abs error over the logits' max abs
+MM_PAD_TOL = 2e-2
+#: the imported LM (f32 ops) against the native graph computing in f32
+#: on the same weights: sums in other orders through 8 layers
+MM_OX_F32_TOL = 2e-3
+#: seconds every request to the metrics endpoint may take
+MM_HTTP_TIMEOUT = 30
+
+
+def mm_spec(path: str) -> str:
+    """The phase's ``--models`` spec: the serve model as ``lm`` under the
+    dense engine's configuration, ResNet-50 and the ONNX file."""
+    lm = ":".join(f"{k}={v}" for k, v in SERVE_MODEL.items())
+    return (f"lm=transformer_lm:{lm}:slots={SLOTS}:cache_len={CACHE_LEN}:"
+            f"decode_block={DECODE_BLOCK}:max_queue={N_REQUESTS};"
+            f"r50=resnet50:input_size={MM_R50_SIZE}:"
+            f"max_batch={MM_R50_BATCH}:max_queue=256;"
+            f"ox=onnx:path={path}:max_batch=1:max_queue={MM_OX_ROWS}")
+
+
+def drive_mm(engine, prompts, examples: dict, hub=None) -> dict:
+    """One main path through the multi-model facade: every batch example
+    queued first, then the LM prompts arriving 2 a tick (MAX_NEW tokens
+    each) — the dense engine's schedule — with every deployment stepped
+    each tick; the hub (when given) scraped between ticks. The counts are
+    set to 0 just before and read just after."""
+    import torch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    batch_gids = {name: [engine.submit(x, model=name) for x in xs]
+                  for name, xs in examples.items()}
+    lm_gids, results, submitted = [], {}, 0
+    while submitted < len(prompts) or engine.busy:
+        for _ in range(ARRIVALS_PER_TICK):
+            if submitted < len(prompts):
+                lm_gids.append(engine.submit(
+                    prompts[submitted], model="lm", max_new_tokens=MAX_NEW))
+                submitted += 1
+        for res in engine.step():
+            results[res.id] = res
+        if hub is not None:
+            hub.to_prometheus()
+            hub.merged_events()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lm = engine.deployment("lm")
+    return dict(
+        results={i: results[g] for i, g in enumerate(lm_gids)},
+        batch={name: [results[g] for g in gids]
+               for name, gids in batch_gids.items()},
+        lm_gids=lm_gids, counts=counts, wall_s=wall,
+        micro_steps=sum(int(t) * n
+                        for t, n in lm.metrics.decode_blocks.items()))
+
+
+def check_mm_batches(engine, run: dict, images, rows, variables) -> dict:
+    """``r50``: each batch bit-equal to a direct apply of the same
+    bucket-size batch on the card (the padded one's real rows to the
+    direct apply of the same padded batch), and the padded batch's real
+    rows within MM_PAD_TOL of the unpadded batch's direct apply; ``ox``:
+    every row bit-equal to the imported graph's
+    direct apply and within MM_OX_F32_TOL of the native graph computing
+    in f32 on the same weights; each deployment's programs within their
+    pin, one for each bucket used."""
+    import torch
+
+    r50, ox = engine.deployment("r50"), engine.deployment("ox")
+    got = np.stack([r.output for r in run["batch"]["r50"]])
+    if any(r.status != "completed" for rs in run["batch"].values()
+           for r in rs) or got.shape != (MM_R50_IMAGES, 1000) or \
+            not np.isfinite(got).all():
+        raise AssertionError(f"multimodel r50: outputs {got.shape}")
+    out = {}
+    for lo in range(0, MM_R50_IMAGES, MM_R50_BATCH):
+        x = images[lo:min(lo + MM_R50_BATCH, MM_R50_IMAGES)]
+        real = len(x)
+        pad = np.zeros((MM_R50_BATCH - real,) + x.shape[1:], x.dtype)
+        direct = r50.graph.apply(r50.variables, torch.from_numpy(
+            np.concatenate([x, pad])).to(DEVICE)).float().cpu().numpy()
+        if not np.array_equal(got[lo:lo + real], direct[:real]):
+            raise AssertionError(
+                f"multimodel r50 batch at {lo}: not bit-equal to the "
+                "direct apply; max abs err "
+                f"{np.abs(got[lo:lo + real] - direct[:real]).max()}")
+        if real < MM_R50_BATCH:
+            unpadded = r50.graph.apply(r50.variables, torch.from_numpy(
+                x).to(DEVICE)).float().cpu().numpy()
+            out["r50_padded_vs_unpadded_rel_err"] = err = rel_err(
+                got[lo:lo + real], unpadded)
+            if not err <= MM_PAD_TOL:
+                raise AssertionError(f"multimodel r50 padded batch: {err} "
+                                     f"> {MM_PAD_TOL}")
+    ox_rows = np.stack([r.output for r in run["batch"]["ox"]])
+    ids = torch.from_numpy(rows).to(DEVICE)
+    ox_direct = np.stack([
+        ox.graph.apply(ox.variables, ids[i:i + 1]).cpu().numpy()[0]
+        for i in range(len(rows))])
+    if ox_rows.shape != (MM_OX_ROWS, MM_OX_LEN, SERVE_MODEL["vocab_size"]) \
+            or not np.array_equal(ox_rows, ox_direct):
+        raise AssertionError(f"multimodel ox: {ox_rows.shape}, not "
+                             "bit-equal to the direct apply")
+    native = f32_graph().apply(variables, ids)
+    out["ox_vs_native_f32_max_abs_err"] = err = float(
+        np.abs(ox_rows - native.cpu().numpy()).max())
+    if not err <= MM_OX_F32_TOL:
+        raise AssertionError(f"multimodel ox vs the native f32 graph: "
+                             f"{err} > {MM_OX_F32_TOL}")
+    for name, dep in (("r50", r50), ("ox", ox)):
+        # a batch deployment's metrics count its dispatches by bucket
+        used = sorted(int(b) for b in dep.metrics.decode_blocks)
+        if dep.batch_compile_count != len(used) or \
+                dep.batch_compile_count > dep.num_batch_buckets:
+            raise AssertionError(
+                f"multimodel {name}: {dep.batch_compile_count} programs "
+                f"(pin {dep.num_batch_buckets}, buckets used {used})")
+        out[f"{name}_programs"] = {
+            "count": dep.batch_compile_count, "buckets_used": used,
+            "num_batch_buckets": dep.num_batch_buckets}
+    return out
+
+
+def check_mm_fairness(engine, prompts, images, rows) -> dict:
+    """``device_budget=1`` while ``lm`` saturates: each batch deployment
+    dispatches within ceil(3 / 1) = 3 ticks of its examples' arrival.
+    Counted as a main path of its own."""
+    engine.device_budget = 1
+    try:
+        zero_counts()
+        for p in prompts:
+            engine.submit(p, model="lm", max_new_tokens=MAX_NEW)
+        for _ in range(3):
+            engine.step()
+        waiting = {"r50": {engine.submit(x, model="r50")
+                           for x in images[:4]},
+                   "ox": {engine.submit(rows[0], model="ox")}}
+        served = {}
+        for tick in range(1, 4):
+            done = {r.id for r in engine.step()}
+            for name, gids in waiting.items():
+                if name not in served and gids <= done:
+                    served[name] = tick
+        engine.run()
+        counts = read_counts()
+    finally:
+        engine.device_budget = None
+    if set(served) != {"r50", "ox"} or max(served.values()) > 3:
+        raise AssertionError(f"multimodel fairness: served at ticks "
+                             f"{served} under a saturating LM stream")
+    return {"ticks_to_serve": served, "launch_counts": counts}
+
+
+def check_mm_faults(r50, images) -> dict:
+    """A fresh ResNet-50 deployment under ``serve.batch`` faults: a
+    transient at tick 0 retried and absorbed; buckets 64 and 32 captured;
+    an ``oom`` at tick 2 halves the admission cap to 32, the requeued 64
+    images run on the existing bucket-32 program (no new program) and two
+    clean dispatches recover the cap."""
+    half = MM_R50_BATCH // 2
+    from mmlspark_tpu_torch.core.faults import Fault, FaultInjector
+    from mmlspark_tpu_torch.serve import BatchDeployment
+    from mmlspark_tpu_torch.testing import compile_guard
+
+    drill = BatchDeployment(
+        r50.graph, r50.variables, max_batch=MM_R50_BATCH, max_queue=256,
+        faults=FaultInjector([Fault("serve.batch", "transient", tick=0),
+                              Fault("serve.batch", "oom", tick=2)]),
+        retry_limit=2, degrade_recover_ticks=2, device=DEVICE)
+    results = {}
+
+    def step():
+        for r in drill.step():
+            results[r.id] = r
+
+    for x in images[:MM_R50_BATCH]:
+        drill.submit(x)
+    step()
+    for x in images[:half]:
+        drill.submit(x)
+    step()
+    programs = drill.batch_compile_count
+    for x in images[:MM_R50_BATCH]:
+        drill.submit(x)
+    caps = []
+    with compile_guard(lambda: drill.batch_compile_count, max_programs=0,
+                       label="multimodel oom drill"):
+        while drill.busy or drill.degraded:
+            step()
+            caps.append(drill._admit_cap)
+            if len(caps) > 8:
+                break
+    done = sum(r.status == "completed" for r in results.values())
+    out = {"retries": drill.metrics.retries_total,
+           "faults_injected": drill.metrics.faults_injected_total,
+           "programs": drill.batch_compile_count,
+           "admit_caps_after_oom": caps, "completed": done}
+    if drill.metrics.retries_total != 1 or programs != 2 or \
+            caps[:3] != [half, half, MM_R50_BATCH] or drill.degraded or \
+            done != 2 * MM_R50_BATCH + half:
+        raise AssertionError(f"multimodel faults drill: {out}")
+    drill.release_programs()
+    return out
+
+
+def check_mm_hub(hub, engine, run: dict, tmp: str) -> dict:
+    """The hub's outputs after the main path: the merged timeline ordered
+    by wall time, one chain per LM request under its facade trace id, a
+    trace that round-trips through JSON, and ``GET /metrics`` on an
+    ephemeral loopback port (a timeout on the request; the server closed
+    in a ``finally``) with every deployment's labeled series; the
+    refresh, export and bundle costs on the host clock."""
+    import urllib.request
+
+    from mmlspark_tpu_torch.core.tracehub import MetricsServer
+
+    out = {}
+    t0 = time.perf_counter()
+    hub.refresh()
+    out["refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    walls = [ev["wall"] for ev in hub.merged_events()]
+    chains = hub.request_chains()
+    missing = [g for g in run["lm_gids"]
+               if not {"routed", "start"} <= {
+                   ev["name"] for ev in chains.get(f"m{g}", [])}]
+    if walls != sorted(walls) or missing:
+        raise AssertionError(f"multimodel hub: timeline ordered "
+                             f"{walls == sorted(walls)}, chains missing "
+                             f"{missing}")
+    t0 = time.perf_counter()
+    doc = hub.export_trace()
+    out["export_ms"] = (time.perf_counter() - t0) * 1e3
+    out["trace_events"] = len(json.loads(json.dumps(doc,
+                                                     default=str))[
+        "traceEvents"])
+    t0 = time.perf_counter()
+    hub.write_bundle(os.path.join(tmp, "bundle"),
+                     metrics=engine.metrics_dict())
+    out["bundle_ms"] = (time.perf_counter() - t0) * 1e3
+    server = MetricsServer(hub, port=0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics",
+            timeout=MM_HTTP_TIMEOUT).read().decode()
+    finally:
+        server.close()
+    want = [f'serve_completed_total{{model="{m}"}}' for m in engine.models]
+    if not all(w in body for w in want):
+        raise AssertionError(f"multimodel /metrics lacks {want}")
+    out.update(metrics_bytes=len(body), merged_events=len(walls),
+               chains=len(chains))
+    return out
+
+
+def mm_timings(engine, images, rows, variables, graph) -> dict:
+    """Warm figures: ``r50`` images/s through the facade alone (copy in,
+    replay, copy out) and its program alone (replays, device time), and
+    ``ox`` ms a batch beside the native graph's forward on the same ids,
+    both replayed from a CUDA graph."""
+    import torch
+
+    r50, ox = engine.deployment("r50"), engine.deployment("ox")
+    for x in images[:MM_R50_TIMED]:
+        r50.submit(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while r50.busy:
+        r50.step()
+    wall = time.perf_counter() - t0
+    x = torch.from_numpy(images[:MM_R50_BATCH]).to(DEVICE)
+    program = r50._dispatch
+    for _ in range(2):
+        program(r50.variables, x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        program(r50.variables, x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 20
+    ids = torch.from_numpy(rows[:1]).to(DEVICE)
+    return {
+        "r50_images_per_sec": MM_R50_TIMED / wall,
+        "r50_program_ms_per_batch": ms,
+        "r50_program_images_per_sec": MM_R50_BATCH / (ms / 1e3),
+        "ox_ms_per_batch": graph_ms(
+            lambda t: ox.graph.apply(ox.variables, t), [(ids,)]),
+        "native_bf16_ms_per_batch": graph_ms(
+            lambda t: graph.apply(variables, t), [(ids,)]),
+    }
+
+
+def check_mm_replicas(graph, variables, dense: dict) -> dict:
+    """``ReplicaSet(models={"lm": ..., "lm2": ...}, replicas=2)``: the
+    even prompts to ``lm`` (the dense engine's weights), the odd ones to
+    ``lm2`` (other seeded weights), 2 a tick; every request routed to its
+    model's replica, ``lm``'s streams equal to the dense engine's and
+    ``lm2``'s to a dedicated engine's on the same prompts; the hub sees
+    both replicas with their model labels."""
+    import torch
+
+    from mmlspark_tpu_torch.core.tracehub import TelemetryHub
+    from mmlspark_tpu_torch.models import init_variables
+    from mmlspark_tpu_torch.serve import ReplicaSet
+
+    prompts = random_schedule()
+    v2 = init_variables(graph, 17, device=DEVICE)
+    solo = drive(make_engine(graph, v2), prompts[1::2])
+    rs = ReplicaSet(graph, variables, replicas=2,
+                    models={"lm": (graph, variables), "lm2": (graph, v2)},
+                    **fleet_kwargs())
+    hub = TelemetryHub()
+    hub.attach_replicaset(rs)
+    zero_counts()
+    t0 = time.perf_counter()
+    gids, submitted, results = [], 0, {}
+    while submitted < len(prompts) or rs.busy:
+        for _ in range(ARRIVALS_PER_TICK):
+            if submitted < len(prompts):
+                gids.append(rs.submit(
+                    prompts[submitted], MAX_NEW,
+                    model="lm" if submitted % 2 == 0 else "lm2"))
+                submitted += 1
+        for res in rs.step():
+            results[res.id] = res
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for i, g in enumerate(gids):
+        want = dense["results"][i] if i % 2 == 0 else \
+            solo["results"][i // 2]
+        if results[g].status != "completed" or \
+                not np.array_equal(results[g].tokens, want.tokens):
+            raise AssertionError(f"model routing: request {i} "
+                                 f"({'lm' if i % 2 == 0 else 'lm2'}) "
+                                 "differs from its dedicated engine")
+    per = rs.metrics_dict()["per_replica"]
+    routed = {k: (v["model"], v["submitted"]) for k, v in per.items()}
+    prom = hub.to_prometheus()
+    half = N_REQUESTS // 2
+    if routed != {"replica0": ("lm", half), "replica1": ("lm2", half)} or \
+            'model="lm2"' not in prom:
+        raise AssertionError(f"model routing: {routed}")
+    return {"routed": routed, "launch_counts": counts, "wall_s": wall,
+            "tokens_per_sec": sum(r.generated for r in results.values())
+            / wall}
+
+
+def check_multimodel(graph, variables, dense: dict, smi: str,
+                     r50_alone: float) -> dict:
+    """The multi-model phase: ``engine_from_spec`` over ``lm`` (the serve
+    model, the dense engine's weights and configuration), ``r50`` (ResNet-
+    50 at 224, seeded weights drawn on the card) and ``ox`` (the serve
+    model written by the port's ONNX exporter at one 128-token row,
+    imported back) with a TelemetryHub attached; then fairness, the fault
+    drill, the warm figures, model routing over replicas and the
+    teardown. Every figure beside the card's name and power limit."""
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch.core.tracehub import TelemetryHub
+    from mmlspark_tpu_torch.models.onnx_export import save_onnx
+    from mmlspark_tpu_torch.serve import engine_from_spec
+    from mmlspark_tpu_torch.testing import compile_guard
+
+    # full float32 products and convolutions: a TF32 convolution is what
+    # the bit-equality gates must not silently absorb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts = random_schedule()
+    images = seeded_images(max(MM_R50_IMAGES, MM_R50_TIMED), MM_R50_SIZE,
+                           seed=13)
+    rows = np.random.default_rng(13).integers(
+        0, SERVE_MODEL["vocab_size"], size=(MM_OX_ROWS, MM_OX_LEN)
+    ).astype(np.int32)
+    out = {"card": smi, "spec_shapes": {
+        "r50_max_batch": MM_R50_BATCH, "ox_sample_shape": [1, MM_OX_LEN]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve_model.onnx")
+        t0 = time.perf_counter()
+        save_onnx(graph, variables, (1, MM_OX_LEN), path)
+        out["onnx_export_s"] = time.perf_counter() - t0
+        out["onnx_bytes"] = os.path.getsize(path)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine = engine_from_spec(mm_spec(path), variables={"lm": variables},
+                                  seed=13, device=DEVICE)
+        out["build_s"] = time.perf_counter() - t0
+        lm = engine.deployment("lm")
+        fetches = []
+        inner = lm._fetch
+        lm._fetch = lambda inflight: fetches.append(1) or inner(inflight)
+        hub = TelemetryHub()
+        hub.attach_multimodel(engine)
+        examples = {"r50": list(images[:MM_R50_IMAGES]), "ox": list(rows)}
+        run = drive_mm(engine, prompts, examples, hub)
+        check_run("multimodel lm", run, "launches")
+        check_near_ties(graph, variables, "multimodel lm", run["results"],
+                        dense["results"], exact=True)
+        blocks = sum(lm.metrics.decode_blocks.values())
+        programs = {"decode_compile_count": lm.decode_compile_count,
+                    "prefill_compile_count": lm.prefill_compile_count}
+        want = {k: dense["programs"][k] for k in programs}
+        if programs != want or len(fetches) != blocks:
+            raise AssertionError(
+                f"multimodel lm with the hub: programs {programs} (the "
+                f"dense engine's {want}), {len(fetches)} fetches over "
+                f"{blocks} decode blocks")
+        out["lm"] = {"cold_tokens_per_sec": lm.metrics.to_dict()[
+            "tokens_per_sec"], "fetches": len(fetches),
+            "decode_blocks": blocks, **programs}
+        out.update(check_mm_batches(engine, run, images, rows, variables))
+        out["hub"] = check_mm_hub(hub, engine, run, tmp)
+        out["launch_counts"] = run["counts"]
+        out["main_path_wall_s"] = run["wall_s"]
+
+        # the warm pass: every program already captured
+        fresh_metrics(lm)
+        guards = [compile_guard(lambda d=d: d.batch_compile_count,
+                                max_programs=0, label=f"warm {n}")
+                  for n, d in (("r50", engine.deployment("r50")),
+                               ("ox", engine.deployment("ox")))]
+        with compile_guard(lambda: lm.decode_compile_count, max_programs=0,
+                           label="multimodel warm decode"), \
+                compile_guard(lambda: lm.prefill_compile_count,
+                              max_programs=0,
+                              label="multimodel warm prefill"), \
+                guards[0], guards[1]:
+            warm = drive_mm(engine, prompts, examples)
+        check_run("multimodel lm warm", warm, "launches")
+        out["lm"].update(
+            warm_tokens_per_sec=lm.metrics.to_dict()["tokens_per_sec"],
+            dense_engine_warm_tokens_per_sec=dense["programs"][
+                "warm_tokens_per_sec"])
+        out["fairness"] = check_mm_fairness(engine, prompts, images, rows)
+        out["faults"] = check_mm_faults(engine.deployment("r50"), images)
+        out["timings"] = mm_timings(engine, images, rows, variables, graph)
+        out["timings"]["r50_model_alone_images_per_sec_dnn_stages"] = \
+            r50_alone
+        out["deployments"] = {
+            name: {"capture_s": dep.capture_seconds,
+                   "graph_pool_bytes": dep.graph_pool_bytes()}
+            for name, dep in ((n, engine.deployment(n))
+                              for n in engine.models)}
+        held = torch.cuda.memory_allocated() - base
+        engine.close()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after = {n: engine.deployment(n).graph_pool_bytes()
+                 for n in engine.models}
+        out["teardown"] = {"held_bytes_before_close": held,
+                           "held_bytes_after_close":
+                               torch.cuda.memory_allocated() - base,
+                           "graph_pool_bytes_after_close": after}
+        if any(after.values()) or DEVICE == "cuda" and not all(
+                d["graph_pool_bytes"] > 0
+                for d in out["deployments"].values()):
+            raise AssertionError(f"multimodel teardown: {out['teardown']}, "
+                                 f"{out['deployments']}")
+        del engine, lm, hub
+        gc.collect()
+    out["replicas"] = check_mm_replicas(graph, variables, dense)
+    log(f"multimodel: {out}")
+    return out
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -4848,17 +5364,25 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet = check_fleet(graph, variables, dense, header)
     log(f"fleet phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    multimodel = check_multimodel(
+        graph, variables, dense, smi,
+        dnn_stages["resnet50"]["logits"]["model_only_images_per_sec"])
+    log(f"multimodel phase took {time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
-    # plus the MoE engines' (decode), the MoE training run's (attention)
-    # and the fleet phase's (decode)
+    # plus the MoE engines' (decode), the MoE training run's (attention),
+    # the fleet phase's (decode) and the multi-model phase's (decode: the
+    # facade's lm deployment and the model-routed replica set)
     moe_counts = {label: moe[label]["launch_counts"]
                   for label in ("moe dense bf16", "moe paged bf16")}
     fleet_counts = fleet_launches(fleet)
     launches = {
         "launches": dense["counts"]["launches"]
         + moe_counts["moe dense bf16"]["launches"]
-        + fleet_counts["launches"],
+        + fleet_counts["launches"]
+        + multimodel["launch_counts"]["launches"]
+        + multimodel["replicas"]["launch_counts"]["launches"],
         "q8_launches": header["header dense int8"]["counts"]["q8_launches"]
         + fleet_counts["q8_launches"],
         "paged_launches":
@@ -4911,6 +5435,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"image": image}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"multimodel": multimodel}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -50,11 +50,11 @@ The site table keeps the JAX package's names, so one fault spec parses on
 both frameworks and, over the same traffic, draws the same faults. The
 port's serving engine fires the four ``serve.*`` sites above and the
 hand-off's ``serve.handoff``, its supervisors (``serve/supervisor.py``,
-``serve/fleet.py``) the health probe's ``serve.health``, and its trainer
-the four ``train.*`` sites; the multi-model ``serve.batch`` waits for
-the multi-model engine (ROADMAP.md Queue 1 item 19). A fault's
-``replica`` pins it to one replica of a supervised set: every engine
-tags its firings with its replica index.
+``serve/fleet.py``) the health probe's ``serve.health``, the multi-model
+engine's batch deployments (``serve/multimodel.py``) ``serve.batch``
+before each batch dispatch, and its trainer the four ``train.*`` sites.
+A fault's ``replica`` pins it to one replica of a supervised set: every
+engine tags its firings with its replica index.
 """
 
 from __future__ import annotations

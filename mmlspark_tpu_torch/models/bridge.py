@@ -188,7 +188,11 @@ def load_flax_variables(graph, variables, *, device=None) -> dict:
     nested dict of numpy or numpy-convertible arrays, float or
     weight-quantized, with flax's ``batch_stats`` where a block keeps
     statistics), on ``device`` (``cuda`` unless the caller asks for
-    ``"cpu"``)."""
+    ``"cpu"``). A graph that is not made of blocks (an imported ONNX
+    graph) converts its own through ``from_flax_variables``."""
+    own = getattr(graph, "from_flax_variables", None)
+    if own is not None:
+        return own(variables, device=device)
     dev = default_device(device)
     out = {}
     for name, mod in graph.blocks:
@@ -225,17 +229,23 @@ def _check_shape(name: str, key: str, shape, ref) -> None:
         )
 
 
-def init_variables(graph, seed: int = 0, *, device=None) -> dict:
+def init_variables(graph, seed: int = 0, *, device=None,
+                   generator: torch.Generator | None = None) -> dict:
     """The port's own seeded initialisation, drawn on the CPU from a
-    ``torch.Generator`` (so a seed gives the same weights on every
-    device) and moved to ``device``: Dense, Conv and LSTM weights and
+    ``torch.Generator`` seeded with ``seed`` (so a seed gives the same
+    weights on every device) and moved to ``device`` — or, with
+    ``generator``, drawn from that generator on its own device (one seed
+    then gives other weights on the card than on the CPU, made without a
+    host copy): Dense, Conv and LSTM weights and
     embeddings ``N(0, 1/fan_in)``, the MoE router and expert weights
     ``N(0, 1/fan_in)`` over their second-last axis (biases 0), learned
     positions ``N(0, 0.02^2)``,
     LayerNorm and BatchNorm scales 1, biases 0, BatchNorm running means 0
     and variances 1 (flax's starting statistics)."""
     dev = default_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = generator if generator is not None else \
+        torch.Generator().manual_seed(seed)
+    draw = {"generator": gen, "device": gen.device}
     out = {}
     for name, mod in graph.blocks:
         if not getattr(mod, "sized", True):
@@ -253,12 +263,12 @@ def init_variables(graph, seed: int = 0, *, device=None) -> dict:
                                                      "b_out"):
                 t = torch.zeros(shape)
             elif isinstance(owner, (MoEFFN, ExpertParams)):
-                t = torch.randn(shape, generator=gen) * shape[-2] ** -0.5
+                t = torch.randn(shape, **draw) * shape[-2] ** -0.5
             elif isinstance(owner, (Dense, nn.Embedding, Conv, BiLSTM)):
                 fan_in = int(np.prod(shape[1:]))
-                t = torch.randn(shape, generator=gen) * fan_in ** -0.5
+                t = torch.randn(shape, **draw) * fan_in ** -0.5
             else:  # the learned position table
-                t = torch.randn(shape, generator=gen) * 0.02
+                t = torch.randn(shape, **draw) * 0.02
             block[key] = t.to(dev)
         out[name] = block
     return out

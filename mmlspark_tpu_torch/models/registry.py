@@ -1,8 +1,9 @@
 """Model-architecture registry: name -> NamedGraph builder — the port of
 ``mmlspark_tpu/models/registry.py``. The port registers only what its
 slices have ported: ``transformer_lm``, ``mlp``, ``linear``,
-``resnet20_cifar10``, ``resnet50``, ``bilstm_tagger`` and
-``transformer_lm_moe``. A serialized
+``resnet20_cifar10``, ``resnet50``, ``bilstm_tagger``,
+``transformer_lm_moe`` and ``onnx`` (an imported ONNX file,
+``models/onnx_import.py``). A serialized
 ``TPUModel`` stores ``(model_name, model_config)`` and rebuilds its graph
 here at load time."""
 
@@ -33,7 +34,8 @@ def build_model(name: str, **config: Any) -> NamedGraph:
         suggest = f"; did you mean '{hint[0]}'?" if hint else ""
         raise FriendlyError(
             f"unknown model '{name}'; registered: "
-            f"{sorted(_BUILDERS)}{suggest}"
+            f"{sorted(_BUILDERS)}{suggest} (foreign graphs load via "
+            "name 'onnx' with path=<file.onnx>)"
         )
     return _BUILDERS[name](**config)
 
@@ -48,5 +50,6 @@ def _ensure_loaded() -> None:
     import mmlspark_tpu_torch.models.bilstm  # noqa: F401
     import mmlspark_tpu_torch.models.mlp  # noqa: F401
     import mmlspark_tpu_torch.models.moe  # noqa: F401
+    import mmlspark_tpu_torch.models.onnx_import  # noqa: F401
     import mmlspark_tpu_torch.models.resnet  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401

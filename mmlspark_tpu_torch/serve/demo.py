@@ -1,22 +1,25 @@
 """Synthetic-traffic serving demo — the port of
-``mmlspark_tpu/serve/demo.py``: a single engine, a ``ReplicaSet`` or a
-``DisaggFleet`` over a random-init ``transformer_lm``, with the dense,
-paged (+ prefix cache) and int8 KV pools, weight-only int8, chunked
-prefill, the async host loop, seeded fault injection and SLOs.
+``mmlspark_tpu/serve/demo.py``: a single engine, a ``ReplicaSet``, a
+``DisaggFleet`` or a ``MultiModelEngine`` over random-init models, with
+the dense, paged (+ prefix cache) and int8 KV pools, weight-only int8,
+chunked prefill, the async host loop, seeded fault injection and SLOs.
 
 A deterministic staggered arrival schedule (a few submits a tick, prompt
 lengths from a seeded rng) drives the target; the demo returns the
-engine's metrics dict (or, with ``replicas > 1`` or ``disagg``, the
-supervisor's ``metrics_dict``) under the JAX demo's key names. With
-``telemetry_dir`` a single engine's bundle lands there: its flight
-recorder in ``events.jsonl``, the metrics in ``metrics.json``, the
-Perfetto-loadable trace in ``trace.json`` and the Prometheus exposition
-in ``metrics.prom``; a multi-engine run writes the control plane's
-timeline (``supervisor.events.jsonl``), ``metrics.json`` and its
-registry's ``metrics.prom`` — the merged multi-engine bundle of the JAX
-demo waits for the telemetry hub (ROADMAP.md Queue 1 item 19), as do
-``models``, ``device_budget`` and ``metrics_port``; ``mesh`` waits for
-item 13.
+engine's metrics dict (or, with ``replicas > 1``, ``disagg`` or
+``models``, the control plane's ``metrics_dict``) under the JAX demo's
+key names. With ``telemetry_dir`` a single engine's bundle lands there:
+its flight recorder in ``events.jsonl``, the metrics in
+``metrics.json``, the Perfetto-loadable trace in ``trace.json`` and the
+Prometheus exposition in ``metrics.prom``. A multi-engine run
+(``--replicas``/``--disagg``/``--models``) writes the MERGED
+:class:`~mmlspark_tpu_torch.core.tracehub.TelemetryHub` bundle instead:
+one wall-clock-ordered ``events.jsonl`` across every replica's recorder,
+one flow-arrow-stitched ``trace.json`` and one labeled exposition — plus
+``supervisor.events.jsonl``, the control plane's own timeline, for the
+replica planes. ``metrics_port`` serves the same hub live on 127.0.0.1
+while the demo runs. ``mesh`` waits for the meshes (ROADMAP.md Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -27,14 +30,6 @@ import numpy as np
 
 from mmlspark_tpu_torch.core.env import default_device
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
-
-#: demo flags of the JAX package that wait for a later slice
-_NOT_PORTED = {
-    "mesh": "meshes (ROADMAP.md Queue 1 item 13)",
-    "models": "multi-model serving (ROADMAP.md Queue 1 item 19)",
-    "device_budget": "multi-model serving (ROADMAP.md Queue 1 item 19)",
-    "metrics_port": "the live metrics endpoint (ROADMAP.md Queue 1 item 19)",
-}
 
 
 def run_demo(*, slots: int = 4, n_requests: int = 8,
@@ -66,24 +61,36 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
     ``hedge_ms``) a :class:`~mmlspark_tpu_torch.serve.supervisor.ReplicaSet`,
     ``disagg`` a :class:`~mmlspark_tpu_torch.serve.fleet.DisaggFleet` of
     ``prefill_replicas`` + ``decode_replicas`` (``autoscale`` a
-    ``"max_decode=4,queue_high=2"``-style policy); ``telemetry_dir`` and
-    ``trace_out`` the telemetry files."""
+    ``"max_decode=4,queue_high=2"``-style policy); ``models`` a
+    ``--models`` spec (``serve/multimodel.py``) for a
+    :class:`~mmlspark_tpu_torch.serve.multimodel.MultiModelEngine` under
+    ``device_budget``; ``telemetry_dir`` and ``trace_out`` the telemetry
+    files, ``metrics_port`` the live ``/metrics`` endpoint (0: an
+    ephemeral port)."""
     from mmlspark_tpu_torch.core.faults import parse_fault_spec
     from mmlspark_tpu_torch.core.perf import export_chrome_trace
     from mmlspark_tpu_torch.core.telemetry import (
         atomic_write_json,
         atomic_write_text,
     )
+    from mmlspark_tpu_torch.core.tracehub import MetricsServer, TelemetryHub
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.serve.engine import ServeEngine
 
-    asked = {"mesh": mesh, "models": models, "device_budget": device_budget,
-             "metrics_port": metrics_port}
-    for name, value in asked.items():
-        if value is not None:
-            raise FriendlyError(f"{name}={value!r}: {_NOT_PORTED[name]} is "
-                                "not ported yet")
+    if mesh is not None:
+        raise FriendlyError(f"mesh={mesh!r}: meshes (ROADMAP.md Queue 1 "
+                            "item 13) are not ported yet")
     dev = default_device(device)
+    injector = parse_fault_spec(faults) if faults else None
+    if models:
+        return _run_multimodel_demo(
+            models, n_requests=n_requests, max_new_tokens=max_new_tokens,
+            arrivals_per_tick=arrivals_per_tick, seed=seed,
+            device_budget=device_budget, injector=injector,
+            telemetry_dir=telemetry_dir, trace_out=trace_out,
+            prefill_chunk=prefill_chunk, async_host=async_host,
+            metrics_port=metrics_port, device=dev,
+        )
     graph = build_model(
         "transformer_lm", vocab_size=vocab, d_model=d_model, heads=heads,
         depth=depth, max_len=cache_len, attn_impl="dense",
@@ -97,7 +104,6 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
         async_host=async_host, device=dev,
         **({} if decode_block is None else {"decode_block": decode_block}),
     )
-    injector = parse_fault_spec(faults) if faults else None
     if disagg:
         from mmlspark_tpu_torch.serve.fleet import DisaggFleet
 
@@ -115,24 +121,43 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
     else:
         target = ServeEngine(graph, variables, faults=injector,
                              **engine_kwargs)
+    multi = disagg or replicas > 1
+    # multi-engine modes get a TelemetryHub, the merge point that stitches
+    # every replica's recorder and registry into ONE bundle and backs the
+    # live endpoint; a single engine builds one only for the endpoint,
+    # its on-disk bundle staying the single-recorder format
+    hub = None
+    if multi or metrics_port is not None:
+        hub = TelemetryHub()
+        if disagg:
+            hub.attach_fleet(target)
+        elif replicas > 1:
+            hub.attach_replicaset(target)
+        else:
+            hub.attach_engine(target)
+    server = MetricsServer(hub, port=metrics_port) \
+        if metrics_port is not None else None
+
     rng = np.random.default_rng(seed)
     lo, hi = 4, max(5, min(16, cache_len - max_new_tokens))
     lengths = rng.integers(lo, hi + 1, size=n_requests)
     prompts = [rng.integers(0, vocab, size=int(p)) for p in lengths]
 
-    submitted = 0
-    while submitted < n_requests or target.busy:
-        for _ in range(arrivals_per_tick):
-            if submitted < n_requests:
-                target.submit(prompts[submitted], max_new_tokens,
-                              deadline_ticks=deadline_ticks)
-                submitted += 1
-        target.step()
+    try:
+        submitted = 0
+        while submitted < n_requests or target.busy:
+            for _ in range(arrivals_per_tick):
+                if submitted < n_requests:
+                    target.submit(prompts[submitted], max_new_tokens,
+                                  deadline_ticks=deadline_ticks)
+                    submitted += 1
+            target.step()
+    finally:
+        if server is not None:
+            server.close()
 
-    multi = disagg or replicas > 1
     if multi:
         out = target.metrics_dict()
-        registry = target.registry
     else:
         out = target.metrics.to_dict()
         out.update(
@@ -140,7 +165,6 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
             prefill_compiles=target.prefill_compile_count,
             prefill_bucket_count=target.num_prefill_buckets,
         )
-        registry = target.metrics.registry
     out.update(
         n_requests=n_requests,
         arrivals_per_tick=arrivals_per_tick,
@@ -150,21 +174,119 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
                       "depth": depth},
         device=str(dev),
     )
+    if server is not None:
+        out["metrics_port"] = server.port
     recorder = target.recorder
     if telemetry_dir:
         os.makedirs(telemetry_dir, exist_ok=True)
-        recorder.dump(os.path.join(
-            telemetry_dir,
-            "supervisor.events.jsonl" if multi else "events.jsonl"))
-        atomic_write_json(os.path.join(telemetry_dir, "metrics.json"), out,
-                          indent=1, default=str)
-        atomic_write_text(os.path.join(telemetry_dir, "metrics.prom"),
-                          registry.to_prometheus())
-        if not multi:
+        if multi:
+            # the MERGED bundle: every replica's events and metrics plus
+            # the control plane's; the control plane's own timeline
+            # stays beside it as supervisor.events.jsonl
+            hub.write_bundle(telemetry_dir, metrics=out)
+            recorder.dump(
+                os.path.join(telemetry_dir, "supervisor.events.jsonl"))
+        else:
+            recorder.dump(os.path.join(telemetry_dir, "events.jsonl"))
+            atomic_write_json(os.path.join(telemetry_dir, "metrics.json"),
+                              out, indent=1, default=str)
             export_chrome_trace(
                 recorder, path=os.path.join(telemetry_dir, "trace.json"),
                 extra_meta={"model": graph.name})
+            atomic_write_text(os.path.join(telemetry_dir, "metrics.prom"),
+                              target.metrics.registry.to_prometheus())
     if trace_out:
-        export_chrome_trace(recorder, path=trace_out,
-                            extra_meta={"model": graph.name})
+        if multi:
+            hub.export_trace(path=trace_out,
+                             extra_meta={"model": graph.name})
+        else:
+            export_chrome_trace(recorder, path=trace_out,
+                                extra_meta={"model": graph.name})
+    return out
+
+
+def _run_multimodel_demo(spec: str, *, n_requests: int,
+                         max_new_tokens: int, arrivals_per_tick: int,
+                         seed: int, device_budget: int | None,
+                         injector, telemetry_dir: str | None,
+                         trace_out: str | None,
+                         prefill_chunk: int | None, async_host: bool,
+                         metrics_port: int | None, device) -> dict:
+    """The ``--models`` body: spec -> MultiModelEngine, then a
+    deterministic interleaved arrival schedule — ``n_requests`` per
+    deployment, token prompts for LM deployments and float feature
+    examples for batch deployments, round-robin across the models so
+    every queue stays contended. Returns the engine's ``metrics_dict``;
+    the telemetry files are the hub's merged bundle, per-deployment
+    ``{model="name"}`` labels in place of ``model{name}.`` prefixes."""
+    from mmlspark_tpu_torch.core.tracehub import MetricsServer, TelemetryHub
+    from mmlspark_tpu_torch.serve.engine import ServeEngine
+    from mmlspark_tpu_torch.serve.multimodel import engine_from_spec
+
+    lm_kwargs = {}
+    if prefill_chunk is not None:
+        lm_kwargs["prefill_chunk"] = prefill_chunk
+    if async_host:
+        lm_kwargs["async_host"] = True
+    engine = engine_from_spec(
+        spec, device_budget=device_budget, faults=injector, seed=seed,
+        lm_kwargs=lm_kwargs, device=device,
+    )
+    rng = np.random.default_rng(seed)
+    streams: dict[str, list] = {}
+    for name in engine.models:
+        dep = engine.deployment(name)
+        reqs = []
+        for _ in range(n_requests):
+            if isinstance(dep, ServeEngine):
+                vocab = int(dep.graph.extra.get("vocab_size", 16))
+                hi = max(5, min(16, dep.cache_len - max_new_tokens))
+                plen = int(rng.integers(4, hi + 1))
+                reqs.append((rng.integers(0, vocab, size=plen),
+                             max_new_tokens))
+            else:
+                shape = tuple(dep.graph.input_shape)
+                reqs.append(
+                    (rng.normal(size=shape).astype(np.float32), None)
+                )
+        streams[name] = reqs
+    arrivals = [
+        (name, *streams[name][i])
+        for i in range(n_requests) for name in engine.models
+    ]
+    hub = TelemetryHub()
+    hub.attach_multimodel(engine)
+    server = MetricsServer(hub, port=metrics_port) \
+        if metrics_port is not None else None
+    try:
+        submitted = 0
+        while submitted < len(arrivals) or engine.busy:
+            for _ in range(arrivals_per_tick):
+                if submitted < len(arrivals):
+                    name, x, budget = arrivals[submitted]
+                    if budget is None:
+                        engine.submit(x, model=name)
+                    else:
+                        engine.submit(x, model=name,
+                                      max_new_tokens=budget)
+                    submitted += 1
+            engine.step()
+    finally:
+        if server is not None:
+            server.close()
+    out = engine.metrics_dict()
+    out.update(
+        n_requests=n_requests,
+        arrivals_per_tick=arrivals_per_tick,
+        max_new_tokens=max_new_tokens,
+        models_spec=spec,
+        device=str(device),
+    )
+    if server is not None:
+        out["metrics_port"] = server.port
+    if telemetry_dir:
+        hub.write_bundle(telemetry_dir, metrics=out)
+    if trace_out:
+        hub.export_trace(path=trace_out,
+                         extra_meta={"model": "multimodel"})
     return out

@@ -1922,12 +1922,19 @@ class ServeEngine:
         # the captured programs and their graph pool go too: a supervisor
         # rebuilding replicas in this process must not hold one pool per
         # failover
+        self.release_programs()
+        self.recorder.record("killed", tick=self.tick,
+                             parked_slots=len(leased))
+
+    def release_programs(self) -> None:
+        """Drop every captured program and, with the last of them, the
+        shared graph pool's memory; the program counts stay (a killed
+        engine's post-mortem reads them), and a released program runs
+        eagerly if it is called again."""
         for program in (self._prefill_program, self._resume, self._chunk,
                         self._decode):
             if program is not None:
                 program._fn.release()
-        self.recorder.record("killed", tick=self.tick,
-                             parked_slots=len(leased))
 
     @property
     def last_snapshot(self) -> dict | None:

@@ -30,12 +30,16 @@ keeps requests flowing when replicas fail:
 - **Zero-loss drain** — :meth:`drain` stops admissions to a replica,
   migrates its pending requests to the survivors (``steal_all`` /
   ``adopt``) and retires it.
+- **Model routing** — with ``models={name: (graph, variables)}`` the
+  replicas partition round-robin over the models in insertion order, and
+  every routing decision (submit, hedge, drain migration, failover
+  rebuild) stays within ONE model's replicas: the routing key is
+  ``(model, health, load)``.
 
 Pure host-side control: the supervisor never touches device buffers,
 and reads no clock on the engines' hot path, so every per-replica
 invariant (program pins, one fetch a decode block) holds exactly as on
-an unsupervised engine. Multi-model routing (``models=``) waits for
-ROADMAP.md Queue 1 item 19.
+an unsupervised engine.
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ class _Pending:
     copies: list[_Copy] = field(default_factory=list)
     hedged: bool = False
     committed: bool = False
+    #: which model this request belongs to (multi-model sets route,
+    #: hedge and migrate strictly within one model's replicas)
+    model: str | None = None
     #: the set-wide trace-context id (``g{gid}``): every copy — hedge
     #: twins, failover replays, drain migrations — submits with it, so
     #: all of a request's fragments across replicas join on one id
@@ -108,6 +115,9 @@ class _Replica:
     #: last ADVANCED (or the replica was idle) — the stall detector
     last_tokens: int = -1
     last_progress_t: float = 0.0
+    #: the model this replica serves (None on single-model sets): the
+    #: routing key's first dimension — (model, health, load)
+    model: str | None = None
 
 
 class ReplicaSet:
@@ -135,11 +145,24 @@ class ReplicaSet:
         if replicas < 1:
             raise FriendlyError(f"replicas must be >= 1, got {replicas}")
         if models is not None:
-            raise FriendlyError(
-                "ReplicaSet(models=...) — multi-model routing over "
-                "replicas — is not ported yet (ROADMAP.md Queue 1 item "
-                "19); build one ReplicaSet per model"
-            )
+            if not models:
+                raise FriendlyError(
+                    "models= must name at least one model; for a "
+                    "single-model set pass (graph, variables) "
+                    "positionally instead"
+                )
+            if replicas < len(models):
+                raise FriendlyError(
+                    f"replicas ({replicas}) < models ({len(models)}); "
+                    "every model needs at least one replica to route to"
+                )
+            for mname, pair in models.items():
+                if not (isinstance(pair, tuple) and len(pair) == 2):
+                    raise FriendlyError(
+                        f"models[{mname!r}] must be a (graph, "
+                        "variables) pair"
+                    )
+        self._models = dict(models) if models is not None else None
         if hedge_ms is not None and hedge_ms < 0:
             raise FriendlyError(
                 f"hedge_ms must be >= 0, got {hedge_ms}"
@@ -200,7 +223,8 @@ class ReplicaSet:
         #: gid -> committed RequestResult
         self._results: dict[int, RequestResult] = {}
         self._reps = [
-            _Replica(idx=i, engine=self._build_engine(i))
+            _Replica(idx=i, engine=self._build_engine(i),
+                     model=self._model_name(i))
             for i in range(replicas)
         ]
         now = self._clock()
@@ -210,9 +234,25 @@ class ReplicaSet:
             # first periodic checkpoint still restores (to empty)
             rep.engine.checkpoint()
 
+    def _model_name(self, idx: int) -> str | None:
+        """Which model replica ``idx`` serves: round-robin over the
+        models in insertion order; None on single-model sets."""
+        if self._models is None:
+            return None
+        names = list(self._models)
+        return names[idx % len(names)]
+
+    def _model_src(self, idx: int):
+        """The (graph, variables) a replica builds and restores from."""
+        name = self._model_name(idx)
+        if name is None:
+            return self._graph, self._variables
+        return self._models[name]
+
     def _build_engine(self, idx: int) -> ServeEngine:
+        graph, variables = self._model_src(idx)
         return ServeEngine(
-            self._graph, self._variables, replica=idx,
+            graph, variables, replica=idx,
             faults=self._faults,
             snapshot_every_ticks=self._snapshot_every,
             **self._engine_kwargs,
@@ -234,6 +274,15 @@ class ReplicaSet:
     def busy(self) -> bool:
         return bool(self._open)
 
+    @property
+    def models(self) -> list[str] | None:
+        """Served model names (insertion order) on a multi-model set;
+        None on a single-model set."""
+        return list(self._models) if self._models is not None else None
+
+    def replica_model(self, idx: int) -> str | None:
+        return self._rep(idx).model
+
     def replica_state(self, idx: int) -> str:
         return self._rep(idx).state
 
@@ -251,14 +300,17 @@ class ReplicaSet:
 
     # -- routing -----------------------------------------------------------
 
-    def _route_order(self,
-                     exclude: set[int] = frozenset()) -> list[_Replica]:
-        """Live replicas, best route first: state rank (healthy before
-        degraded before restoring), then load (queue depth + leased
-        slots), then TTFT p99, then index for determinism."""
+    def _route_order(self, exclude: set[int] = frozenset(),
+                     model: str | None = None) -> list[_Replica]:
+        """Live replicas, best route first: model (a request only ever
+        routes within its own model's replicas), then state rank
+        (healthy before degraded before restoring), then load (queue
+        depth + leased slots), then TTFT p99, then index for
+        determinism."""
         live = [
             r for r in self._reps
             if r.state in _LIVE_RANK and r.idx not in exclude
+            and r.model == model
         ]
         return sorted(live, key=lambda r: (
             _LIVE_RANK[r.state],
@@ -271,13 +323,31 @@ class ReplicaSet:
 
     def submit(self, prompt, max_new_tokens: int, *,
                eos_id: int | None = None,
-               deadline_ticks: int | None = None) -> int:
+               deadline_ticks: int | None = None,
+               model: str | None = None) -> int:
         """Route one request to the best live replica; returns its
         GLOBAL id (stable across failover, hedging and migration —
         results come back keyed by it). Raises the typed error when every
         live replica's queue is full (backpressure) or no replica is
-        live."""
-        order = self._route_order()
+        live. A multi-model set (``models=`` at construction) requires
+        ``model=`` — the first routing dimension."""
+        if self._models is not None:
+            if model is None:
+                raise FriendlyError(
+                    "this replica set serves several models — pass "
+                    f"model=<name>; models: {sorted(self._models)}"
+                )
+            if model not in self._models:
+                raise FriendlyError(
+                    f"unknown model '{model}'; models: "
+                    f"{sorted(self._models)}"
+                )
+        elif model is not None:
+            raise FriendlyError(
+                "model= routing needs a multi-model set (pass models= "
+                "to the ReplicaSet constructor)"
+            )
+        order = self._route_order(model=model)
         if not order:
             raise FriendlyError(
                 "no live replica to route to (all drained or "
@@ -309,11 +379,12 @@ class ReplicaSet:
             submit_tick=self._tick,
             copies=[_Copy(target.idx, rid)],
             trace_id=trace,
+            model=model,
         )
         self._open.add(gid)
         self.recorder.record(
             "routed", tick=self._tick, gid=gid, replica=target.idx,
-            rid=rid, trace=trace,
+            rid=rid, model=model, trace=trace,
         )
         return gid
 
@@ -453,9 +524,10 @@ class ReplicaSet:
         eng = None
         snap_ids: set[int] = set()
         if snap is not None:
+            graph, variables = self._model_src(rep.idx)
             try:
                 eng = ServeEngine.restore(
-                    snap, self._graph, self._variables, replica=rep.idx,
+                    snap, graph, variables, replica=rep.idx,
                     faults=self._faults,
                     snapshot_every_ticks=self._snapshot_every,
                     **self._engine_kwargs,
@@ -528,7 +600,9 @@ class ReplicaSet:
             if (now - p.submit_t) * 1e3 < self._hedge_ms:
                 continue
             holder = {c.replica for c in p.copies}
-            order = self._route_order(exclude=holder)
+            # hedge within the request's own model only — a twin on
+            # another model's replica would decode the wrong graph
+            order = self._route_order(exclude=holder, model=p.model)
             target = next(
                 (r for r in order if not r.engine.queue_full), None
             )
@@ -577,13 +651,16 @@ class ReplicaSet:
             "drain", tick=self._tick, replica=replica,
             pending=len(rep.routed),
         )
-        if self._route_order(exclude={rep.idx}):
+        if self._route_order(exclude={rep.idx}, model=rep.model):
             for pay in rep.engine.steal_all():
                 gid = rep.routed.pop(pay["id"], None)
                 if gid is None:
                     continue
-                # re-route per payload: migration load-balances too
-                target = self._route_order(exclude={rep.idx})[0]
+                # re-route per payload: migration load-balances too —
+                # strictly within the drained replica's own model
+                target = self._route_order(
+                    exclude={rep.idx}, model=rep.model,
+                )[0]
                 new_rid = target.engine.adopt(
                     pay["prompt"], prefix=pay["prefix"],
                     max_new_tokens=pay["max_new_tokens"],
@@ -721,8 +798,8 @@ class ReplicaSet:
     def metrics_dict(self) -> dict:
         """Flat control-plane metrics + one nested dict per replica
         (the engines' flat to_dict keys stay unprefixed; the nesting IS
-        the namespacing here) — the JAX package's keys; ``model`` is
-        None on a single-model set."""
+        the namespacing here) — the JAX package's keys; a replica's
+        ``model`` is None on a single-model set."""
         by_status = {"completed": 0, "failed": 0, "expired": 0,
                      "stalled": 0}
         committed_tokens = 0
@@ -737,7 +814,7 @@ class ReplicaSet:
             wall = max(wall, d["wall_s"] or 0.0)
             per_replica[f"replica{rep.idx}"] = {
                 "state": rep.state,
-                "model": None,
+                "model": rep.model,
                 "failovers": rep.failovers,
                 "ticks": d["ticks"],
                 "submitted": d["submitted"],

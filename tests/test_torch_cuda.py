@@ -1727,3 +1727,165 @@ def test_failovers_leave_no_graph_pool_behind(cuda):
     failed, n3 = held(kills)
     assert (n0, n3) == (0, 3)
     assert failed <= 1.25 * clean, (failed, clean)
+
+
+# -- multi-model serving and imported graphs -------------------------------------
+
+
+def _mlp_on(cuda, outputs=3, width=8, seed=4):
+    from mmlspark_tpu_torch.models import build_model, init_variables
+
+    graph = build_model("mlp", num_outputs=outputs, hidden=(32,))
+    graph.size_input((width,))
+    return graph, init_variables(graph, seed, device=cuda)
+
+
+def test_batch_result_survives_two_later_replays(cuda):
+    """A batch dispatch copies its output to the host before the next
+    replay of the same bucket's program overwrites the program's output
+    buffer: a result held across two later dispatches keeps its values
+    (bit-equal to the direct apply of its batch), and the three batches'
+    results all differ."""
+    from mmlspark_tpu_torch.serve import BatchDeployment
+
+    graph, variables = _mlp_on(cuda)
+    dep = BatchDeployment(graph, variables, max_batch=4, device=cuda)
+    rng = np.random.default_rng(5)
+    batches = [rng.normal(size=(4, 8)).astype(np.float32) for _ in range(3)]
+    held = []
+    for xs in batches:
+        for x in xs:
+            dep.submit(x)
+        held.append(np.stack([r.output for r in dep.step()]))
+    assert dep.batch_compile_count == 1  # one program, replayed twice
+    for xs, got in zip(batches, held):
+        want = graph.apply(variables, torch.from_numpy(xs).to(cuda))
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    assert not np.array_equal(held[0], held[1])
+
+
+def _conv_proto(rng):
+    """An NCHW ONNX graph written with the port's exporter helpers:
+    Conv (asymmetric pads, stride 2) -> BatchNormalization -> Relu ->
+    grouped Conv -> MaxPool (asymmetric pads) -> GlobalAveragePool ->
+    Flatten -> Gemm."""
+    from mmlspark_tpu_torch.models import onnx_export as ox
+
+    def f32(*shape, scale=0.3):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    inits = {"w1": f32(8, 3, 3, 3), "b1": f32(8), "scale": 1 + f32(8),
+             "bias": f32(8), "mean": f32(8, scale=0.1),
+             "var": 1 + np.abs(f32(8)), "w2": f32(8, 2, 3, 3),
+             "fc": f32(8, 10), "fcb": f32(10)}
+    nodes = [
+        ox.node("Conv", ["x", "w1", "b1"], ["c1"], name="conv1",
+                attrs=[ox.attr_ints("pads", [0, 1, 2, 1]),
+                       ox.attr_ints("strides", [2, 2])]),
+        ox.node("BatchNormalization", ["c1", "scale", "bias", "mean",
+                                       "var"], ["bn"], name="bn"),
+        ox.node("Relu", ["bn"], ["r"], name="relu"),
+        ox.node("Conv", ["r", "w2"], ["c2"], name="conv2",
+                attrs=[ox.attr_ints("pads", [1, 1, 1, 1]),
+                       ox.attr_i("group", 4)]),
+        ox.node("MaxPool", ["c2"], ["p"], name="pool",
+                attrs=[ox.attr_ints("kernel_shape", [3, 3]),
+                       ox.attr_ints("strides", [2, 2]),
+                       ox.attr_ints("pads", [1, 0, 0, 1])]),
+        ox.node("GlobalAveragePool", ["p"], ["g"], name="gap"),
+        ox.node("Flatten", ["g"], ["f"], name="flat"),
+        ox.node("Gemm", ["f", "fc", "fcb"], ["z"], name="z"),
+    ]
+    return ox.model_proto(
+        nodes, [ox.tensor_proto(k, v) for k, v in inits.items()],
+        [ox.value_info("x", (4, 3, 32, 32))], [ox.value_info("z", (4, 10))])
+
+
+def test_imported_conv_graph_on_card_matches_cpu(cuda):
+    """An imported NCHW conv graph on the card (TF32 off) against the
+    CPU: within 1e-4; as a batch deployment, its captured replay equals
+    its first (eager) call's bucket-size output bit for bit."""
+    from mmlspark_tpu_torch.models.onnx_import import load_onnx
+    from mmlspark_tpu_torch.serve import BatchDeployment
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    graph = load_onnx(_conv_proto(rng))
+    x = torch.from_numpy(rng.normal(size=(4, 3, 32, 32)).astype(np.float32))
+    want = graph.apply(graph.init(device="cpu"), x)
+    variables = graph.init(device=cuda)
+    got = graph.apply(variables, x.to(cuda)).cpu()
+    assert got.shape == (4, 10)
+    assert (got - want).abs().max().item() <= 1e-4
+    dep = BatchDeployment(graph, variables, max_batch=4, device=cuda)
+    outs = []
+    for _ in range(2):
+        for row in x.numpy():
+            dep.submit(row)
+        outs.append(np.stack([r.output for r in dep.step()]))
+    assert dep.batch_compile_count == 1 and dep.capture_seconds > 0
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], got.numpy())
+
+
+def test_lm_deployment_streams_equal_the_dedicated_engine(cuda):
+    """The facade's LM deployment (with a batch deployment beside it and
+    every deployment stepped each tick) emits the dedicated engine's
+    streams bit for bit, through its captured programs."""
+    from mmlspark_tpu_torch.serve import MultiModelEngine, ServeEngine
+
+    graph, variables = _wide_lm()
+    clf, clf_vars = _mlp_on(cuda)
+    prompts = [np.random.default_rng(s).integers(0, 512, size=20 + 7 * s)
+               for s in range(6)]
+    kw = dict(slots=4, cache_len=256, decode_block=8, max_queue=8)
+    solo = ServeEngine(graph, variables, **kw)
+    ids = [solo.submit(p, 24) for p in prompts]
+    want = solo.run()
+    eng = MultiModelEngine(device=cuda)
+    lm = eng.add_lm("lm", graph, variables, **kw)
+    eng.add_batch("clf", clf, clf_vars, max_batch=4)
+    for x in np.random.default_rng(1).normal(size=(8, 8)).astype(np.float32):
+        eng.submit(x, model="clf")
+    gids = [eng.submit(p, model="lm", max_new_tokens=24) for p in prompts]
+    got = eng.run()
+    assert lm.capture_seconds > 0 and lm.graph_pool_bytes() > 0
+    for g, rid in zip(gids, ids):
+        np.testing.assert_array_equal(got[g].tokens, want[rid].tokens)
+
+
+def test_multimodel_close_returns_the_graph_pools(cuda):
+    """``MultiModelEngine.close`` releases every deployment's captured
+    programs: each graph pool holds bytes before and none after (its
+    segments returned to the card), and the engine holds no more device
+    memory than before."""
+    import gc
+
+    from mmlspark_tpu_torch.serve import MultiModelEngine
+
+    graph, variables = _wide_lm()
+    clf, clf_vars = _mlp_on(cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng = MultiModelEngine(device=cuda)
+    eng.add_lm("lm", graph, variables, slots=4, cache_len=256,
+               decode_block=8, max_queue=8)
+    eng.add_batch("clf", clf, clf_vars, max_batch=4)
+    for s in range(4):
+        eng.submit(np.random.default_rng(s).integers(0, 512, size=30),
+                   model="lm", max_new_tokens=16)
+        eng.submit(np.zeros(8, np.float32), model="clf")
+    eng.run()
+    pools = {n: eng.deployment(n).graph_pool_bytes() for n in eng.models}
+    assert all(pools.values()), pools
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = {n: eng.deployment(n).graph_pool_bytes() for n in eng.models}
+    assert not any(after.values()), after
+    assert torch.cuda.memory_allocated() <= before

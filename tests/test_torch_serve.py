@@ -363,7 +363,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.core.perf, mmlspark_tpu_torch.serve.supervisor, "
         "mmlspark_tpu_torch.serve.fleet, mmlspark_tpu_torch.serve.demo, "
         "mmlspark_tpu_torch.utils.profiling, "
-        "mmlspark_tpu_torch.core.metrics_contracts\n"
+        "mmlspark_tpu_torch.core.metrics_contracts, "
+        "mmlspark_tpu_torch.models.onnx_import, "
+        "mmlspark_tpu_torch.models.onnx_export, "
+        "mmlspark_tpu_torch.serve.multimodel, "
+        "mmlspark_tpu_torch.core.tracehub\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
         "'transformer_lm_moe'):\n"
@@ -404,7 +408,9 @@ def test_port_sources_name_no_jax_import():
                  "data/sample_data.py", "ops/image_ops.py",
                  "stages/image.py", "models/zoo.py", "data/ctf.py",
                  "core/perf.py", "serve/supervisor.py", "serve/fleet.py",
-                 "utils/profiling.py", "core/metrics_contracts.py"):
+                 "utils/profiling.py", "core/metrics_contracts.py",
+                 "models/onnx_import.py", "models/onnx_export.py",
+                 "serve/multimodel.py", "core/tracehub.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):

@@ -6,7 +6,8 @@ survives replica kills, failed health probes, hedged duplicates, drains
 and corrupted snapshots, and every final stream equals the JAX single
 engine's, exactly one result per request, with every replica's program
 pins intact. The 2x2 mesh cases wait for the mesh (ROADMAP.md Queue 1
-item 13).
+item 13); routing by model (``models=``) is held to the JAX set in
+``tests/test_torch_multimodel.py``.
 
 The model is the JAX package's overfit periodic LM bridged into the port
 (``tests/test_torch_chunked_async.py``'s fixture), so greedy picks have
@@ -135,8 +136,13 @@ def test_submit_validation_and_global_ids(lm):
         _set(lm, replicas=2, hedge_ms=-1.0)
     with pytest.raises(FriendlyError, match="managed by ReplicaSet"):
         _set(lm, replicas=2, replica=0)
-    with pytest.raises(FriendlyError, match="item 19"):
-        _set(lm, replicas=2, models={"a": (lm[2], lm[3])})
+    # models= routes by model now (tests/test_torch_multimodel.py); its
+    # construction is validated like the JAX set's
+    with pytest.raises(FriendlyError, match="at least one model"):
+        _set(lm, replicas=2, models={})
+    with pytest.raises(FriendlyError, match="model="):
+        _set(lm, replicas=2, models={"a": (lm[2], lm[3])}).submit(
+            [1, 2, 3], 4)
     with pytest.raises(FriendlyError, match="replica index must be"):
         ServeEngine(lm[2], lm[3], replica=-1, device="cpu")
 
