@@ -7,8 +7,11 @@ layer (``TPUModel``, ``DNNLearner``) over ResNet-20, ResNet-50, the
 BiLSTM tagger and the flash LM, the switch-MoE LM served and trained,
 the image path (decode, ``ImageFeaturizer`` over ResNet-50, the model
 zoo), the replica planes (``ReplicaSet``, ``DisaggFleet`` with KV
-hand-offs), and multi-model serving over an ONNX-imported graph with the
-telemetry hub, and prints the measured numbers.
+hand-offs), multi-model serving over an ONNX-imported graph with the
+telemetry hub, and the classical one-liner path (``Featurize``, the
+histogram tree learners, ``TrainClassifier``/``TrainRegressor``,
+``ComputeModelStatistics``, ``FindBestModel``), and prints the measured
+numbers.
 
     python3 chip_smoke.py
 
@@ -278,7 +281,44 @@ Phases (each one fails the run with a non-zero exit on error):
    graph), capture seconds and graph-pool bytes per deployment, and the
    hub's refresh, export and bundle ms, beside the card's name and power
    limit;
-12. numbers: each kernel's, its plain version's and (where one exists)
+12. the classical one-liner path (the ``classical`` line), through the
+   entry points a user calls, on the card by default:
+   ``TrainClassifier(label_col="income", seed=0)`` on
+   ``make_census(32561, seed=11, full_schema=True)`` (the real Adult
+   train split's rows and 14-column schema) over ``gbt`` (10 rounds,
+   depth 5), ``random_forest`` (20 trees), ``decision_tree``,
+   ``naive_bayes``, ``logistic_regression`` (1 and 5 epochs, batch 256)
+   and ``mlp``; ``TrainRegressor(label_col="arr_delay", seed=0)`` on
+   ``make_flights(32561, seed=3)`` over ``linear_regression``,
+   ``decision_tree``, ``random_forest``, ``gbt`` and ``mlp``; each a cold
+   and a warm fit. Gates: a tree learner's two card fits bit-identical
+   (``feats``, ``threshs``, ``values``, ``feature_importances``) with one
+   host fetch each (``trees.fetches``); each tree fit against the same fit
+   on the CPU (the plain path): gini trees equal in structure with values
+   within GINI_VALUE_TOL, boosted and variance trees equal in structure
+   or parting only at near ties (both candidates' gains within 1e-5
+   relative, ``testing/tree_parity.py``; the line counts them) with
+   predictions within GBT_PRED_TOL; one fitted model scored on the card
+   and on the CPU within SCORE_TOL. The wide case:
+   ``GBTClassifier(max_iter=4, max_depth=5, max_bins=32)`` on a seeded
+   [32561, 4096] table (64 dense columns, 4032 sparse hashed counts; 133
+   MB of uint8 codes on the card, 16 feature chunks a level), two card
+   fits bit-identical, and the first round's root histogram against a
+   float64 numpy ``bincount`` (counts exact, sums within HIST_REL_TOL).
+   The recorded learner matrices (``testing/benchmark_metrics``) retrained
+   on the card: tree and naive-Bayes rows within the JAX test's TOL of
+   ``tests/fixtures/benchmark_metrics*.csv``, the logistic, linear and
+   MLP rows (the port's own initial weights) within NN_TOL. Notebook
+   101's flow on ``tests/fixtures/titanic.csv`` (``CleanMissingData``,
+   three ``TrainClassifier`` candidates, ``FindBestModel`` by AUC, a save
+   and ``PipelineStage.load``, ``ComputeModelStatistics``) on the card
+   and on the CPU: the same best model, accuracy above 0.73. Reported:
+   every fit's cold and warm seconds with its host binning and
+   ``Featurize`` seconds and peak device memory, scoring rows/s, the
+   training-set metrics, the level histogram's device ms at the wide
+   shape (1 and 16 nodes) beside its byte bound, a profiled warm census
+   GBT fit (busy share, top kernels), and every recorded row's gap;
+13. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -5279,6 +5319,514 @@ def check_multimodel(graph, variables, dense: dict, smi: str,
     return out
 
 
+# -- the classical one-liner path (PR 14) ------------------------------------
+
+#: the real Adult train split's row count and 14-column schema
+#: (``bench.py``'s census scale); the flights table at the same rows
+CENSUS_ROWS = 32561
+CENSUS_SEED, FLIGHTS_SEED = 11, 3
+#: (label, TrainClassifier kwargs) over the census table
+CLASSIFIER_RUNS = (
+    ("gbt", dict(model="gbt", max_iter=10, max_depth=5)),
+    ("random_forest", dict(model="random_forest")),
+    ("decision_tree", dict(model="decision_tree")),
+    ("naive_bayes", dict(model="naive_bayes")),
+    ("logistic_regression_e1", dict(model="logistic_regression", epochs=1,
+                                    batch_size=256)),
+    ("logistic_regression_e5", dict(model="logistic_regression", epochs=5,
+                                    batch_size=256)),
+    ("mlp", dict(model="mlp")),
+)
+REGRESSOR_RUNS = tuple((m, dict(model=m)) for m in (
+    "linear_regression", "decision_tree", "random_forest", "gbt", "mlp"))
+TREE_LEARNERS = ("decision_tree", "random_forest", "gbt")
+#: "census scale x 2^12 hashed dims": 64 dense columns and 4032 sparse
+#: hashed counts, labels from a seeded rule over a few of them
+WIDE_ROWS, WIDE_DENSE, WIDE_HASHED = 32561, 64, 4032
+WIDE_FIT = dict(max_iter=4, max_depth=5, max_bins=32)
+#: gini trees count rows (exact in f32); boosted and variance trees'
+#: predictions; one fitted model scored on the card and on the CPU; the
+#: wide histogram's float sums against float64, relative to the sum of
+#: magnitudes in each bin
+GINI_VALUE_TOL = 1e-6
+GBT_PRED_TOL = 1e-4
+SCORE_TOL = 1e-6
+HIST_REL_TOL = 1e-4
+TITANIC_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "titanic.csv")
+#: notebook 101's accuracy floor on the Titanic table
+#: (examples/e101_adult_census_train_classifier.py)
+TITANIC_FLOOR = 0.73
+TITANIC_LEARNERS = ("logistic_regression", "gbt", "random_forest")
+
+
+class HostClock:
+    """Seconds a fit spends in its host phases: binning
+    (``trees.quantile_edges`` and ``trees.bin_features``) and
+    ``Featurize`` (fit and transform), by wrapping those functions for
+    the block, as ``bench.py``'s ``bench_trees`` does."""
+
+    def __init__(self):
+        self.seconds = {"binning": 0.0, "featurize": 0.0}
+        self._saved: list = []
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.stages import featurize, trees
+
+        for owner, name, key in (
+                (trees, "quantile_edges", "binning"),
+                (trees, "bin_features", "binning"),
+                (featurize.Featurize, "_fit", "featurize"),
+                (featurize.FeaturizeModel, "_transform", "featurize")):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, key))
+        return self
+
+    def _wrap(self, fn, key):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[key] += time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def classical_fit(make, ds) -> tuple:
+    """One fit, ``make().fit(ds)``: (the model, {its seconds, the host
+    phases' seconds, the tree fetches it made, its peak device memory
+    over what was allocated when it began})."""
+    import torch
+
+    from mmlspark_tpu_torch.stages import trees
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = trees.fetches
+    t0 = time.perf_counter()
+    with HostClock() as clock:
+        model = make().fit(ds)
+    torch.cuda.synchronize()
+    return model, {
+        "s": time.perf_counter() - t0,
+        "binning_s": clock.seconds["binning"],
+        "featurize_s": clock.seconds["featurize"],
+        "fetches": trees.fetches - before,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+    }
+
+
+def bit_equal_trees(a, b) -> bool:
+    return all(np.array_equal(np.asarray(getattr(a, k)),
+                              np.asarray(getattr(b, k)))
+               for k in ("feats", "threshs", "values",
+                         "feature_importances"))
+
+
+def subset_scores(model, idx, feats) -> np.ndarray:
+    """The CPU scores of the trees ``idx`` of a fitted tree model."""
+    params = dict(model.param_values())
+    for k in ("feats", "threshs", "values"):
+        params[k] = np.asarray(params[k])[idx]
+    params["device"] = "cpu"
+    return np.asarray(type(model)(**params).transform(feats)["scores"])
+
+
+def card_vs_cpu(card, cpu, x, y, feats, est) -> dict:
+    """One tree fit on the card against the same fit on the CPU (the
+    plain path): gini trees equal in structure with values within
+    GINI_VALUE_TOL; boosted and variance trees equal in structure or
+    parting only at near ties (two candidates' gains within 1e-5
+    relative, ``testing/tree_parity.py``), their predictions within
+    GBT_PRED_TOL over the trees before a boosted fit parts (all of them
+    where it does not) or over a forest's agreeing trees."""
+    from mmlspark_tpu_torch.testing.tree_parity import (
+        forest_divergence,
+        gbt_divergence,
+    )
+
+    kind = type(cpu).__name__
+    same = bool(np.array_equal(card.feats, cpu.feats)
+                and np.array_equal(card.threshs, cpu.threshs))
+    out = {"structures_equal": same, "near_ties": 0, "splits": []}
+    if kind == "TreeClassifierModel":
+        out["values_max_abs_err"] = float(np.abs(card.values
+                                                 - cpu.values).max())
+        if not same or out["values_max_abs_err"] > GINI_VALUE_TOL:
+            raise AssertionError(f"gini trees: card != cpu ({out})")
+        return out
+    trees_ = range(cpu.feats.shape[0])
+    if kind == "TreeRegressorModel":
+        div = forest_divergence(
+            cpu, card, x, y, seed=est.seed, subsample=est.subsample,
+            feature_subset=est.feature_subset, lam=est.lambda_,
+            max_bins=est.max_bins)
+        keep = [i for i in trees_ if i not in div["diverged_trees"]]
+    else:
+        div = gbt_divergence(cpu, card, x, y, lam=est.lambda_,
+                             max_bins=est.max_bins)
+        first = div["first_diverged_tree"]
+        keep = list(trees_)[:first] if first is not None else list(trees_)
+    out["splits"] = div["splits"]
+    out["near_ties"] = len(div["splits"])
+    out["trees_compared"] = len(keep)
+    if not all(s["near_tie"] for s in div["splits"]):
+        raise AssertionError(f"{kind}: a split differs past a near tie "
+                             f"({div['splits']})")
+    if keep:
+        err = float(np.abs(subset_scores(card, keep, feats)
+                           - subset_scores(cpu, keep, feats)).max())
+        out["pred_max_abs_err"] = err
+        if err > GBT_PRED_TOL:
+            raise AssertionError(f"{kind}: card vs cpu predictions {out}")
+    return out
+
+
+def score_card_and_cpu(model, ds) -> dict:
+    """One fitted model scored on the card and on the CPU, within
+    SCORE_TOL; the card's warm scoring rows/s, end to end (featurize on
+    the host included) and of the learner alone on featurized rows."""
+    import torch
+
+    model.transform(ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = np.asarray(model.transform(ds)["scores"])
+    e2e_s = time.perf_counter() - t0
+    feats = model.featurizer.transform(ds)
+    learner = model.learner_model
+    t0 = time.perf_counter()
+    learner.transform(feats)
+    torch.cuda.synchronize()
+    learner_s = time.perf_counter() - t0
+    device = learner.device
+    learner.set(device="cpu")
+    try:
+        cpu = np.asarray(model.transform(ds)["scores"])
+    finally:
+        learner.set(device=device)
+    err = float(np.abs(card - cpu).max())
+    if err > SCORE_TOL:
+        raise AssertionError(f"scores card vs cpu {err}")
+    return {"card_vs_cpu_max_abs_err": err,
+            "rows_per_sec": ds.num_rows / e2e_s,
+            "learner_rows_per_sec": ds.num_rows / learner_s}
+
+
+def training_labels(model, ds, label_col: str) -> np.ndarray:
+    """The learner's training labels: class indices over the model's
+    levels, or the float targets."""
+    if hasattr(model, "levels"):
+        index = {v: i for i, v in enumerate(model.levels)}
+        return np.asarray([index[v] for v in ds[label_col]], np.int64)
+    return np.asarray(ds[label_col], np.float64)
+
+
+def classical_table(label_col: str, runs, ds, train_cls,
+                    metric_keys) -> dict:
+    """Every learner of ``runs`` through ``train_cls`` on ``ds``: a cold
+    and a warm fit on the card (a tree learner's two bit-identical, one
+    fetch each), the tree learners against the same fit on the CPU,
+    scoring on the card against the CPU, and the training-set
+    metrics."""
+    from mmlspark_tpu_torch.stages.eval_metrics import ComputeModelStatistics
+
+    out = {}
+    for label, kw in runs:
+        def make(device=DEVICE, kw=kw):
+            return train_cls(label_col=label_col, seed=0, device=device,
+                             **kw)
+
+        cold, cold_t = classical_fit(make, ds)
+        warm, warm_t = classical_fit(make, ds)
+        row = {"cold": cold_t, "warm": warm_t}
+        stats = ComputeModelStatistics().transform(warm.transform(ds))
+        row["metrics"] = {k: float(stats[k][0]) for k in metric_keys
+                          if k in stats.columns}
+        if kw["model"] in TREE_LEARNERS:
+            if not bit_equal_trees(cold.learner_model, warm.learner_model):
+                raise AssertionError(f"{label}: two card fits differ")
+            if (cold_t["fetches"], warm_t["fetches"]) != (1, 1):
+                raise AssertionError(
+                    f"{label}: {cold_t['fetches']} and {warm_t['fetches']}"
+                    " fetches (one a fit)")
+            cpu, cpu_t = classical_fit(lambda: make("cpu"), ds)
+            feats = cpu.featurizer.transform(ds)
+            est = make()
+            est = (est._make_learner(len(cpu.levels))
+                   if hasattr(cpu, "levels") else est._make_learner())
+            row["cpu_s"] = cpu_t["s"]
+            row["deterministic"] = True
+            row["card_vs_cpu"] = card_vs_cpu(
+                warm.learner_model, cpu.learner_model,
+                np.asarray(feats["features"], np.float64),
+                training_labels(cpu, ds, label_col), feats, est)
+            row["scoring"] = score_card_and_cpu(warm, ds)
+        log(f"classical {label}: {row}")
+        out[label] = row
+    return out
+
+
+def profile_fit(make, ds) -> dict:
+    """One warm fit under ``torch.profiler``: device busy share and the
+    kernels that take its time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        make().fit(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_profile(prof, wall_ms)
+
+
+def wide_table(seed: int = 41) -> tuple:
+    """The wide case's seeded [WIDE_ROWS, 4096] features and labels."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((WIDE_ROWS, WIDE_DENSE + WIDE_HASHED), np.float64)
+    x[:, :WIDE_DENSE] = rng.standard_normal((WIDE_ROWS, WIDE_DENSE))
+    x[:, WIDE_DENSE:] = rng.poisson(0.2, (WIDE_ROWS, WIDE_HASHED))
+    score = (x[:, 0] + 0.8 * x[:, 1] - 0.6 * x[:, 2] * x[:, 3]
+             + 1.5 * x[:, WIDE_DENSE] - 1.0 * x[:, WIDE_DENSE + 7])
+    y = (score + 0.3 * rng.standard_normal(WIDE_ROWS) > 0.2).astype(np.int64)
+    return x, y
+
+
+def root_histogram_check(model, x, y) -> dict:
+    """The first round's root-level histogram (class 0) of the wide fit on
+    the card against a float64 numpy ``bincount`` over the same codes:
+    counts exact, gradient and hessian sums within HIST_REL_TOL of the
+    sum of magnitudes in their bin; and the level histogram's device ms
+    at the root (1 node) and at depth 4 (16 nodes), beside its byte
+    bound (codes, stats and node ids read once, the histogram written
+    once, at HBM_BYTES_PER_S)."""
+    import torch
+
+    from mmlspark_tpu_torch.stages import trees
+
+    dev = torch.device(DEVICE)
+    n, d = x.shape
+    max_bins = WIDE_FIT["max_bins"]
+    codes = trees.bin_features(x, np.asarray(model.edges))
+    bins = trees._device_bins(codes, max_bins, dev)
+    k = len(model.base)
+    margins = torch.tensor(np.asarray(model.base, np.float32),
+                           device=dev)[None, :].expand(n, k)
+    p = trees._softmax(margins)
+    onehot = torch.from_numpy(np.eye(k, dtype=np.float32)[y]).to(dev)
+    g, h = p - onehot, p * (1.0 - p)
+    stats = torch.stack([g[:, 0], h[:, 0], torch.ones(n, device=dev)], 1)
+    slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    hist = trees._level_histogram(bins, stats, slot, 1, max_bins)[0]
+    hist = hist.cpu().numpy().astype(np.float64)
+    ids = (codes + max_bins * np.arange(d)[None, :]).ravel()
+    size = d * max_bins
+    s64 = stats.cpu().numpy().astype(np.float64)
+    counts = np.bincount(ids, minlength=size).reshape(d, max_bins)
+    worst = 0.0
+    for j in (0, 1):
+        w = np.repeat(s64[:, j], d)
+        ref = np.bincount(ids, weights=w, minlength=size)
+        mag = np.bincount(ids, weights=np.abs(w), minlength=size)
+        got = hist[:, :, j].ravel()
+        worst = max(worst, float((np.abs(got - ref)
+                                  / np.maximum(mag, 1e-30)).max()))
+    counts_exact = bool(np.array_equal(hist[:, :, 2], counts))
+    if not counts_exact or worst > HIST_REL_TOL:
+        raise AssertionError(f"wide root histogram: counts exact "
+                             f"{counts_exact}, sums rel err {worst}")
+    timing = {}
+    for nodes in (1, 16):
+        slot_n = torch.from_numpy(np.random.default_rng(nodes).integers(
+            0, nodes, n)).to(dev)
+        t = time_ms(lambda s: trees._level_histogram(bins, stats, s, nodes,
+                                                     max_bins),
+                    [(slot_n,)], reps=10)
+        nbytes = n * d + n * 3 * 4 + n * 8 + nodes * d * max_bins * 3 * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, n * d * 3 / F32_FLOPS_PER_S)
+        timing[f"nodes_{nodes}"] = {
+            "ms": t.ms, "call_ms": t.call_ms, "covered": t.covered,
+            "bytes": nbytes, "bound_ms": bound * 1e3, "bound_by": "bytes"
+            if nbytes / HBM_BYTES_PER_S >= n * d * 3 / F32_FLOPS_PER_S
+            else "operations"}
+    return {"counts_exact": counts_exact, "sums_max_rel_err": worst,
+            "level_histogram": timing}
+
+
+def check_wide() -> dict:
+    """The wide case: two card fits of GBTClassifier(**WIDE_FIT) on the
+    seeded [32561, 4096] table, bit-identical, one fetch each; the root
+    histogram against numpy and its device ms beside its bound."""
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.stages.trees import GBTClassifier
+
+    t0 = time.perf_counter()
+    x, y = wide_table()
+    ds = Dataset({"features": x, "label": y})
+    gen_s = time.perf_counter() - t0
+
+    def make():
+        return GBTClassifier(seed=0, device=DEVICE, **WIDE_FIT)
+
+    a, a_t = classical_fit(make, ds)
+    b, b_t = classical_fit(make, ds)
+    if not bit_equal_trees(a, b) or (a_t["fetches"], b_t["fetches"]) != (1, 1):
+        raise AssertionError(f"wide: bit-equal {bit_equal_trees(a, b)}, "
+                             f"fetches {a_t['fetches']}, {b_t['fetches']}")
+    out = {"rows": WIDE_ROWS, "features": x.shape[1], "fit": WIDE_FIT,
+           "table_seconds": gen_s, "cold": a_t, "warm": b_t,
+           "deterministic": True,
+           "bins_bytes": WIDE_ROWS * x.shape[1]}
+    out.update(root_histogram_check(a, x, y))
+    per_fit = WIDE_FIT["max_iter"] * len(a.base) * WIDE_FIT["max_depth"]
+    levels = out["level_histogram"]
+    out["level_histograms_per_fit"] = per_fit
+    out["histogram_s_per_fit_estimate"] = per_fit * 0.5 * (
+        levels["nodes_1"]["ms"] + levels["nodes_16"]["ms"]) / 1e3
+    log(f"classical wide: {out}")
+    return out
+
+
+def check_matrices() -> dict:
+    """The recorded learner matrices retrained on the card: every tree
+    and naive-Bayes row within the JAX test's TOL of the recorded CSVs,
+    the logistic/linear/MLP rows within NN_TOL, every row's gap
+    reported."""
+    from mmlspark_tpu_torch.testing import benchmark_metrics as bm
+
+    t0 = time.perf_counter()
+    cls = bm.compare_to_recorded(bm.run_matrix(device=DEVICE))
+    t1 = time.perf_counter()
+    reg = bm.compare_to_recorded(bm.run_regressor_matrix(device=DEVICE),
+                                 regression=True)
+    t2 = time.perf_counter()
+    bad = cls["mismatches"] + reg["mismatches"] + cls["missing"] + \
+        reg["missing"]
+    if bad:
+        raise AssertionError(f"recorded matrices: {bad}")
+    return {"tol": bm.TOL, "nn_tol": bm.NN_TOL,
+            "classifier_gaps": cls["gaps"], "regressor_gaps": reg["gaps"],
+            "classifier_matrix_s": t1 - t0, "regressor_matrix_s": t2 - t1}
+
+
+def read_titanic():
+    """``tests/fixtures/titanic.csv`` as ``data.readers.read_csv`` reads
+    it, without pandas (the card machine has none): a column whose cells
+    all parse as numbers is int64 (no gaps, all integral) or float64 with
+    nan for gaps; any other column holds its strings, nan for gaps."""
+    import csv
+
+    from mmlspark_tpu_torch.data import Dataset
+
+    with open(TITANIC_CSV, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    cols = {}
+    for j, name in enumerate(header):
+        cells = [r[j] for r in body]
+        try:
+            vals = [float(c) if c != "" else np.nan for c in cells]
+        except ValueError:
+            cols[name] = [c if c != "" else np.nan for c in cells]
+            continue
+        arr = np.asarray(vals)
+        if not np.isnan(arr).any() and np.all(arr == np.round(arr)):
+            arr = arr.astype(np.int64)
+        cols[name] = arr
+    return Dataset(cols)
+
+
+def notebook_101(device) -> dict:
+    """Notebook 101's flow (examples/e101): the Titanic table split 3:1,
+    ``CleanMissingData`` over age and fare, ``TrainClassifier`` for
+    TITANIC_LEARNERS, ``FindBestModel`` by AUC, a save and
+    ``PipelineStage.load``, then ``ComputeModelStatistics``."""
+    import tempfile
+
+    from mmlspark_tpu_torch.core.stage import PipelineStage
+    from mmlspark_tpu_torch.stages.eval_metrics import ComputeModelStatistics
+    from mmlspark_tpu_torch.stages.find_best import FindBestModel
+    from mmlspark_tpu_torch.stages.prep import CleanMissingData
+    from mmlspark_tpu_torch.stages.train_classifier import TrainClassifier
+
+    t0 = time.perf_counter()
+    test, train = read_titanic().random_split(0.25, seed=0)
+    imputer = CleanMissingData(input_cols=["age", "fare"],
+                               cleaning_mode="Mean").fit(train)
+    train, test = imputer.transform(train), imputer.transform(test)
+    candidates = [TrainClassifier(label_col="survived", model=m, epochs=25,
+                                  learning_rate=5e-2, device=device).fit(train)
+                  for m in TITANIC_LEARNERS]
+    best = FindBestModel(models=candidates,
+                         evaluation_metric="AUC").fit(test)
+    with tempfile.TemporaryDirectory() as d:
+        best.best_model.save(d + "/model")
+        model = PipelineStage.load(d + "/model")
+    stats = ComputeModelStatistics().transform(model.transform(test))
+    table = best.all_model_metrics
+    return {
+        "best": TITANIC_LEARNERS[candidates.index(best.best_model)],
+        "accuracy": float(stats["accuracy"][0]),
+        "AUC": float(stats["AUC"][0]),
+        "candidates_auc": dict(zip(TITANIC_LEARNERS,
+                                   (float(v) for v in table["AUC"]))),
+        "rows": train.num_rows + test.num_rows, "s": time.perf_counter() - t0,
+    }
+
+
+def check_notebook_101() -> dict:
+    """The flow on the card and on the CPU: the same best model, the
+    card's accuracy above TITANIC_FLOOR."""
+    card, cpu = notebook_101(DEVICE), notebook_101("cpu")
+    if card["best"] != cpu["best"] or card["accuracy"] <= TITANIC_FLOOR:
+        raise AssertionError(f"notebook 101: card {card}, cpu {cpu}")
+    return {"card": card, "cpu": cpu, "floor": TITANIC_FLOOR}
+
+
+def check_classical(smi: str) -> dict:
+    """The classical one-liner path on the card (phase 12)."""
+    from mmlspark_tpu_torch.stages import featurize as fz
+    from mmlspark_tpu_torch.stages.train_classifier import TrainClassifier
+    from mmlspark_tpu_torch.stages.train_regressor import TrainRegressor
+    from mmlspark_tpu_torch.testing.datagen import make_census, make_flights
+
+    t0 = time.perf_counter()
+    census = make_census(CENSUS_ROWS, seed=CENSUS_SEED, full_schema=True)
+    flights = make_flights(CENSUS_ROWS, seed=FLIGHTS_SEED)
+    # Featurize alone, tree-style (as TrainClassifier configures it)
+    cols = [c for c in census.columns if c != "income"]
+    t1 = time.perf_counter()
+    fz.Featurize(feature_columns={"features": cols},
+                 number_of_features=fz.TREE_NN_NUM_FEATURES,
+                 one_hot_encode_categoricals=False).fit(census) \
+        .transform(census)
+    featurize_s = time.perf_counter() - t1
+    out = {"card": smi, "rows": CENSUS_ROWS,
+           "census_featurize_s": featurize_s}
+    out["census"] = classical_table(
+        "income", CLASSIFIER_RUNS, census, TrainClassifier,
+        ("accuracy", "AUC"))
+    out["flights"] = classical_table(
+        "arr_delay", REGRESSOR_RUNS, flights, TrainRegressor,
+        ("R^2", "root_mean_squared_error"))
+    out["census_gbt_profile"] = profile_fit(
+        lambda: TrainClassifier(label_col="income", seed=0, device=DEVICE,
+                                **CLASSIFIER_RUNS[0][1]), census)
+    out["wide"] = check_wide()
+    out["matrices"] = check_matrices()
+    out["notebook_101"] = check_notebook_101()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -5369,6 +5917,9 @@ def main() -> int:
         graph, variables, dense, smi,
         dnn_stages["resnet50"]["logits"]["model_only_images_per_sec"])
     log(f"multimodel phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    classical = check_classical(smi)
+    log(f"classical phase took {time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
     # plus the MoE engines' (decode), the MoE training run's (attention),
@@ -5436,6 +5987,7 @@ def main() -> int:
     print(json.dumps({"image": image}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"multimodel": multimodel}))
+    print(json.dumps({"classical": classical}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

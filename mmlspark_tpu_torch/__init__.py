@@ -25,7 +25,11 @@ transformer LM; the convolutions and the LSTM are cuDNN's. The
 switch-MoE LM (``transformer_lm_moe``, ``parallel/expert.py``) is served
 and trained on the same paths, and the image pipeline — the native
 decoder, the readers, ``ImageTransformer``/``ImageFeaturizer`` and the
-model zoo — feeds ``TPUModel``, resizing on the card.
+model zoo — feeds ``TPUModel``, resizing on the card. The classical
+one-liner path — ``Featurize``, the histogram tree learners fitting on
+the card, ``TrainClassifier``/``TrainRegressor``,
+``ComputeModelStatistics`` and ``FindBestModel`` — runs on the stage
+layer too.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -2,10 +2,10 @@
 ``mmlspark_tpu/models/registry.py``. The port registers only what its
 slices have ported: ``transformer_lm``, ``mlp``, ``linear``,
 ``resnet20_cifar10``, ``resnet50``, ``bilstm_tagger``,
-``transformer_lm_moe`` and ``onnx`` (an imported ONNX file,
-``models/onnx_import.py``). A serialized
-``TPUModel`` stores ``(model_name, model_config)`` and rebuilds its graph
-here at load time."""
+``transformer_lm_moe``, ``onnx`` (an imported ONNX file,
+``models/onnx_import.py``) and ``skipgram`` (``stages/word2vec.py``). A
+serialized ``TPUModel`` stores ``(model_name, model_config)`` and rebuilds
+its graph here at load time."""
 
 from __future__ import annotations
 
@@ -53,3 +53,4 @@ def _ensure_loaded() -> None:
     import mmlspark_tpu_torch.models.onnx_import  # noqa: F401
     import mmlspark_tpu_torch.models.resnet  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401
+    import mmlspark_tpu_torch.stages.word2vec  # noqa: F401  (skipgram)

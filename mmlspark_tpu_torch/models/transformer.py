@@ -93,16 +93,18 @@ class Dense(nn.Module):
     """flax ``nn.Dense(dtype=dtype, param_dtype=float32)``: f32 weight
     (out, in) and bias; ``forward(x, dtype)`` casts the input and the
     parameters to the caller's compute dtype and adds the bias after the
-    product — two roundings, as in flax."""
+    product — two roundings, as in flax. ``bias=False`` is flax's
+    ``use_bias=False``."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x, dtype):
         y = F.linear(x.to(dtype), self.weight.to(dtype))
-        return y + self.bias.to(dtype)
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class TokenPosEmbed(nn.Module):

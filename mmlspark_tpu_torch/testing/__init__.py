@@ -1,4 +1,7 @@
-"""Testing helpers: the program counter and the compile-count guard."""
+"""Testing helpers: the program counter and the compile-count guard, and
+(imported by path) ``datagen`` (seeded tables), ``benchmark_metrics``
+(the recorded learner matrices) and ``tree_parity`` (near ties between
+two tree fits)."""
 
 from mmlspark_tpu_torch.testing.compile_guard import (
     GraphPool,

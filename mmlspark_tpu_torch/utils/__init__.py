@@ -1,2 +1,2 @@
-"""Utilities: the profiler annotation the serving engine's phases run
-under."""
+"""Utilities: the profiler hooks (the serving engine's phase annotation,
+``Timer``'s trace) and the shared tokenizer and feature hash."""

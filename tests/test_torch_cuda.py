@@ -1889,3 +1889,55 @@ def test_multimodel_close_returns_the_graph_pools(cuda):
     after = {n: eng.deployment(n).graph_pool_bytes() for n in eng.models}
     assert not any(after.values()), after
     assert torch.cuda.memory_allocated() <= before
+
+
+def _tree_data(n=3000, d=12, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = ((x[:, 0] + 0.5 * x[:, 1] * x[:, 2] + 0.3 * rng.normal(size=n))
+         > 0).astype(np.int64)
+    return x, y
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("RandomForestClassifier", {"num_trees": 8}),
+    ("GBTClassifier", {"max_iter": 6}),
+    ("GBTRegressor", {"max_iter": 6}),
+])
+def test_tree_fit_on_card_is_deterministic_and_equals_the_cpu(cuda, name,
+                                                              kw):
+    """A fit on the card repeats bit for bit under its seed (the level
+    histogram's deterministic segment sums), one host fetch a fit, and
+    equals the CPU fit: gini forests exactly, boosted trees' structures
+    equal or parting only at a near tie, scores within 1e-4."""
+    from mmlspark_tpu_torch.data.dataset import Dataset
+    from mmlspark_tpu_torch.stages import trees
+    from mmlspark_tpu_torch.testing.tree_parity import gbt_divergence
+
+    x, y = _tree_data()
+    if name == "GBTRegressor":
+        y = x[:, 0] * 2 + np.sin(x[:, 3])
+    ds = Dataset({"features": x, "label": y})
+    est = getattr(trees, name)
+    before = trees.fetches
+    a = est(seed=1, **kw).fit(ds)
+    b = est(seed=1, **kw).fit(ds)
+    assert trees.fetches == before + 2
+    for p in ("feats", "threshs", "values", "feature_importances"):
+        np.testing.assert_array_equal(getattr(a, p), getattr(b, p))
+    cpu = est(seed=1, device="cpu", **kw).fit(ds)
+    card_scores = np.asarray(a.transform(ds)["scores"])
+    a.set(device="cpu")
+    np.testing.assert_allclose(np.asarray(a.transform(ds)["scores"]),
+                               card_scores, atol=1e-6, rtol=0)
+    if name == "RandomForestClassifier":
+        np.testing.assert_array_equal(a.feats, cpu.feats)
+        np.testing.assert_array_equal(a.threshs, cpu.threshs)
+        np.testing.assert_allclose(a.values, cpu.values, atol=1e-6, rtol=0)
+        return
+    div = gbt_divergence(cpu, a, x, y)
+    assert all(s["near_tie"] for s in div["splits"]), div
+    if div["first_diverged_tree"] is None:
+        np.testing.assert_allclose(card_scores,
+                                   np.asarray(cpu.transform(ds)["scores"]),
+                                   atol=1e-4, rtol=0)

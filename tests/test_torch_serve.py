@@ -367,10 +367,22 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.models.onnx_import, "
         "mmlspark_tpu_torch.models.onnx_export, "
         "mmlspark_tpu_torch.serve.multimodel, "
-        "mmlspark_tpu_torch.core.tracehub\n"
+        "mmlspark_tpu_torch.core.tracehub, "
+        "mmlspark_tpu_torch.utils.text, mmlspark_tpu_torch.testing.datagen, "
+        "mmlspark_tpu_torch.testing.benchmark_metrics, "
+        "mmlspark_tpu_torch.testing.tree_parity, "
+        "mmlspark_tpu_torch.stages.value_indexer, "
+        "mmlspark_tpu_torch.stages.prep, mmlspark_tpu_torch.stages.featurize, "
+        "mmlspark_tpu_torch.stages.trees, mmlspark_tpu_torch.stages.classical, "
+        "mmlspark_tpu_torch.stages.train_classifier, "
+        "mmlspark_tpu_torch.stages.train_regressor, "
+        "mmlspark_tpu_torch.stages.eval_metrics, "
+        "mmlspark_tpu_torch.stages.find_best, "
+        "mmlspark_tpu_torch.stages.ensemble, mmlspark_tpu_torch.stages.text, "
+        "mmlspark_tpu_torch.stages.word2vec\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
-        "'transformer_lm_moe'):\n"
+        "'transformer_lm_moe', 'skipgram'):\n"
         "    build_model(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
@@ -410,7 +422,15 @@ def test_port_sources_name_no_jax_import():
                  "core/perf.py", "serve/supervisor.py", "serve/fleet.py",
                  "utils/profiling.py", "core/metrics_contracts.py",
                  "models/onnx_import.py", "models/onnx_export.py",
-                 "serve/multimodel.py", "core/tracehub.py"):
+                 "serve/multimodel.py", "core/tracehub.py",
+                 "utils/text.py", "testing/datagen.py",
+                 "testing/benchmark_metrics.py", "testing/tree_parity.py",
+                 "stages/value_indexer.py", "stages/prep.py",
+                 "stages/featurize.py", "stages/trees.py",
+                 "stages/classical.py", "stages/train_classifier.py",
+                 "stages/train_regressor.py", "stages/eval_metrics.py",
+                 "stages/find_best.py", "stages/ensemble.py",
+                 "stages/text.py", "stages/word2vec.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):
