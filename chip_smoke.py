@@ -10,8 +10,10 @@ zoo), the replica planes (``ReplicaSet``, ``DisaggFleet`` with KV
 hand-offs), multi-model serving over an ONNX-imported graph with the
 telemetry hub, and the classical one-liner path (``Featurize``, the
 histogram tree learners, ``TrainClassifier``/``TrainRegressor``,
-``ComputeModelStatistics``, ``FindBestModel``), and prints the measured
-numbers.
+``ComputeModelStatistics``, ``FindBestModel``), sequence-parallel
+attention (Ulysses and ring over a one-rank NCCL mesh), the launcher
+(``python -m mmlspark_tpu_torch``) and the entry point, and prints the
+measured numbers.
 
     python3 chip_smoke.py
 
@@ -318,7 +320,28 @@ Phases (each one fails the run with a non-zero exit on error):
    training-set metrics, the level histogram's device ms at the wide
    shape (1 and 16 nodes) beside its byte bound, a profiled warm census
    GBT fit (busy share, top kernels), and every recorded row's gap;
-13. numbers: each kernel's, its plain version's and (where one exists)
+13. sequence parallelism (the ``context_parallel`` line): a one-rank
+   NCCL process group on the card (``parallel.initialize_distributed``)
+   and ``make_mesh({"seq": 1})``; the serve model's widths with
+   ``attn_impl="ulysses"`` and ``"ring"`` over that mesh, each one
+   training forward and backward on CP_BATCH x CP_SEQ seeded tokens a
+   main path, against ``"flash"`` on the same variables. Gates: Ulysses
+   bit-equal to flash (logits and every gradient: the all-to-alls and
+   gathers are identities at one rank) and the forward and both backward
+   kernels launched ``depth`` times each through it, on the tensor
+   cores; the ring's logits within BF16_LOGIT_TOL and its gradients
+   within CP_GRAD_TOL of flash's. The arithmetic across several ranks is
+   held on the CPU over gloo (``tests/test_torch_context_parallel.py``):
+   the card machine has one GPU and NCCL puts one rank on a GPU;
+14. the launcher (the ``cli`` line): ``python -m mmlspark_tpu_torch
+   serve --requests 8`` as a subprocess on the card (one JSON line, every
+   request completed, the decode kernel launched in that process, read
+   at its exit) and ``python -m mmlspark_tpu_torch env`` naming the
+   card;
+15. the entry point (the ``entry`` line): ``entry()``'s ResNet-20
+   forward on the card on a seeded batch of its example's shape against
+   the port's f32 forward on the CPU, within STAGE_LOGIT_TOL;
+16. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -5827,6 +5850,221 @@ def check_classical(smi: str) -> dict:
     return out
 
 
+#: the context-parallel phase: the serve model's widths, CP_BATCH rows of
+#: CP_SEQ seeded tokens, one training forward and backward each through
+#: ``flash``, ``ulysses`` and ``ring`` (the last two over a one-rank NCCL
+#: mesh on the card)
+CP_BATCH, CP_SEQ = 4, 512
+#: timed forward-and-backward calls of each; the median is reported
+CP_REPS = 5
+#: ring (plain streaming-softmax ops, f32 accumulation) against flash in
+#: bf16: each parameter gradient within CP_GRAD_TOL of its largest
+#: magnitude; the logits within BF16_LOGIT_TOL
+CP_GRAD_TOL = 2e-2
+#: ResNet-20 from entry(): a seeded batch of its example's shape
+ENTRY_SEED = 13
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lm_forward_backward(graph, variables, ids):
+    """One training forward and backward of the LM on ``ids``: the logits
+    and every parameter's gradient of the next-token loss."""
+    import torch.nn.functional as F
+
+    leaves = {n: {k: t.detach().clone().requires_grad_()
+                  for k, t in block.items()}
+              for n, block in variables.items()}
+    logits, _ = graph.apply(leaves, ids, train=True)
+    F.cross_entropy(logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+                    ids[:, 1:].reshape(-1)).backward()
+    return logits.detach(), {f"{n}.{k}": t.grad
+                             for n, block in leaves.items()
+                             for k, t in block.items()}
+
+
+def check_context_parallel() -> dict:
+    """The transformer at the serve model's widths with ``attn_impl=
+    "ulysses"`` and ``"ring"`` over ``make_mesh({"seq": 1})`` on a
+    one-rank NCCL group, each one training forward and backward a main
+    path, against ``"flash"`` on the same variables and tokens. At one
+    rank the all-to-all and the gathers are identities, so Ulysses must
+    be bit-equal to flash (logits and every gradient) and must launch the
+    forward and both backward kernels ``depth`` times each, through the
+    tensor cores; the ring runs the plain streaming-softmax update, within
+    BF16_LOGIT_TOL (logits) and CP_GRAD_TOL (gradients) of flash."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        mesh_shape,
+    )
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh({"seq": 1})
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError(
+                f"context_parallel: the group is {dist.get_backend()} on "
+                f"{mesh.device_type}, not NCCL on the card")
+        depth = SERVE_MODEL["depth"]
+        variables = init_variables(
+            build_model("transformer_lm", **SERVE_MODEL), 0, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(31)
+        ids = torch.randint(0, SERVE_MODEL["vocab_size"], (CP_BATCH, CP_SEQ),
+                            generator=gen, device=DEVICE)
+        runs = {}
+        for impl in ("flash", "ulysses", "ring"):
+            graph = build_model(
+                "transformer_lm", attn_impl=impl,
+                mesh=None if impl == "flash" else mesh, **SERVE_MODEL)
+            lm_forward_backward(graph, variables, ids)  # warm
+            (logits, grads), wall_ms, counts = timed_path(
+                lambda: lm_forward_backward(graph, variables, ids))
+            walls = [wall_ms]
+            for _ in range(CP_REPS - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lm_forward_backward(graph, variables, ids)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            runs[impl] = dict(logits=logits, grads=grads, counts=counts,
+                              wall_ms=statistics.median(walls))
+        flash, uly, ring = runs["flash"], runs["ulysses"], runs["ring"]
+        for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
+            if uly["counts"][name] != depth:
+                raise AssertionError(
+                    f"context_parallel: ulysses {name} = "
+                    f"{uly['counts'][name]}, want {depth} (one a layer)")
+        diff = [k for k in flash["grads"]
+                if not torch.equal(flash["grads"][k], uly["grads"][k])]
+        if not torch.equal(flash["logits"], uly["logits"]) or diff:
+            raise AssertionError(
+                "context_parallel: ulysses at one rank is not bit-equal to "
+                f"flash (logits equal: "
+                f"{torch.equal(flash['logits'], uly['logits'])}, gradients "
+                f"that differ: {diff})")
+        logit_err = float((ring["logits"].float()
+                           - flash["logits"].float()).abs().max())
+        grad_err = max(rel_err(ring["grads"][k].float().cpu(),
+                               flash["grads"][k].float().cpu())
+                       for k in flash["grads"])
+        if logit_err > BF16_LOGIT_TOL or grad_err > CP_GRAD_TOL:
+            raise AssertionError(
+                f"context_parallel: ring against flash: logits "
+                f"{logit_err} (tolerance {BF16_LOGIT_TOL}), gradients "
+                f"{grad_err} (tolerance {CP_GRAD_TOL})")
+        return {
+            "backend": dist.get_backend(), "world_size":
+                dist.get_world_size(), "mesh": mesh_shape(mesh),
+            "batch": CP_BATCH, "seq": CP_SEQ,
+            "ulysses_bit_equal_to_flash": True,
+            "ring_logits_max_abs_err": logit_err,
+            "ring_grad_max_rel_err": grad_err,
+            "wall_ms_median": {k: r["wall_ms"] for k, r in runs.items()},
+            "launch_counts": {k: {n: r["counts"][n]
+                                  for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
+                              for k, r in runs.items()},
+        }
+    finally:
+        dist.destroy_process_group()
+
+
+#: the CLI's serve demo as a subprocess: ``python -m mmlspark_tpu_torch``
+#: run by runpy (what ``-m`` does) with an exit hook that reports the
+#: decode kernels' launch counters on stderr
+CLI_SERVE = r"""
+import atexit, json, runpy, sys
+def report():
+    import mmlspark_tpu_torch.ops.flash_attention as fa
+    print("KERNEL_COUNTS " + json.dumps({"launches": fa.launches,
+          "paged_launches": fa.paged_launches}), file=sys.stderr)
+atexit.register(report)
+sys.argv = ["mmlspark_tpu_torch", "serve", "--requests", "8"]
+runpy.run_module("mmlspark_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def run_cli(args: list, timeout: int = 600):
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli: {args[:3]} exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def check_cli() -> dict:
+    """``python -m mmlspark_tpu_torch serve --requests 8`` on the card:
+    its one JSON line, every request completed, and the decode kernel
+    launched in that process; ``python -m mmlspark_tpu_torch env`` names
+    the card."""
+    import torch
+
+    out, serve_s = run_cli(["-c", CLI_SERVE])
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"cli serve: {len(lines)} JSON lines")
+    metrics = json.loads(lines[0])
+    counts = json.loads(out.stderr.split("KERNEL_COUNTS ")[-1]
+                        .splitlines()[0])
+    if metrics["completed"] != 8 or counts["launches"] < 1:
+        raise AssertionError(f"cli serve: completed {metrics['completed']}"
+                             f" of 8, decode launches {counts['launches']}")
+    env_out, env_s = run_cli(["-m", "mmlspark_tpu_torch", "env"])
+    info = json.loads(env_out.stdout)
+    if info["platform"] != "gpu" or \
+            info["device_kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"cli env: {info}")
+    return {"serve": {k: metrics[k] for k in (
+        "completed", "tokens_generated", "tokens_per_sec", "ttft_ms_p50",
+        "per_token_ms")}, "serve_kernel_counts": counts,
+        "serve_process_s": serve_s, "env": info, "env_process_s": env_s}
+
+
+def check_entry() -> dict:
+    """``entry()``'s ResNet-20 forward on the card at its example's shape
+    (a seeded batch) against the port's f32 forward on the CPU, within
+    STAGE_LOGIT_TOL of the largest logit."""
+    import torch
+
+    from mmlspark_tpu_torch.entry import entry
+
+    forward, (variables, example_x) = entry()
+    if example_x.device.type != "cuda" or tuple(example_x.shape) != \
+            (128, 32, 32, 3):
+        raise AssertionError(f"entry: example {tuple(example_x.shape)} on "
+                             f"{example_x.device}")
+    x = seeded_images(example_x.shape[0], 32, ENTRY_SEED)
+    forward(variables, example_x)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = forward(variables, torch.from_numpy(x).to(DEVICE))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    want = cpu_forward("resnet20_cifar10", {}, variables, x)
+    err = rel_err(got.float().cpu().numpy(), want)
+    if not np.isfinite(got.float().cpu().numpy()).all() or \
+            err > STAGE_LOGIT_TOL:
+        raise AssertionError(f"entry: card vs CPU {err} (tolerance "
+                             f"{STAGE_LOGIT_TOL})")
+    return {"batch": int(x.shape[0]), "logits_rel_err_vs_cpu_f32": err,
+            "forward_ms": wall_ms, "logits_shape": list(got.shape)}
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -5920,6 +6158,12 @@ def main() -> int:
     t0 = time.perf_counter()
     classical = check_classical(smi)
     log(f"classical phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    context_parallel = check_context_parallel()
+    cli = check_cli()
+    entry_run = check_entry()
+    log(f"context_parallel, cli and entry phases took "
+        f"{time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
     # plus the MoE engines' (decode), the MoE training run's (attention),
@@ -5944,9 +6188,12 @@ def main() -> int:
             header["header paged int8"]["counts"]["paged_q8_launches"]
             + fleet_counts["paged_q8_launches"],
     }
+    # the attention kernels' launches: the training runs', the MoE
+    # training run's and the Ulysses run's of the context-parallel phase
     moe_train = moe["training"]["launch_counts"]
+    ulysses = context_parallel["launch_counts"]["ulysses"]
     attn_rows, attn_backward = measure_attention_kernels(
-        attn_errors, {k: v + moe_train[k]
+        attn_errors, {k: v + moe_train[k] + ulysses.get(k, 0)
                       for k, v in training["launch_counts"].items()})
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
@@ -5988,6 +6235,8 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"multimodel": multimodel}))
     print(json.dumps({"classical": classical}))
+    print(json.dumps({"context_parallel": context_parallel}))
+    print(json.dumps({"cli": cli, "entry": entry_run}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,7 @@
-"""Metric value records — the port's copy of ``MetricData`` from
-``mmlspark_tpu/core/metrics_contracts.py``, which the telemetry plane's
-``snapshot()`` views return. The module's other contracts wait with the
-rest of the surface (ROADMAP.md Queue 1 item 14)."""
+"""Metric value records — the port's copy of
+``mmlspark_tpu/core/metrics_contracts.py`` (``MetricData`` with
+``create`` and ``create_table``), which the telemetry plane's
+``snapshot()`` views return."""
 
 from __future__ import annotations
 

@@ -14,7 +14,7 @@
   :func:`~mmlspark_tpu_torch.core.env.host_to_device` (pinned memory, a
   copy that does not wait for the stream) in place of
   ``jax.device_put``. Sharding a batch over several cards waits for the
-  meshes (ROADMAP.md Queue 1 item 13).
+  mesh modes (the rest of ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations

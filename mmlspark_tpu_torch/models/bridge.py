@@ -183,6 +183,32 @@ def _flax_node(block_vars, name: str, mod: nn.Module, key: str):
     return node, _layout(owner, leaf)
 
 
+#: port axis i of a leaf holds its flax leaf's axis ``perm[i]``, by layout
+_PERMUTATIONS = {"dense": (1, 0), "conv": (3, 2, 0, 1)}
+
+
+def flax_param_path(name: str, mod: nn.Module, key: str):
+    """The '/'-joined path of the flax leaf behind port parameter
+    ``name.key`` of block ``mod`` — the path the JAX package's sharding
+    rules match, e.g. ``block0/params/attn/qkv/kernel`` — and the axis
+    permutation between the two layouts (port axis ``i`` is flax axis
+    ``perm[i]``; ``None`` when they agree). A packed LSTM leaf, which
+    stands for four flax kernels, is named after its cell."""
+    path, owner, leaf = _owner_and_leaf(mod, key)
+    parts = path.split(".") if path else []
+    layout = _layout(owner, leaf)
+    if isinstance(owner, BiLSTM):
+        sfx = "_reverse" if leaf.endswith("_reverse") else ""
+        flax_leaf = [DIRECTIONS[sfx], leaf[: len(leaf) - len(sfx)]]
+        coll = "params"
+    else:
+        coll = "batch_stats" if leaf in _STATS.get(type(owner), ()) \
+            else "params"
+        flax_leaf = [_LEAVES.get(type(owner), {}).get(leaf, leaf)]
+    return ("/".join([name, coll, *parts, *flax_leaf]),
+            _PERMUTATIONS.get(layout))
+
+
 def load_flax_variables(graph, variables, *, device=None) -> dict:
     """The port's variables from the JAX package's ``variables`` (a
     nested dict of numpy or numpy-convertible arrays, float or

@@ -27,8 +27,11 @@ Without a cache, ``attn_impl`` picks the attention: ``flash`` is the
 blockwise kernel with its gradient (:func:`~mmlspark_tpu_torch.ops.
 flash_attention.flash_attention`, the CUDA kernels on the card), ``dense``
 the plain oracle; ``auto`` is ``flash`` when PyTorch sees a GPU, as the
-JAX package picks its Pallas kernel on a TPU. ``ring``/``ulysses`` raise
-``ParamError`` naming the ROADMAP item that ports them.
+JAX package picks its Pallas kernel on a TPU. ``ring``/``ulysses`` are
+the sequence-parallel paths of :mod:`mmlspark_tpu_torch.parallel.
+context_parallel` over the graph's ``mesh`` (every rank runs the model;
+the attention shards the sequence), and degrade to ``dense`` when no mesh
+is given, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,24 +68,12 @@ ATTN_IMPLS = (DENSE, RING, ULYSSES, FLASH, AUTO)
 #: flax nn.LayerNorm's default epsilon (torch's is 1e-5)
 LN_EPS = 1e-6
 
-_NOT_PORTED = {
-    RING: "context parallelism (ROADMAP.md Queue 1 item 13)",
-    ULYSSES: "context parallelism (ROADMAP.md Queue 1 item 13)",
-}
-
-
 def resolve_attn_impl(attn_impl: str) -> str:
     """``auto`` -> ``flash`` when PyTorch sees a GPU, else ``dense`` (the
-    JAX package's ``is_tpu()`` choice at build time); ``flash`` and
-    ``dense`` stay; ``ring``/``ulysses`` raise until their slice lands."""
+    JAX package's ``is_tpu()`` choice at build time); the others stay."""
     if attn_impl not in ATTN_IMPLS:
         raise ParamError(
             f"unknown attn_impl '{attn_impl}'; one of {ATTN_IMPLS}"
-        )
-    if attn_impl in _NOT_PORTED:
-        raise ParamError(
-            f"attn_impl '{attn_impl}' is not ported yet: it needs "
-            f"{_NOT_PORTED[attn_impl]}; use 'flash', 'dense' or 'auto'"
         )
     if attn_impl == AUTO:
         return FLASH if has_cuda() else DENSE
@@ -163,15 +154,19 @@ def compute_dtype_variables(graph, variables: dict) -> dict:
 
 class SelfAttention(nn.Module):
     """Multi-head (or grouped-query) self-attention. Without a cache it
-    runs ``attn_impl`` (``flash`` or ``dense``, resolved by
-    ``transformer_lm``)."""
+    runs ``attn_impl`` (resolved by ``transformer_lm``): ``flash``,
+    ``dense``, or ``ring``/``ulysses`` over ``mesh`` (a
+    :func:`~mmlspark_tpu_torch.parallel.mesh.make_mesh` DeviceMesh; dense
+    without one)."""
 
     def __init__(self, d_model: int, heads: int, head_dim: int,
                  causal: bool, window: int | None = None,
                  kv_heads: int | None = None, rope: bool = False,
-                 dtype=torch.bfloat16, attn_impl: str = DENSE):
+                 dtype=torch.bfloat16, attn_impl: str = DENSE,
+                 mesh: Any = None):
         super().__init__()
         self.attn_impl = attn_impl
+        self.mesh = mesh
         self.heads = heads
         self.head_dim = head_dim
         self.kv_heads = kv_heads
@@ -217,9 +212,24 @@ class SelfAttention(nn.Module):
         elif self.attn_impl == FLASH:
             o = flash_attention(q, k, v, causal=self.causal,
                                 window=self.window)
-        else:
+        elif self.attn_impl == DENSE or self.mesh is None:
+            # ring/ulysses degrade to dense when no mesh is provided
             o = dense_attention(q, k, v, causal=self.causal,
                                 window=self.window)
+        elif self.attn_impl == RING:
+            from mmlspark_tpu_torch.parallel.context_parallel import (
+                ring_attention,
+            )
+
+            o = ring_attention(q, k, v, self.mesh, causal=self.causal,
+                               window=self.window)
+        else:
+            from mmlspark_tpu_torch.parallel.context_parallel import (
+                ulysses_attention,
+            )
+
+            o = ulysses_attention(q, k, v, self.mesh, causal=self.causal,
+                                  window=self.window)
         out = self.attn_out(o.reshape(b, t, h * d), self.dtype)
         return out if new_cache is None else (out, new_cache)
 
@@ -380,13 +390,15 @@ class Block(nn.Module):
     def __init__(self, d_model: int, heads: int, head_dim: int, d_ff: int,
                  causal: bool, dtype=torch.bfloat16,
                  window: int | None = None, kv_heads: int | None = None,
-                 rope: bool = False, attn_impl: str = DENSE):
+                 rope: bool = False, attn_impl: str = DENSE,
+                 mesh: Any = None):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn = SelfAttention(
             d_model, heads, head_dim, causal, window=window,
             kv_heads=kv_heads, rope=rope, dtype=dtype, attn_impl=attn_impl,
+            mesh=mesh,
         )
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mlp_in = Dense(d_model, d_ff)
@@ -467,14 +479,13 @@ def transformer_lm(
     with per-token logits. The graph's blocks live on the ``meta``
     device; weights come from
     :func:`~mmlspark_tpu_torch.models.bridge.init_variables` or
-    :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`."""
+    :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
+    ``mesh`` carries the sequence axis ``ring``/``ulysses`` shard over;
+    running the graph's parameters sharded on it belongs to the trainer's
+    and the engine's mesh modes (the rest of ROADMAP.md Queue 1
+    item 13)."""
     if d_model % heads:
         raise ParamError(f"d_model {d_model} not divisible by heads {heads}")
-    if mesh is not None:
-        raise ParamError(
-            "meshes are not ported yet (ROADMAP.md Queue 1 item 13); "
-            "build without mesh"
-        )
     rope = validate_attention_features(
         heads=heads, head_dim=d_model // heads, causal=causal,
         window=window, kv_heads=kv_heads, pos_embedding=pos_embedding,
@@ -491,7 +502,7 @@ def transformer_lm(
                 f"block{i}",
                 Block(d_model, heads, d_model // heads, d_ff, causal,
                       window=window, kv_heads=kv_heads, rope=rope,
-                      attn_impl=attn_impl),
+                      attn_impl=attn_impl, mesh=mesh),
             ))
         blocks.append((FINAL_NODE, LMHead(d_model, vocab_size)))
     return NamedGraph(

@@ -21,8 +21,7 @@ compute dtype. No Pallas kernel stands behind MoE in the JAX package;
 the products are ``torch.einsum`` here as they are XLA's there.
 
 Not here: ``EXPERT_RULES`` and the check of ``n_experts`` against a
-mesh's ``expert`` axis, which wait for the meshes (ROADMAP.md Queue 1
-item 13).
+mesh's ``expert`` axis (ROADMAP.md Queue 1 item 13, ``EXPERT_RULES``).
 """
 
 from __future__ import annotations
@@ -147,11 +146,12 @@ def moe_ffn_dropless(x, gate_w, w_in, b_in, w_out, b_out):
 
 def validate_experts(n_experts: int, mesh=None) -> None:
     """At least two experts; a mesh (and so its ``expert`` axis) is not
-    ported yet (ROADMAP.md Queue 1 item 13)."""
+    ported yet (ROADMAP.md Queue 1 item 13,
+    ``EXPERT_RULES``)."""
     if n_experts < 2:
         raise ParamError(f"need >= 2 experts, got {n_experts}")
     if mesh is not None:
         raise ParamError(
-            "meshes are not ported yet (ROADMAP.md Queue 1 item 13); "
-            "build without mesh"
+            "the expert mesh axis is not ported yet (ROADMAP.md Queue 1 "
+            "item 13, EXPERT_RULES); build without mesh"
         )

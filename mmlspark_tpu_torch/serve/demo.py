@@ -18,8 +18,8 @@ one wall-clock-ordered ``events.jsonl`` across every replica's recorder,
 one flow-arrow-stitched ``trace.json`` and one labeled exposition — plus
 ``supervisor.events.jsonl``, the control plane's own timeline, for the
 replica planes. ``metrics_port`` serves the same hub live on 127.0.0.1
-while the demo runs. ``mesh`` waits for the meshes (ROADMAP.md Queue 1
-item 13).
+while the demo runs. ``mesh`` waits for the engine's mesh mode
+(ROADMAP.md Queue 1 item 13, the mesh modes).
 """
 
 from __future__ import annotations
@@ -78,8 +78,9 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
     from mmlspark_tpu_torch.serve.engine import ServeEngine
 
     if mesh is not None:
-        raise FriendlyError(f"mesh={mesh!r}: meshes (ROADMAP.md Queue 1 "
-                            "item 13) are not ported yet")
+        raise FriendlyError(f"mesh={mesh!r}: the engine's mesh mode "
+                            "(ROADMAP.md Queue 1 item 13, the mesh modes) "
+                            "is not ported yet")
     dev = default_device(device)
     injector = parse_fault_spec(faults) if faults else None
     if models:

@@ -18,7 +18,8 @@ dispatch interval to it, with no new host sync. ``attach_slo`` feeds an
 :class:`~mmlspark_tpu_torch.core.metrics_contracts.MetricData` records.
 
 The port serves on one device: ``mesh_shape`` is ``{}`` and
-``mesh_devices`` 1 (meshes are ROADMAP.md Queue 1 item 13). Tick-count
+``mesh_devices`` 1 (the engine's mesh mode is ROADMAP.md Queue 1 item
+13, the mesh modes). Tick-count
 figures (TTFT in ticks, queue depth) are deterministic given the arrival
 schedule; wall-clock figures (TTFT ms, per-token ms, tokens/sec, MFU)
 describe the host and device together and are only meaningful from a

@@ -67,7 +67,8 @@ class DNNLearner(Estimator, HasFeaturesCol, HasLabelCol):
         ptype=bool,
     )
     mesh_axes = Param("mesh axis name -> size; None = one device "
-                      "(meshes wait for ROADMAP.md Queue 1 item 13)")
+                      "(the trainer's mesh mode waits for ROADMAP.md "
+                      "Queue 1 item 13, the mesh modes)")
     checkpoint_dir = Param("the port's .npy checkpoint directory "
                            "(None = off)")
     checkpoint_every = Param("checkpoint every N steps (0 = end only)", 0,

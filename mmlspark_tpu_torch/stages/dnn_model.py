@@ -43,7 +43,8 @@ values, where the JAX package returns an ``ml_dtypes`` bfloat16 array.
 
 ``data_parallel`` is accepted for the JAX package's param table and is a
 no-op on one device, as it is there; sharding the batch over several
-cards waits for the meshes (ROADMAP.md Queue 1 item 13).
+cards waits for ``TPUModel(data_parallel)`` (ROADMAP.md Queue 1 item 13,
+the mesh modes).
 """
 
 from __future__ import annotations
@@ -103,7 +104,8 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
     )
     data_parallel = Param(
         "shard batches over all visible devices; a no-op on one device "
-        "(several cards wait for ROADMAP.md Queue 1 item 13)", True,
+        "(several cards wait for ROADMAP.md Queue 1 item 13, the mesh "
+        "modes)", True,
         ptype=bool,
     )
     feed_depth = Param(

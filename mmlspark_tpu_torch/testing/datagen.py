@@ -1,8 +1,10 @@
 """Random dataset generation for verification — the port's copy of
 ``mmlspark_tpu/testing/datagen.py``: the same numpy draws from the same
 seeds, so both packages see identical tables. ``overfit_periodic_lm``
-trains a flax graph and stays in the JAX package (ROADMAP.md Queue 1
-item 14).
+keeps the JAX recipe (adam, the cross-entropy of shifted logits) in
+plain torch, with weights from a seeded ``torch.Generator`` on the
+caller's device — other weights than flax's, so it trains a model of
+its own and is no bridge to the JAX one.
 
 Reference: core/test/datagen/src/main/scala (``GenerateDataset`` builds random
 DataFrames from ``DatasetOptions`` — types x missings x dimensions — with
@@ -190,3 +192,43 @@ def make_flights(n: int = 800, seed: int = 3) -> Dataset:
         "arr_delay": delay,
     })
 
+
+
+def overfit_periodic_lm(graph, *, steps: int = 60, seq: int = 16,
+                        period: int = 4, lr: float = 5e-2, device=None):
+    """Overfit a causal LM on a periodic token stream (1..period
+    cycling) and return ``(variables, ids)`` — the shared recipe behind
+    the generation behavioural tests: a model that has memorized the
+    period makes greedy continuation exactly predictable.
+
+    Runs on ``device`` (the card unless the caller asks for ``"cpu"``):
+    weights from :func:`~mmlspark_tpu_torch.models.bridge.init_variables`
+    drawn from a ``torch.Generator`` seeded with 0 on that device, then
+    ``steps`` full-batch adam steps at ``lr`` on the mean cross-entropy of
+    ``logits[:, :-1]`` against ``ids[:, 1:]``. ``ids`` is the ``(1, seq)``
+    int64 row on the device."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.core.env import default_device
+    from mmlspark_tpu_torch.models.bridge import init_variables
+
+    dev = default_device(device)
+    ids = torch.as_tensor((np.arange(seq)[None] % period) + 1,
+                          dtype=torch.int64, device=dev)
+    variables = init_variables(
+        graph, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    leaves = [t.requires_grad_() for block in variables.values()
+              for t in block.values()]
+    opt = torch.optim.Adam(leaves, lr=lr)
+    for _ in range(steps):
+        logits, _ = graph.apply(variables, ids, train=True)
+        loss = F.cross_entropy(
+            logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+            ids[:, 1:].reshape(-1))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return ({name: {key: t.detach() for key, t in block.items()}
+             for name, block in variables.items()}, ids)

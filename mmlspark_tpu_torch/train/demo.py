@@ -55,8 +55,9 @@ def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
 
     if mesh is not None:
         raise ParamError(
-            f"mesh={mesh!r}: meshes are not ported yet (ROADMAP.md Queue 1 "
-            "item 13); the demo trains on one device")
+            f"mesh={mesh!r}: the trainer's mesh mode is not ported yet "
+            "(ROADMAP.md Queue 1 item 13, the mesh modes); the "
+            "demo trains on one device")
     dev = default_device(device)
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_samples, features)).astype(np.float32)

@@ -92,7 +92,8 @@ plain tensor updates on the CPU.
 
 Ported here for one device; left out, each a ``ParamError`` naming its
 ROADMAP item when asked for: meshes and tensor parallelism (``mesh_axes``
-wider than one device, ``param_rules``; item 13), and with them the
+wider than one device, ``param_rules``; item 13, the mesh
+modes), and with them the
 cross-replica vote of the audit and elastic resume at another data width.
 Checkpoints are the port's own ``.npy`` payloads and do not cross to the
 JAX package's orbax ones.
@@ -209,13 +210,14 @@ def _check_ported(cfg: TrainConfig) -> None:
     """Refuse the fields whose machinery this port has not brought over."""
     if cfg.param_rules is not None:
         raise ParamError(
-            "param_rules: tensor parallelism is not ported yet (ROADMAP.md "
-            "Queue 1 item 13)"
+            "param_rules: the trainer's tensor parallelism is not ported "
+            "yet (ROADMAP.md Queue 1 item 13, the mesh modes)"
         )
     if cfg.mesh_axes not in (None, {"data": 1}):
         raise ParamError(
-            f"mesh_axes={cfg.mesh_axes}: meshes are not ported yet (ROADMAP.md"
-            " Queue 1 item 13); the trainer runs on one device"
+            f"mesh_axes={cfg.mesh_axes}: the trainer's mesh mode is not "
+            "ported yet (ROADMAP.md Queue 1 item 13, the mesh modes); the "
+            "trainer runs on one device"
         )
 
 

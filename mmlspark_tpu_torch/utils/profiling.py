@@ -1,7 +1,10 @@
-"""Profiling hooks — the port of ``annotate`` and ``trace_profile`` from
-``mmlspark_tpu/utils/profiling.py``. The module's re-exports of the
-telemetry plane wait with the rest of the surface (ROADMAP.md Queue 1
-item 14)."""
+"""Profiling hooks — the port of ``mmlspark_tpu/utils/profiling.py``:
+``torch.profiler`` traces and named ranges, plus the telemetry plane's
+public names re-exported from :mod:`mmlspark_tpu_torch.core.perf` and
+:mod:`mmlspark_tpu_torch.core.telemetry`, so call sites have one
+observability import. ``analyze_program_cost`` stands where the JAX
+module re-exports ``analyze_jit_cost``: the port costs a program
+family's eager body on ``meta`` tensors instead of a jitted one."""
 
 from __future__ import annotations
 
@@ -11,6 +14,29 @@ import os
 import torch
 
 from mmlspark_tpu_torch.core.logging_utils import get_logger
+from mmlspark_tpu_torch.core.perf import (  # noqa: F401 — re-exports
+    DevicePeak,
+    PerfAnalytics,
+    ProgramCost,
+    SloMonitor,
+    SloTargets,
+    analyze_program_cost,
+    device_peak,
+    export_chrome_trace,
+    parse_slo_spec,
+)
+from mmlspark_tpu_torch.core.telemetry import (  # noqa: F401 — re-exports
+    Counter,
+    FlightRecorder,
+    Gauge,
+    Histogram,
+    MetricRegistry,
+    RetraceWatchdog,
+    Span,
+    SpanTracer,
+    default_registry,
+    watch_retrace,
+)
 
 _log = get_logger("profiling")
 

@@ -44,6 +44,18 @@ from mmlspark_tpu_torch.models import (
 )
 from mmlspark_tpu_torch.models.generate import reorder_cache, top_k_stable
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: the module (``models.generate`` the attribute is the function)
 generate_mod = importlib.import_module("mmlspark_tpu_torch.models.generate")
 

@@ -119,7 +119,8 @@ def test_datagen_tables_equal_the_jax_ones():
                                                              jdatagen))
         np.testing.assert_array_equal(np.stack(pi), np.stack(ji))
         np.testing.assert_array_equal(py, jy)
-    assert not hasattr(pdatagen, "overfit_periodic_lm")
+    # the generation recipe is the port's own too (tests/test_torch_cli.py)
+    assert callable(pdatagen.overfit_periodic_lm)
 
 
 def test_value_indexer_round_trips_like_jax():

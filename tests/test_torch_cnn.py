@@ -50,6 +50,18 @@ from mmlspark_tpu_torch.ops.quantize import (
     quantized_bytes,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16_REL_TOL = 3e-2
 F32_REL_TOL = 1e-4
 STATS_REL_TOL = 1e-3

@@ -1941,3 +1941,114 @@ def test_tree_fit_on_card_is_deterministic_and_equals_the_cpu(cuda, name,
         np.testing.assert_allclose(card_scores,
                                    np.asarray(cpu.transform(ds)["scores"]),
                                    atol=1e-4, rtol=0)
+
+
+# -- sequence parallelism, the launcher and the entry point -------------------
+
+
+CP_LM = dict(vocab_size=512, d_model=256, heads=4, depth=2, max_len=256)
+
+
+@pytest.fixture(scope="module")
+def seq_mesh(cuda):
+    """A one-rank NCCL group on the card and its ``seq`` mesh: the card
+    machine has one GPU, and NCCL puts one rank on a GPU."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        yield make_mesh({"seq": 1})
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_grads(impl, mesh, variables, ids):
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.models import build_model
+
+    graph = build_model("transformer_lm", attn_impl=impl, mesh=mesh, **CP_LM)
+    leaves = {n: {k: t.detach().clone().requires_grad_()
+                  for k, t in b.items()} for n, b in variables.items()}
+    logits, _ = graph.apply(leaves, ids, train=True)
+    F.cross_entropy(logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+                    ids[:, 1:].reshape(-1)).backward()
+    return logits.detach(), {f"{n}.{k}": t.grad for n, b in leaves.items()
+                             for k, t in b.items()}
+
+
+def _cp_inputs(cuda):
+    from mmlspark_tpu_torch.models import build_model, init_variables
+
+    variables = init_variables(build_model("transformer_lm", **CP_LM), 0,
+                               device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ids = torch.randint(0, CP_LM["vocab_size"], (2, 256), generator=gen,
+                        device=cuda)
+    return variables, ids
+
+
+def test_ulysses_at_one_rank_is_bit_equal_to_flash(cuda, seq_mesh):
+    """Ulysses over a one-rank NCCL mesh: the all-to-alls are identities,
+    so logits and every gradient equal the flash path's bit for bit, and
+    the local attention is the hand-written forward and backward pair
+    (head dim 64, bf16: the tensor-core kernels), once a layer each."""
+    variables, ids = _cp_inputs(cuda)
+    want_logits, want = _lm_grads("flash", None, variables, ids)
+    counters = ("fwd_mma_launches", "bwd_kv_mma_launches",
+                "bwd_q_mma_launches")
+    torch.cuda.synchronize()
+    for name in counters:
+        setattr(fa, name, 0)
+    logits, grads = _lm_grads("ulysses", seq_mesh, variables, ids)
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) for name in counters] == [CP_LM["depth"]] * 3
+    assert torch.equal(logits, want_logits)
+    for key in want:
+        assert torch.equal(grads[key], want[key]), key
+
+
+def test_ring_at_one_rank_is_within_bf16_of_flash(cuda, seq_mesh):
+    variables, ids = _cp_inputs(cuda)
+    want_logits, want = _lm_grads("flash", None, variables, ids)
+    logits, grads = _lm_grads("ring", seq_mesh, variables, ids)
+    assert (logits - want_logits).abs().max().item() <= 6.25e-2
+    for key in want:
+        scale = want[key].abs().max().item() + 1e-12
+        assert (grads[key] - want[key]).abs().max().item() <= 2e-2 * scale, \
+            key
+
+
+def test_cli_env_names_the_card(cuda):
+    import json
+
+    out = subprocess.run(
+        [sys.executable, "-m", "mmlspark_tpu_torch", "env"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    info = json.loads(out.stdout)
+    assert info["platform"] == "gpu"
+    assert info["device_kind"] == torch.cuda.get_device_name(0)
+    assert info["num_local_devices"] == torch.cuda.device_count()
+
+
+def test_entry_forward_on_the_card(cuda):
+    from mmlspark_tpu_torch.entry import entry
+    from mmlspark_tpu_torch.models.bridge import variables_to
+
+    forward, (variables, x) = entry()
+    assert x.is_cuda and tuple(x.shape) == (128, 32, 32, 3)
+    x = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    got = forward(variables, x.cuda()).float().cpu()
+    want = forward(variables_to(variables, "cpu"), x)
+    assert got.shape == (128, 10) and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from mmlspark_tpu.data import ctf as jax_ctf
@@ -32,6 +33,18 @@ from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.data import Dataset, ctf, readers
 from mmlspark_tpu_torch.models import zoo
 from mmlspark_tpu_torch.ops import decode, native_build
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures" / "images"

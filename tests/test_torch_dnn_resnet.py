@@ -49,6 +49,18 @@ from mmlspark_tpu_torch.stages import DNNLearner, TPUModel
 from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
 from mmlspark_tpu_torch.train import trainer as trainer_mod
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = {"width": 8}
 LOSS_TOL = 1e-2
 STATS_REL_TOL = 5e-2

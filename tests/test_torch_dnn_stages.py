@@ -40,6 +40,18 @@ from mmlspark_tpu_torch.models import transformer as transformer_mod
 from mmlspark_tpu_torch.stages import DNNLearner, TPUModel
 from mmlspark_tpu_torch.train import trainer as trainer_mod
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MLP_RTOL, MLP_ATOL = 2e-2, 1e-2
 MLP_LOSS_TOL = 2e-3
 FEED_TOL = 3e-2

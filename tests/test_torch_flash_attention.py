@@ -29,6 +29,18 @@ from mmlspark_tpu_torch.models import build_model, init_variables
 from mmlspark_tpu_torch.models.transformer import resolve_attn_impl
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 LSE_TOL = 1e-5
 #: (b, s, h, hk, d, causal, window, block) — the JAX tests' sizes; S=20

@@ -33,6 +33,18 @@ from mmlspark_tpu_torch.models import (
 )
 from mmlspark_tpu_torch.models.generate import init_cache
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PERIOD = 4  # token stream cycles 1,2,3,4,1,2,...
 #: one training length for every fixture model (each config trains once)
 STEPS = 60

@@ -32,6 +32,17 @@ from mmlspark_tpu_torch.ops import tree_checksum as tc
 from mmlspark_tpu_torch.train import run_train_demo
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _demo_tree(seed=0):
     rng = np.random.default_rng(seed)
     return {

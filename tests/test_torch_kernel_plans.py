@@ -27,6 +27,17 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.ops import kernel_build
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(d, dtype, b=2, s=8, h=4, hk=2):
     """q, k, v as the model slices them out of one fused projection."""
     qkv = torch.zeros(b, s, h + 2 * hk, d, dtype=dtype)

@@ -39,6 +39,18 @@ from mmlspark_tpu_torch.models.generate import (
     init_cache,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_TOL = 1e-4
 BF16_LOGIT_TOL = 6.25e-2
 TINY = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=32)
@@ -273,9 +285,17 @@ def test_registry_and_geometry():
 
 
 def test_unported_paths_raise_param_error():
+    # ring/ulysses are ported: without a mesh they degrade to dense, as in
+    # the JAX package (tests/test_torch_context_parallel.py runs them on
+    # a mesh)
+    ids = torch.tensor([[1, 2, 3, 4, 5, 6]])
+    dense = build_model("transformer_lm", attn_impl="dense", **TINY)
+    v = init_variables(dense, 0, device="cpu")
     for impl in ("ring", "ulysses"):
-        with pytest.raises(ParamError, match="ROADMAP.md Queue 1 item 13"):
-            build_model("transformer_lm", attn_impl=impl, **TINY)
+        g = build_model("transformer_lm", attn_impl=impl, **TINY)
+        assert g.extra["attn_impl"] == impl
+        torch.testing.assert_close(g.apply(v, ids), dense.apply(v, ids),
+                                   rtol=0, atol=0)
     # auto is flash only with a GPU; flash itself is ported
     assert build_model("transformer_lm", **TINY).extra["attn_impl"] == "dense"
     assert build_model("transformer_lm", attn_impl="flash",

@@ -34,6 +34,18 @@ from mmlspark_tpu_torch.ops.quantize import _Q8, _SCALE, quantize_weights
 from mmlspark_tpu_torch.parallel import expert
 from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL, ATOL = 1e-4, 1e-5
 AUX_TOL = 1e-6
 F32_TOL = 1e-4

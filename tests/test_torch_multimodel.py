@@ -65,6 +65,18 @@ from mmlspark_tpu_torch.serve import (
 )
 from mmlspark_tpu_torch.testing import compile_guard, serve_compile_guard
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=32)
 #: the LM's prompts (prefixes of the periodic training row) and budget
 LM_LENGTHS, LM_NEW = (5, 9, 4, 7), 5

@@ -34,6 +34,18 @@ from mmlspark_tpu_torch.models import (
 from mmlspark_tpu_torch.models.onnx_export import export_onnx, save_onnx
 from mmlspark_tpu_torch.models.onnx_import import load_onnx
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LM = dict(vocab_size=32, d_model=16, heads=4, attn_impl="dense")
 #: name -> (family, config, export shape, input dtype, model tolerance)
 CASES = {

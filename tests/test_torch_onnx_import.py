@@ -33,6 +33,18 @@ from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.models import build_model
 from mmlspark_tpu_torch.models.onnx_import import OnnxGraph, load_onnx
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # -- minimal protobuf writer -------------------------------------------------

@@ -27,6 +27,18 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.ops import kernel_build
 from mmlspark_tpu_torch.ops.rope import apply_rope
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 

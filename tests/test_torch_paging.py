@@ -48,6 +48,18 @@ from mmlspark_tpu_torch.serve.paging import (
     default_page_size,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: the bf16 logit tolerance of tests/test_torch_model.py
 BF16_LOGIT_TOL = 6.25e-2
 TINY = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=32)

@@ -47,6 +47,18 @@ from mmlspark_tpu_torch.serve.cache_pool import (
 )
 from mmlspark_tpu_torch.serve.paging import PagedCachePool
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16_LOGIT_TOL = 6.25e-2
 FLIP_BUDGET = 0.25
 TINY = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=32)

@@ -35,6 +35,18 @@ from mmlspark_tpu_torch.models import (
 )
 from mmlspark_tpu_torch.models.generate import filter_logits, sample_next
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(vocab_size=8, d_model=32, heads=2, depth=2, max_len=32)
 
 

@@ -47,6 +47,18 @@ from mmlspark_tpu_torch.models.generate import (
 from mmlspark_tpu_torch.serve import ServeEngine, ServeMetrics, run_demo
 from mmlspark_tpu_torch.serve.cache_pool import SlotCachePool
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 #: the bf16 logit tolerance of tests/test_torch_model.py
 BF16_LOGIT_TOL = 6.25e-2
@@ -379,7 +391,12 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.stages.eval_metrics, "
         "mmlspark_tpu_torch.stages.find_best, "
         "mmlspark_tpu_torch.stages.ensemble, mmlspark_tpu_torch.stages.text, "
-        "mmlspark_tpu_torch.stages.word2vec\n"
+        "mmlspark_tpu_torch.stages.word2vec, "
+        "mmlspark_tpu_torch.parallel.mesh, "
+        "mmlspark_tpu_torch.parallel.sharding, "
+        "mmlspark_tpu_torch.parallel.context_parallel, "
+        "mmlspark_tpu_torch.__main__, mmlspark_tpu_torch.entry, "
+        "mmlspark_tpu_torch.testing.rank_pool\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
         "'transformer_lm_moe', 'skipgram'):\n"
@@ -430,7 +447,10 @@ def test_port_sources_name_no_jax_import():
                  "stages/classical.py", "stages/train_classifier.py",
                  "stages/train_regressor.py", "stages/eval_metrics.py",
                  "stages/find_best.py", "stages/ensemble.py",
-                 "stages/text.py", "stages/word2vec.py"):
+                 "stages/text.py", "stages/word2vec.py",
+                 "parallel/mesh.py", "parallel/sharding.py",
+                 "parallel/context_parallel.py", "__main__.py", "entry.py",
+                 "testing/rank_pool.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):

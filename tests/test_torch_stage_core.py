@@ -56,6 +56,17 @@ from mmlspark_tpu_torch.data.dataset import Dataset
 from mmlspark_tpu_torch.stages import DNNLearner
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def basic_dataset():
     """The port's copy of the conftest fixture (reference

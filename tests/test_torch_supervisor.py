@@ -23,6 +23,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.models import build_model as jax_build_model
 from mmlspark_tpu.serve import ReplicaSet as JaxReplicaSet
@@ -33,6 +34,18 @@ from mmlspark_tpu_torch.core.faults import EngineKilled, Fault, FaultInjector
 from mmlspark_tpu_torch.models import build_model, load_flax_variables
 from mmlspark_tpu_torch.serve import ReplicaSet, ServeEngine
 from mmlspark_tpu_torch.testing import serve_compile_guard
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TINY = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=32)
 #: prompt length -> the longest budget any test here asks of it

@@ -65,6 +65,18 @@ from mmlspark_tpu_torch.serve import engine as engine_mod
 from mmlspark_tpu_torch.serve.fleet import parse_autoscale_spec
 from mmlspark_tpu_torch.testing import serve_compile_guard
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # -- histograms and the registry: identical calls, identical results -------
 
 

@@ -25,6 +25,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.core import telemetry as jax_telemetry
 from mmlspark_tpu.core import tracehub as jax_tracehub
@@ -45,6 +46,18 @@ from mmlspark_tpu_torch.serve import (
     ServeEngine,
 )
 from mmlspark_tpu_torch.testing import serve_compile_guard
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 #: (framework telemetry module, framework hub module)
 SIDES = {"jax": (jax_telemetry, jax_tracehub),

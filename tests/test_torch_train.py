@@ -40,6 +40,18 @@ from mmlspark_tpu_torch.data import MASK_COL, Dataset, batch_iterator
 from mmlspark_tpu_torch.models import build_model, load_flax_variables
 from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig, masked_loss
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(vocab_size=32, d_model=16, heads=4, kv_heads=2, depth=2,
             max_len=16, attn_impl="flash")
 LR = 1e-3

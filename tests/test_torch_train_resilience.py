@@ -68,6 +68,18 @@ from mmlspark_tpu_torch.train import (
 )
 from mmlspark_tpu_torch.train import trainer as trainer_mod
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread a test worker leaves the cores
+    to the suite's other workers (module scope, so the module's own
+    fixtures run on it too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DEMO_LOSS_TOL = 1e-3
 LOGIT_TOL = 1e-6
 
