@@ -11,7 +11,9 @@ hand-offs), multi-model serving over an ONNX-imported graph with the
 telemetry hub, and the classical one-liner path (``Featurize``, the
 histogram tree learners, ``TrainClassifier``/``TrainRegressor``,
 ``ComputeModelStatistics``, ``FindBestModel``), sequence-parallel
-attention (Ulysses and ring over a one-rank NCCL mesh), the launcher
+attention (Ulysses and ring over a one-rank NCCL mesh), the trainer's
+mesh mode with the pipelined LM and the sequence-parallel BiLSTM over
+the same group, the launcher
 (``python -m mmlspark_tpu_torch``) and the entry point, and prints the
 measured numbers.
 
@@ -332,7 +334,18 @@ Phases (each one fails the run with a non-zero exit on error):
    cores; the ring's logits within BF16_LOGIT_TOL and its gradients
    within CP_GRAD_TOL of flash's. The arithmetic across several ranks is
    held on the CPU over gloo (``tests/test_torch_context_parallel.py``):
-   the card machine has one GPU and NCCL puts one rank on a GPU;
+   the card machine has one GPU and NCCL puts one rank on a GPU. Then,
+   over the same group, the trainer's mesh mode (the ``mesh_train``
+   line, ``check_mesh_train``): the flash LM under
+   ``TRANSFORMER_TP_RULES`` on ``{"data": 1, "model": 1}`` against the
+   plain trainer, bit-equal in loss curve and final parameters, one
+   captured step with its collectives inside, the forward and both
+   backward kernels depth x steps times each on the tensor cores; the
+   pipelined LM on ``{"data": 1, "pipe": 1}`` against its own stage loop
+   and the CPU's f32 forward, and 8 steps under
+   ``PIPELINE_STAGE_RULES``; the sequence-parallel BiLSTM tagger on
+   ``{"data": 1, "seq": 1}`` against the dense one and 4 SGD steps; and
+   ``python -m mmlspark_tpu_torch train --mesh data=1`` as a process;
 14. the launcher (the ``cli`` line): ``python -m mmlspark_tpu_torch
    serve --requests 8`` as a subprocess on the card (one JSON line, every
    request completed, the decode kernel launched in that process, read
@@ -5891,9 +5904,9 @@ def lm_forward_backward(graph, variables, ids):
 
 def check_context_parallel() -> dict:
     """The transformer at the serve model's widths with ``attn_impl=
-    "ulysses"`` and ``"ring"`` over ``make_mesh({"seq": 1})`` on a
-    one-rank NCCL group, each one training forward and backward a main
-    path, against ``"flash"`` on the same variables and tokens. At one
+    "ulysses"`` and ``"ring"`` over ``make_mesh({"seq": 1})`` on the
+    one-rank NCCL group ``main`` starts, each one training forward and
+    backward a main path, against ``"flash"`` on the same variables and tokens. At one
     rank the all-to-all and the gathers are identities, so Ulysses must
     be bit-equal to flash (logits and every gradient) and must launch the
     forward and both backward kernels ``depth`` times each, through the
@@ -5903,80 +5916,321 @@ def check_context_parallel() -> dict:
     import torch.distributed as dist
 
     from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import make_mesh, mesh_shape
+
+    mesh = make_mesh({"seq": 1})
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(
+            f"context_parallel: the group is {dist.get_backend()} on "
+            f"{mesh.device_type}, not NCCL on the card")
+    depth = SERVE_MODEL["depth"]
+    variables = init_variables(
+        build_model("transformer_lm", **SERVE_MODEL), 0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    ids = torch.randint(0, SERVE_MODEL["vocab_size"], (CP_BATCH, CP_SEQ),
+                        generator=gen, device=DEVICE)
+    runs = {}
+    for impl in ("flash", "ulysses", "ring"):
+        graph = build_model(
+            "transformer_lm", attn_impl=impl,
+            mesh=None if impl == "flash" else mesh, **SERVE_MODEL)
+        lm_forward_backward(graph, variables, ids)  # warm
+        (logits, grads), wall_ms, counts = timed_path(
+            lambda: lm_forward_backward(graph, variables, ids))
+        walls = [wall_ms]
+        for _ in range(CP_REPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_forward_backward(graph, variables, ids)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        runs[impl] = dict(logits=logits, grads=grads, counts=counts,
+                          wall_ms=statistics.median(walls))
+    flash, uly, ring = runs["flash"], runs["ulysses"], runs["ring"]
+    for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
+        if uly["counts"][name] != depth:
+            raise AssertionError(
+                f"context_parallel: ulysses {name} = "
+                f"{uly['counts'][name]}, want {depth} (one a layer)")
+    diff = [k for k in flash["grads"]
+            if not torch.equal(flash["grads"][k], uly["grads"][k])]
+    if not torch.equal(flash["logits"], uly["logits"]) or diff:
+        raise AssertionError(
+            "context_parallel: ulysses at one rank is not bit-equal to "
+            f"flash (logits equal: "
+            f"{torch.equal(flash['logits'], uly['logits'])}, gradients "
+            f"that differ: {diff})")
+    logit_err = float((ring["logits"].float()
+                       - flash["logits"].float()).abs().max())
+    grad_err = max(rel_err(ring["grads"][k].float().cpu(),
+                           flash["grads"][k].float().cpu())
+                   for k in flash["grads"])
+    if logit_err > BF16_LOGIT_TOL or grad_err > CP_GRAD_TOL:
+        raise AssertionError(
+            f"context_parallel: ring against flash: logits "
+            f"{logit_err} (tolerance {BF16_LOGIT_TOL}), gradients "
+            f"{grad_err} (tolerance {CP_GRAD_TOL})")
+    return {
+        "backend": dist.get_backend(), "world_size":
+            dist.get_world_size(), "mesh": mesh_shape(mesh),
+        "batch": CP_BATCH, "seq": CP_SEQ,
+        "ulysses_bit_equal_to_flash": True,
+        "ring_logits_max_abs_err": logit_err,
+        "ring_grad_max_rel_err": grad_err,
+        "wall_ms_median": {k: r["wall_ms"] for k, r in runs.items()},
+        "launch_counts": {k: {n: r["counts"][n]
+                              for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
+                          for k, r in runs.items()},
+    }
+
+
+# -- the trainer's mesh mode (ROADMAP.md Queue 1 items 13a-13d) -------------
+
+#: the mesh phase's training runs: TRAIN_BATCH x max_len rows, 8 steps
+MESH_STEPS, MESH_SEED = 8, 17
+#: the pipelined LM: the serve model's widths, 4 microbatches a batch
+PIPE_MICROBATCHES = 4
+#: the sequence-parallel tagger's rows (the dnn_stages phase's, seed 12)
+#: and its training batch
+SEQ_ROWS, SEQ_TRAIN_ROWS = 256, 64
+#: the pipelined forward against its own stage loop on the card: the
+#: largest logit difference over the largest logit (bf16 products of
+#: other shapes: TOLERANCE["bfloat16"])
+PIPE_SEQUENTIAL_TOL = 1e-2
+
+
+def count_collectives():
+    """Wrap the torch.distributed collectives and point-to-point ops the
+    port calls with counters; returns (the counts dict, an undo)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv",
+             "all_to_all_single")
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        fn = saved[name]
+
+        def counted(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+
+    def undo():
+        for n in names:
+            setattr(dist, n, saved[n])
+
+    return counts, undo
+
+
+def mesh_train_run(label: str, graph, weights: dict, x, y, **cfg) -> dict:
+    """``MESH_STEPS`` adam steps of ``graph`` through ``SPMDTrainer`` from
+    ``weights``, a main path: the counts set to 0 just before and read
+    just after, the Python-level collective calls counted (the eager
+    first step and the capture each issue the step's collectives once;
+    the replays issue them from the graph)."""
+    import torch
+
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    trainer = SPMDTrainer(graph, TrainConfig(
+        epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-3,
+        optimizer="adam", log_every=1, shuffle=True, **cfg), device=DEVICE)
+    collectives, undo = count_collectives()
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        trained = trainer.train(x, y, init_variables=weights)
+        counts = read_counts()
+    finally:
+        undo()
+    stamps = [e["t"] for e in trainer.recorder.events()
+              if e["name"] == "step"]
+    out = {
+        "losses": [h["loss"] for h in trainer.history],
+        "launch_counts": counts, "collective_calls": collectives,
+        "step_programs": trainer.telemetry.counter(
+            "retrace.train.step").value,
+        "step_capture_s": trainer.telemetry.gauge(
+            "train.step_capture_s").value,
+        "step_ms_median_steps_2_on": statistics.median(
+            (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])),
+    }
+    log(f"mesh_train {label}: {out}")
+    return out, trained
+
+
+def stage_loop_variables(weights: dict, depth: int) -> dict:
+    """The pipelined LM's one-stage variables as a plain
+    ``transformer_lm``'s (``stages["layer{i}.*"][0]`` -> ``block{i}``):
+    its own stage loop, another code path over the same numbers."""
+    out = {"embed": weights["embed"], "z": weights["z"]}
+    for i in range(depth):
+        pre = f"layer{i}."
+        out[f"block{i}"] = {k[len(pre):]: v[0]
+                            for k, v in weights["stages"].items()
+                            if k.startswith(pre)}
+    return out
+
+
+def check_mesh_train() -> dict:
+    """The trainer's mesh mode over the one-rank NCCL group ``main``
+    starts, at the serve model's widths:
+
+    (a) ``TRANSFORMER_TP_RULES`` on ``{"data": 1, "model": 1}`` with the
+        flash LM against the plain trainer, from the same weights on the
+        same batches: loss curves and final parameters bit-equal (every
+        collective is an identity at one rank, and the mesh step keeps
+        the plain step's arithmetic and order), the step captured once
+        with its collectives inside, the forward and both backward
+        kernels launched depth x steps times each on the tensor cores;
+    (b) ``transformer_lm_pipelined`` on ``{"data": 1, "pipe": 1}`` with
+        4 microbatches under ``PIPELINE_STAGE_RULES``: its forward
+        against its own stage loop on the card (PIPE_SEQUENTIAL_TOL) and
+        the CPU's f32 forward (BF16_LOGIT_TOL), then 8 training steps;
+    (c) the BiLSTM tagger at its default widths on ``{"data": 1, "seq":
+        1}``: the sequence-parallel logits against the dense tagger's
+        (TAGGER_LOGIT_TOL), and 4 ``bilstm_seq_parallel_train_step``
+        calls lowering the loss;
+    (d) ``python -m mmlspark_tpu_torch train --mesh data=1`` as a
+        process."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.parallel import (
-        initialize_distributed,
+        PIPELINE_STAGE_RULES,
+        TRANSFORMER_TP_RULES,
+        bilstm_seq_parallel_apply,
+        bilstm_seq_parallel_train_step,
         make_mesh,
-        mesh_shape,
     )
 
-    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
-    try:
-        mesh = make_mesh({"seq": 1})
-        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"mesh_train: the group is "
+                             f"{dist.get_backend()}, not NCCL")
+    depth = SERVE_MODEL["depth"]
+    want = depth * MESH_STEPS
+    x, y = progression_rows(MESH_STEPS * TRAIN_BATCH, MESH_SEED)
+    out = {}
+
+    # (a) the rules' mesh step against the plain step
+    graph = build_model("transformer_lm", attn_impl="flash", **SERVE_MODEL)
+    weights = init_variables(graph, MESH_SEED, device=DEVICE)
+    plain, plain_vars = mesh_train_run("plain", graph, weights, x, y)
+    meshed, mesh_vars = mesh_train_run(
+        "tp rules", graph, weights, x, y,
+        mesh_axes={"data": 1, "model": 1},
+        param_rules=TRANSFORMER_TP_RULES)
+    differ = [f"{b}.{k}" for b in plain_vars for k in plain_vars[b]
+              if not torch.equal(plain_vars[b][k], mesh_vars[b][k])]
+    if meshed["losses"] != plain["losses"] or differ:
+        raise AssertionError(
+            f"mesh_train: the one-rank mesh step is not bit-equal to the "
+            f"plain step: losses {meshed['losses']} vs {plain['losses']}, "
+            f"parameters that differ: {differ[:8]} ({len(differ)})")
+    if meshed["step_programs"] != 1 or not meshed["step_capture_s"] > 0:
+        raise AssertionError(f"mesh_train: {meshed['step_programs']} step "
+                             f"programs, capture {meshed['step_capture_s']}")
+    for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
+        if meshed["launch_counts"][name] != want:
             raise AssertionError(
-                f"context_parallel: the group is {dist.get_backend()} on "
-                f"{mesh.device_type}, not NCCL on the card")
-        depth = SERVE_MODEL["depth"]
-        variables = init_variables(
-            build_model("transformer_lm", **SERVE_MODEL), 0, device=DEVICE)
-        gen = torch.Generator(device=DEVICE).manual_seed(31)
-        ids = torch.randint(0, SERVE_MODEL["vocab_size"], (CP_BATCH, CP_SEQ),
-                            generator=gen, device=DEVICE)
-        runs = {}
-        for impl in ("flash", "ulysses", "ring"):
-            graph = build_model(
-                "transformer_lm", attn_impl=impl,
-                mesh=None if impl == "flash" else mesh, **SERVE_MODEL)
-            lm_forward_backward(graph, variables, ids)  # warm
-            (logits, grads), wall_ms, counts = timed_path(
-                lambda: lm_forward_backward(graph, variables, ids))
-            walls = [wall_ms]
-            for _ in range(CP_REPS - 1):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                lm_forward_backward(graph, variables, ids)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            runs[impl] = dict(logits=logits, grads=grads, counts=counts,
-                              wall_ms=statistics.median(walls))
-        flash, uly, ring = runs["flash"], runs["ulysses"], runs["ring"]
-        for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
-            if uly["counts"][name] != depth:
-                raise AssertionError(
-                    f"context_parallel: ulysses {name} = "
-                    f"{uly['counts'][name]}, want {depth} (one a layer)")
-        diff = [k for k in flash["grads"]
-                if not torch.equal(flash["grads"][k], uly["grads"][k])]
-        if not torch.equal(flash["logits"], uly["logits"]) or diff:
-            raise AssertionError(
-                "context_parallel: ulysses at one rank is not bit-equal to "
-                f"flash (logits equal: "
-                f"{torch.equal(flash['logits'], uly['logits'])}, gradients "
-                f"that differ: {diff})")
-        logit_err = float((ring["logits"].float()
-                           - flash["logits"].float()).abs().max())
-        grad_err = max(rel_err(ring["grads"][k].float().cpu(),
-                               flash["grads"][k].float().cpu())
-                       for k in flash["grads"])
-        if logit_err > BF16_LOGIT_TOL or grad_err > CP_GRAD_TOL:
-            raise AssertionError(
-                f"context_parallel: ring against flash: logits "
-                f"{logit_err} (tolerance {BF16_LOGIT_TOL}), gradients "
-                f"{grad_err} (tolerance {CP_GRAD_TOL})")
-        return {
-            "backend": dist.get_backend(), "world_size":
-                dist.get_world_size(), "mesh": mesh_shape(mesh),
-            "batch": CP_BATCH, "seq": CP_SEQ,
-            "ulysses_bit_equal_to_flash": True,
-            "ring_logits_max_abs_err": logit_err,
-            "ring_grad_max_rel_err": grad_err,
-            "wall_ms_median": {k: r["wall_ms"] for k, r in runs.items()},
-            "launch_counts": {k: {n: r["counts"][n]
-                                  for n in ATTN_COUNTERS + ATTN_MMA_COUNTERS}
-                              for k, r in runs.items()},
-        }
-    finally:
-        dist.destroy_process_group()
+                f"mesh_train: {name} = {meshed['launch_counts'][name]}, "
+                f"want {want} (depth x steps)")
+    out["tp_rules_vs_plain"] = {
+        "mesh": {"data": 1, "model": 1}, "bit_equal": True,
+        "plain": plain, "mesh_step": meshed}
+
+    # (b) the pipelined LM
+    pmesh = make_mesh({"data": 1, "pipe": 1})
+    pconfig = dict(SERVE_MODEL)
+    pgraph = build_model("transformer_lm_pipelined", mesh=pmesh,
+                         n_microbatches=PIPE_MICROBATCHES, **pconfig)
+    pweights = init_variables(pgraph, MESH_SEED, device=DEVICE)
+    ids = torch.from_numpy(x[:TRAIN_BATCH]).to(DEVICE)
+    (logits, fwd_ms, _) = timed_path(lambda: pgraph.apply(pweights, ids))
+    loop = build_model("transformer_lm", attn_impl="dense", **SERVE_MODEL)
+    loop_vars = stage_loop_variables(pweights, depth)
+    want_loop = loop.apply(loop_vars, ids)
+    seq_err = rel_err(logits.float().cpu(), want_loop.float().cpu())
+    cpu_logits = cpu_forward("transformer_lm", {"attn_impl": "dense",
+                                                **SERVE_MODEL},
+                             loop_vars, x[:TRAIN_BATCH])
+    cpu_err = float(np.abs(logits.float().cpu().numpy()
+                           - cpu_logits).max())
+    if not seq_err <= PIPE_SEQUENTIAL_TOL or not cpu_err <= BF16_LOGIT_TOL:
+        raise AssertionError(
+            f"mesh_train: pipelined forward vs its stage loop {seq_err} "
+            f"(tolerance {PIPE_SEQUENTIAL_TOL}), vs the CPU's f32 "
+            f"{cpu_err} (tolerance {BF16_LOGIT_TOL})")
+    pipe_run, _ = mesh_train_run(
+        "pipelined", pgraph, pweights, x, y,
+        mesh_axes={"data": 1, "pipe": 1},
+        param_rules=PIPELINE_STAGE_RULES)
+    losses = pipe_run["losses"]
+    if len(losses) != MESH_STEPS or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh_train: pipelined losses {losses}")
+    out["pipelined"] = {
+        "mesh": {"data": 1, "pipe": 1},
+        "n_microbatches": PIPE_MICROBATCHES,
+        "forward_vs_stage_loop_rel_err": seq_err,
+        "forward_bit_equal_to_stage_loop": bool(torch.equal(
+            logits, want_loop)),
+        "forward_vs_cpu_f32_max_abs_err": cpu_err,
+        "forward_ms": fwd_ms, "training": pipe_run}
+
+    # (c) the sequence-parallel tagger
+    smesh = make_mesh({"data": 1, "seq": 1})
+    tagger = build_model("bilstm_tagger")
+    tweights = init_variables(tagger, 12, device=DEVICE)
+    rows = np.random.default_rng(12).integers(
+        0, 10000, size=(TAGGER_ROWS, TAGGER_LEN)).astype(np.int32)
+    trows = torch.from_numpy(rows[:SEQ_ROWS]).to(DEVICE)
+    par = bilstm_seq_parallel_apply(tagger, tweights, trows, smesh)
+    dense = tagger.apply(tweights, trows)
+    tag_err = rel_err(par.float().cpu(), dense.float().cpu())
+    tag_abs = float((par - dense).abs().max())
+    if not tag_err <= TAGGER_LOGIT_TOL:
+        raise AssertionError(f"mesh_train: sequence-parallel tagger vs "
+                             f"dense {tag_err} (tolerance "
+                             f"{TAGGER_LOGIT_TOL})")
+    tids = rows[:SEQ_TRAIN_ROWS]
+    tags = (tids % 8).astype(np.int32)
+    v, tlosses = tweights, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        loss, v = bilstm_seq_parallel_train_step(tagger, v, tids, tags,
+                                                 smesh, learning_rate=5e-2)
+        tlosses.append(float(loss))
+    step_ms = (time.perf_counter() - t0) * 1e3 / 4
+    if not all(np.isfinite(tlosses)) or not tlosses[-1] < tlosses[0]:
+        raise AssertionError(f"mesh_train: tagger losses {tlosses}")
+    out["bilstm_seq_parallel"] = {
+        "mesh": {"data": 1, "seq": 1}, "rows": SEQ_ROWS,
+        "row_len": TAGGER_LEN, "logits_rel_err_vs_dense": tag_err,
+        "logits_max_abs_err_vs_dense": tag_abs,
+        "train_rows": SEQ_TRAIN_ROWS, "train_losses": tlosses,
+        "train_step_ms": step_ms}
+
+    # (d) the CLI's mesh training, a process with its own group
+    cli, cli_s = run_cli(["-m", "mmlspark_tpu_torch", "train", "--mesh",
+                          "data=1"])
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("{")]
+    metrics = json.loads(lines[-1]) if len(lines) == 1 else {}
+    if not metrics.get("steps_total") or \
+            not np.isfinite(metrics.get("final_loss") or np.nan):
+        raise AssertionError(f"mesh_train cli: {len(lines)} JSON lines, "
+                             f"{metrics}")
+    out["cli_train_mesh"] = {k: metrics[k] for k in (
+        "steps_total", "final_loss", "retrace.train.step",
+        "train.step_ms_p50")} | {"process_s": cli_s}
+    return out
 
 
 #: the CLI's serve demo as a subprocess: ``python -m mmlspark_tpu_torch``
@@ -6159,10 +6413,21 @@ def main() -> int:
     classical = check_classical(smi)
     log(f"classical phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    context_parallel = check_context_parallel()
+    from mmlspark_tpu_torch.parallel import initialize_distributed
+    import torch.distributed as dist
+
+    # one NCCL rank on the card for the parallel phases
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        context_parallel = check_context_parallel()
+        t1 = time.perf_counter()
+        mesh_train = check_mesh_train()
+        log(f"mesh_train phase took {time.perf_counter() - t1:.1f}s")
+    finally:
+        dist.destroy_process_group()
     cli = check_cli()
     entry_run = check_entry()
-    log(f"context_parallel, cli and entry phases took "
+    log(f"context_parallel, mesh_train, cli and entry phases took "
         f"{time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
@@ -6192,12 +6457,15 @@ def main() -> int:
     # training run's and the Ulysses run's of the context-parallel phase
     moe_train = moe["training"]["launch_counts"]
     ulysses = context_parallel["launch_counts"]["ulysses"]
+    mesh_step = mesh_train["tp_rules_vs_plain"]["mesh_step"]["launch_counts"]
     attn_rows, attn_backward = measure_attention_kernels(
         attn_errors, {k: v + moe_train[k] + ulysses.get(k, 0)
+                      + mesh_step[k]
                       for k, v in training["launch_counts"].items()})
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
-            optim_equal, training["launch_counts"]["fused_optim_launches"]),
+            optim_equal, training["launch_counts"]["fused_optim_launches"]
+            + mesh_step["fused_optim_launches"]),
         measure_tree_checksum(train_resilience["fold_bit_equal"],
                               fold_launches)]
     print(json.dumps({"kernel_errors": errors,
@@ -6236,6 +6504,7 @@ def main() -> int:
     print(json.dumps({"multimodel": multimodel}))
     print(json.dumps({"classical": classical}))
     print(json.dumps({"context_parallel": context_parallel}))
+    print(json.dumps({"mesh_train": mesh_train}))
     print(json.dumps({"cli": cli, "entry": entry_run}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -16,10 +16,17 @@ Subcommands, flags and defaults are the JAX CLI's:
 
 Everything runs on the card unless ``--cpu-mesh`` is given, which here
 means "on the CPU": ``--cpu-mesh 1`` runs the plain PyTorch path on the
-host; a CPU mesh of more than one rank, like ``serve --mesh`` and
-``train --mesh``, waits for the trainer's and the engine's mesh modes
-(the rest of ROADMAP.md Queue 1 item 13). Without a GPU and
-without ``--cpu-mesh`` the commands raise rather than run on the host.
+host. JAX makes N virtual CPU devices in one process; PyTorch has no
+such device, so ``--cpu-mesh N`` (N > 1) starts N gloo rank processes on
+the host for ``run``, ``train`` and ``env`` (each under a time limit of
+``RANK_TIMEOUT_S`` seconds), and rank 0's output is the command's;
+``train`` there trains over ``data=N`` unless ``--mesh`` says
+otherwise, as the JAX trainer spans every device.
+``train --mesh`` without ranks from a launcher starts a one-process group
+of its own (NCCL on the card, gloo on the CPU). ``serve --mesh`` waits
+for the engine's mesh mode (ROADMAP.md Queue 1 item 13e). Without a GPU
+and without ``--cpu-mesh`` the commands raise rather than run on the
+host.
 
 Usage: ``python -m mmlspark_tpu_torch <cmd> ...`` or the
 ``mml-tpu-torch`` console script (pyproject [project.scripts]).
@@ -35,23 +42,118 @@ import sys
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
-_MESH_LATER = ("the trainer's and the engine's mesh modes (ROADMAP.md "
-               "Queue 1 item 13)")
+#: set in the rank processes ``--cpu-mesh N`` starts
+_RANK_ENV = "MML_TPU_TORCH_CPU_RANK"
+#: the commands ``--cpu-mesh N`` runs on N ranks
+_RANK_COMMANDS = ("run", "train", "env")
+#: the time limit of every rank process ``--cpu-mesh N`` starts
+RANK_TIMEOUT_S = 900.0
 _JAX_SCRIPTS = ("ROADMAP.md Queue 1 item 20: bench, evidence and docgen "
                 "over the port, after its first benchmark")
 
 
 def _apply_backend(args):
     """The device the command runs on: the card, or the CPU with
-    ``--cpu-mesh 1`` (then a ``run`` script sees no card either)."""
+    ``--cpu-mesh N`` (then a ``run`` script sees no card either)."""
     if not args.cpu_mesh:
         return None
-    if args.cpu_mesh != 1:
+    if args.cpu_mesh < 1:
         raise FriendlyError(
-            f"--cpu-mesh {args.cpu_mesh}: a CPU mesh of more than one rank "
-            f"waits for {_MESH_LATER}; --cpu-mesh 1 runs on the CPU"
-        )
+            f"--cpu-mesh {args.cpu_mesh}: the CPU mesh needs at least one "
+            "rank")
     return "cpu"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(argv: list[str], n: int) -> int:
+    """Run this command line on ``n`` gloo rank processes of the host:
+    rank 0's standard output becomes this process's, the others' is
+    dropped; every rank has the time limit, and all are stopped when one
+    outlives it. Returns the ranks' worst exit code."""
+    import subprocess
+    import time
+
+    timeout = RANK_TIMEOUT_S
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE=str(n),
+                   RANK=str(rank), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1", **{_RANK_ENV: "1"},
+                   PYTHONPATH=os.pathsep.join(
+                       [root, *filter(None,
+                                      [os.environ.get("PYTHONPATH")])]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mmlspark_tpu_torch", *argv], env=env,
+            stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE if rank == 0 else subprocess.DEVNULL))
+    deadline = time.monotonic() + timeout
+    try:
+        out, _ = procs[0].communicate(timeout=timeout)
+        codes = [procs[0].returncode]
+        for proc in procs[1:]:
+            codes.append(proc.wait(timeout=max(deadline - time.monotonic(),
+                                               1.0)))
+    except subprocess.TimeoutExpired:
+        raise FriendlyError(
+            f"--cpu-mesh {n}: a rank outlived the {timeout:g} s limit; "
+            "every rank was stopped"
+        ) from None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sys.stdout.write(out.decode())
+    sys.stdout.flush()
+    return max(codes, key=abs)
+
+
+class _Group:
+    """The process group a command trains over: the launcher's ranks
+    (``RANK``/``WORLD_SIZE`` in the environment), or one process of its
+    own; a group this command started ends with it."""
+
+    def __init__(self, device):
+        self.device = device
+        self.owned = False
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from mmlspark_tpu_torch.parallel.mesh import initialize_distributed
+
+        if dist.is_available() and dist.is_initialized():
+            return self
+        if "RANK" in os.environ:
+            initialize_distributed(device=self.device)
+        else:
+            initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                   device=self.device)
+        self.owned = True
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        if self.owned:
+            dist.destroy_process_group()
+        return False
+
+    @property
+    def rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank()
 
 
 def cmd_run(args) -> int:
@@ -60,6 +162,11 @@ def cmd_run(args) -> int:
         # JAX_PLATFORMS=cpu hides the TPU from a JAX script
         os.environ["CUDA_VISIBLE_DEVICES"] = ""
     sys.argv = [args.script, *args.script_args]
+    if os.environ.get(_RANK_ENV):
+        # a --cpu-mesh rank: the script starts in the group
+        with _Group("cpu"):
+            runpy.run_path(args.script, run_name="__main__")
+        return 0
     runpy.run_path(args.script, run_name="__main__")
     return 0
 
@@ -117,22 +224,33 @@ def cmd_train(args) -> int:
     device = _apply_backend(args)
     from mmlspark_tpu_torch.train.demo import run_train_demo
 
-    metrics = run_train_demo(
-        epochs=args.epochs,
-        batch_size=args.batch_size,
-        n_samples=args.samples,
-        seed=args.seed,
-        checkpoint_every=args.checkpoint_every,
-        anomaly_limit=args.anomaly_limit,
-        max_grad_norm=args.max_grad_norm,
-        audit_every=args.audit_every,
-        mesh=args.mesh or None,
-        checkpoint_dir=args.checkpoint_dir or None,
-        telemetry_dir=args.telemetry_dir or None,
-        faults=args.faults or None,
-        device=device,
-    )
-    print(json.dumps(metrics, default=str))
+    ranked = bool(os.environ.get(_RANK_ENV))
+    mesh = args.mesh or (f"data={args.cpu_mesh}" if ranked else None)
+
+    def run() -> dict:
+        return run_train_demo(
+            epochs=args.epochs,
+            batch_size=args.batch_size,
+            n_samples=args.samples,
+            seed=args.seed,
+            checkpoint_every=args.checkpoint_every,
+            anomaly_limit=args.anomaly_limit,
+            max_grad_norm=args.max_grad_norm,
+            audit_every=args.audit_every,
+            mesh=mesh,
+            checkpoint_dir=args.checkpoint_dir or None,
+            telemetry_dir=args.telemetry_dir or None,
+            faults=args.faults or None,
+            device=device,
+        )
+
+    if mesh is None:
+        metrics, rank = run(), 0
+    else:
+        with _Group(device) as group:
+            metrics, rank = run(), group.rank
+    if rank == 0:
+        print(json.dumps(metrics, default=str))
     return 0
 
 
@@ -161,7 +279,13 @@ def cmd_env(args) -> int:
     device = _apply_backend(args)
     from mmlspark_tpu_torch.core import env
 
-    print(json.dumps(env.describe(device), indent=1, default=str))
+    if os.environ.get(_RANK_ENV):
+        with _Group(device) as group:
+            info, rank = env.describe(device), group.rank
+    else:
+        info, rank = env.describe(device), 0
+    if rank == 0:
+        print(json.dumps(info, indent=1, default=str))
     return 0
 
 
@@ -200,8 +324,8 @@ def main(argv: list[str] | None = None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument(
         "--cpu-mesh", type=int, metavar="N", default=0,
-        help="run on the CPU instead of the card (N = 1; a CPU mesh of "
-        "N > 1 ranks waits for the port's mesh modes)",
+        help="run on the CPU instead of the card: N = 1 in this process, "
+        "N > 1 as N gloo rank processes for run, train and env",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -243,7 +367,7 @@ def main(argv: list[str] | None = None) -> int:
         "--mesh", default="", metavar="AXES",
         help="the JAX CLI's sharded engine on a (data, model) mesh, "
         "e.g. 'data=4,model=2'; over the port it raises until the "
-        "engine's mesh mode lands",
+        "engine's mesh mode lands (ROADMAP.md Queue 1 item 13e)",
     )
     sp.add_argument(
         "--telemetry-dir", default="", metavar="DIR",
@@ -450,9 +574,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     sp.add_argument(
         "--mesh", default="", metavar="AXES",
-        help="the JAX CLI's (data, model) training mesh, e.g. "
-        "'data=4,model=2'; over the port it raises until the trainer's "
-        "mesh mode lands",
+        help="the (data, model) training mesh, e.g. 'data=4,model=2', "
+        "over the launcher's ranks (--cpu-mesh N, torchrun) or a "
+        "one-process group of its own",
     )
     sp.add_argument(
         "--telemetry-dir", default="", metavar="DIR",
@@ -499,9 +623,13 @@ def main(argv: list[str] | None = None) -> int:
     sp.add_argument("--remote", default="")
     sp.set_defaults(fn=cmd_zoo)
 
-    args = p.parse_args(argv)
+    raw = list(sys.argv[1:] if argv is None else argv)
+    args = p.parse_args(raw)
     if args.cmd == "zoo" and args.zoo_cmd == "download" and not args.name:
         p.error("zoo download requires a model name")
+    if args.cpu_mesh > 1 and args.cmd in _RANK_COMMANDS and \
+            not os.environ.get(_RANK_ENV):
+        return _spawn_ranks(raw, args.cpu_mesh)
     return args.fn(args)
 
 

@@ -13,8 +13,9 @@
 - **Placement** (:func:`to_device`): a batch goes to the device through
   :func:`~mmlspark_tpu_torch.core.env.host_to_device` (pinned memory, a
   copy that does not wait for the stream) in place of
-  ``jax.device_put``. Sharding a batch over several cards waits for the
-  mesh modes (the rest of ROADMAP.md Queue 1 item 13).
+  ``jax.device_put``. The trainer's mesh mode gives each rank its rows
+  of a batch (``train/distributed.py``); the engine's waits for ROADMAP.md
+  Queue 1 item 13e.
 """
 
 from __future__ import annotations

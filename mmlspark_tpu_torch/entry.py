@@ -3,10 +3,12 @@
 
 ``entry()`` returns a forward step on the flagship model (ResNet-20 for
 CIFAR-10, the reference notebook-301 eval model) with its example
-arguments, on the card unless the caller asks for the CPU. The JAX
-module's ``dryrun_multichip`` — full training steps over an n-device
-mesh — waits with the trainer's mesh mode (the rest of ROADMAP.md Queue 1
-item 13).
+arguments, on the card unless the caller asks for the CPU.
+``dryrun_multichip(n)`` is the twin of its data-parallel leg: one full
+training step of ResNet-20 (width 8) over a ``data=n`` mesh of ``n``
+gloo ranks on the CPU, as the JAX module validates sharding on ``n``
+virtual CPU devices. Its other legs (tensor, pipeline, expert and
+sequence parallelism, the BiLSTM chain) are the mesh tests'.
 """
 
 from __future__ import annotations
@@ -32,3 +34,48 @@ def entry(device=None):
     example_x = torch.zeros((128, 32, 32, 3), dtype=torch.float32,
                             device=dev)
     return forward, (variables, example_x)
+
+
+def dryrun_multichip(n_devices: int) -> list[float]:
+    """One full training step of ``resnet20_cifar10(width=8)`` over a
+    ``{"data": n_devices}`` mesh: ``n_devices`` gloo rank processes on
+    the CPU (started and stopped here, each under a time limit), a
+    seeded batch of ``2 * n_devices`` images, then one forward on the
+    trained variables. Returns every rank's loss (equal: the ranks hold
+    one replica); raises when a rank fails."""
+    from mmlspark_tpu_torch.testing.rank_pool import RankPool
+
+    pool = RankPool(n_devices, timeout=600.0)
+    try:
+        losses = pool.run(_dryrun_rank, n_devices)
+    finally:
+        pool.close()
+    if len(set(losses)) != 1:
+        raise RuntimeError(f"the data-parallel replicas disagree: {losses}")
+    return losses
+
+
+def _dryrun_rank(n_devices: int) -> float:
+    """One rank of :func:`dryrun_multichip`."""
+    import numpy as np
+
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    graph = build_model("resnet20_cifar10", width=8)
+    rng = np.random.default_rng(0)
+    batch = 2 * n_devices
+    x = rng.normal(size=(batch, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=batch).astype(np.int32)
+    trainer = SPMDTrainer(graph, TrainConfig(
+        epochs=1, batch_size=batch, learning_rate=1e-2,
+        mesh_axes={"data": n_devices}, log_every=1, shuffle=False,
+    ), device="cpu")
+    variables = trainer.train(x, y)
+    loss = trainer.history[0]["loss"]
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite loss {loss}")
+    out = graph.apply(variables, torch.from_numpy(x[:n_devices]))
+    if tuple(out.shape) != (n_devices, 10):
+        raise RuntimeError(f"logits {tuple(out.shape)}")
+    return float(loss)

@@ -1,5 +1,5 @@
 """Models: named-block graphs, the registry, the transformer LM and its
-switch-MoE twin, the MLP and linear family, the ResNets, the BiLSTM
+switch-MoE and pipelined twins, the MLP and linear family, the ResNets, the BiLSTM
 tagger, the weight bridge from flax, generation (greedy, sampled, beam
 search), and ONNX import and export."""
 
@@ -14,6 +14,10 @@ from mmlspark_tpu_torch.models.mlp import linear, mlp
 from mmlspark_tpu_torch.models.moe import transformer_lm_moe
 from mmlspark_tpu_torch.models.onnx_export import export_onnx, save_onnx
 from mmlspark_tpu_torch.models.onnx_import import OnnxGraph, load_onnx
+from mmlspark_tpu_torch.models.pipelined import (
+    PipelinedGraph,
+    transformer_lm_pipelined,
+)
 from mmlspark_tpu_torch.models.registry import (
     build_model,
     register_model,
@@ -26,6 +30,7 @@ __all__ = [
     "FINAL_NODE",
     "NamedGraph",
     "OnnxGraph",
+    "PipelinedGraph",
     "beam_search",
     "bilstm_tagger",
     "build_model",
@@ -43,4 +48,5 @@ __all__ = [
     "save_onnx",
     "transformer_lm",
     "transformer_lm_moe",
+    "transformer_lm_pipelined",
 ]

@@ -42,6 +42,11 @@ layout (untransposed; ``ln1``, ``ln2`` and ``attn`` as in
     block{i}/params/moe/experts/{b_in,w_out,b_out}
                                             -> "moe.experts.{...}"
 
+The pipelined LM (``models/pipelined.py``) keeps flax's vmapped stage
+layout: every ``stages/params/layer{i}/...`` leaf carries a leading
+``n_stages`` dim, and each stage's slice changes layout as above
+(``stages["layer{i}.attn.qkv.weight"]`` is (n_stages, out, in)).
+
 A flax Dense ``kernel`` is (in, out); the port's weight is (out, in), so
 it is transposed on the way in, and a flax Conv ``kernel`` (kh, kw, in,
 out) becomes the port's (out, in, kh, kw). Weight-quantized flax
@@ -114,9 +119,14 @@ def _to_port_layout(arr: np.ndarray, layout: str) -> np.ndarray:
     return arr
 
 
-def _port_leaf(node, layout: str, dev):
+def _port_leaf(node, layout: str, dev, stacked: bool = False):
     """A flax leaf (float, or ``{__w8__, __w8_scale__}``) as the port's
-    tensor (or quantized dict) on ``dev``."""
+    tensor (or quantized dict) on ``dev``; a ``stacked`` leaf (a leading
+    stage dim) changes layout stage by stage."""
+    if stacked:
+        arr = np.array(node, dtype=np.float32)
+        arr = np.stack([_to_port_layout(a, layout) for a in arr])
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
     if not (isinstance(node, Mapping) and _Q8 in node and _SCALE in node):
         arr = _to_port_layout(np.array(node, dtype=np.float32), layout)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -205,8 +215,10 @@ def flax_param_path(name: str, mod: nn.Module, key: str):
         coll = "batch_stats" if leaf in _STATS.get(type(owner), ()) \
             else "params"
         flax_leaf = [_LEAVES.get(type(owner), {}).get(leaf, leaf)]
-    return ("/".join([name, coll, *parts, *flax_leaf]),
-            _PERMUTATIONS.get(layout))
+    perm = _PERMUTATIONS.get(layout)
+    if perm is not None and getattr(mod, "stacked", False):
+        perm = (0, *(p + 1 for p in perm))
+    return "/".join([name, coll, *parts, *flax_leaf]), perm
 
 
 def load_flax_variables(graph, variables, *, device=None) -> dict:
@@ -239,7 +251,8 @@ def load_flax_variables(graph, variables, *, device=None) -> dict:
         block = {}
         for key, ref in refs.items():
             node, layout = _flax_node(block_vars, name, mod, key)
-            block[key] = _port_leaf(node, layout, dev)
+            block[key] = _port_leaf(node, layout, dev,
+                                    getattr(mod, "stacked", False))
             got = block[key][_Q8] if isinstance(block[key], dict) \
                 else block[key]
             _check_shape(name, key, got.shape, ref)
@@ -279,25 +292,32 @@ def init_variables(graph, seed: int = 0, *, device=None,
                 f"block '{name}' of graph '{graph.name}' has no input width "
                 "yet: call graph.size_input(x.shape[1:]) first")
         block = {}
+        stacked = getattr(mod, "stacked", False)
         for key, ref in mod.state_dict().items():
             _, owner, leaf = _owner_and_leaf(mod, key)
             shape = tuple(ref.shape)
-            if isinstance(owner, (nn.LayerNorm, BatchNorm)) and \
-                    leaf in ("weight", "var"):
-                t = torch.ones(shape)
-            elif leaf.startswith("bias") or leaf in ("mean", "b_in",
-                                                     "b_out"):
-                t = torch.zeros(shape)
-            elif isinstance(owner, (MoEFFN, ExpertParams)):
-                t = torch.randn(shape, **draw) * shape[-2] ** -0.5
-            elif isinstance(owner, (Dense, nn.Embedding, Conv, BiLSTM)):
-                fan_in = int(np.prod(shape[1:]))
-                t = torch.randn(shape, **draw) * fan_in ** -0.5
-            else:  # the learned position table
-                t = torch.randn(shape, **draw) * 0.02
+            if stacked:  # one draw a stage, of the stage's shape
+                t = torch.stack([_init_leaf(owner, leaf, shape[1:], draw)
+                                 for _ in range(shape[0])])
+            else:
+                t = _init_leaf(owner, leaf, shape, draw)
             block[key] = t.to(dev)
         out[name] = block
     return out
+
+
+def _init_leaf(owner: nn.Module, leaf: str, shape: tuple, draw: dict):
+    if isinstance(owner, (nn.LayerNorm, BatchNorm)) and \
+            leaf in ("weight", "var"):
+        return torch.ones(shape)
+    if leaf.startswith("bias") or leaf in ("mean", "b_in", "b_out"):
+        return torch.zeros(shape)
+    if isinstance(owner, (MoEFFN, ExpertParams)):
+        return torch.randn(shape, **draw) * shape[-2] ** -0.5
+    if isinstance(owner, (Dense, nn.Embedding, Conv, BiLSTM)):
+        fan_in = int(np.prod(shape[1:]))
+        return torch.randn(shape, **draw) * fan_in ** -0.5
+    return torch.randn(shape, **draw) * 0.02  # the learned position table
 
 
 def variables_to(variables: dict, device) -> dict:

@@ -1,11 +1,12 @@
 """Model-architecture registry: name -> NamedGraph builder — the port of
-``mmlspark_tpu/models/registry.py``. The port registers only what its
-slices have ported: ``transformer_lm``, ``mlp``, ``linear``,
+``mmlspark_tpu/models/registry.py``, with every architecture the JAX
+package registers: ``transformer_lm``, ``mlp``, ``linear``,
 ``resnet20_cifar10``, ``resnet50``, ``bilstm_tagger``,
-``transformer_lm_moe``, ``onnx`` (an imported ONNX file,
-``models/onnx_import.py``) and ``skipgram`` (``stages/word2vec.py``). A
-serialized ``TPUModel`` stores ``(model_name, model_config)`` and rebuilds
-its graph here at load time."""
+``transformer_lm_moe``, ``transformer_lm_pipelined``, ``onnx`` (an
+imported ONNX file, ``models/onnx_import.py``) and ``skipgram``
+(``stages/word2vec.py``). A serialized ``TPUModel`` stores
+``(model_name, model_config)`` and rebuilds its graph here at load
+time."""
 
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ def _ensure_loaded() -> None:
     import mmlspark_tpu_torch.models.mlp  # noqa: F401
     import mmlspark_tpu_torch.models.moe  # noqa: F401
     import mmlspark_tpu_torch.models.onnx_import  # noqa: F401
+    import mmlspark_tpu_torch.models.pipelined  # noqa: F401
     import mmlspark_tpu_torch.models.resnet  # noqa: F401
     import mmlspark_tpu_torch.models.transformer  # noqa: F401
     import mmlspark_tpu_torch.stages.word2vec  # noqa: F401  (skipgram)

@@ -119,9 +119,7 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if train:
             x = x.float()
-            mean = x.mean(dim=(0, 1, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+            mean, var = _batch_moments(x)
             m = self.momentum
             self.new_stats = {
                 "mean": (m * self.mean + (1 - m) * mean).detach(),
@@ -132,6 +130,26 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         # a bf16 x minus the f32 mean is computed in f32 (exact promotion)
         return (x - mean) * mul + self.bias
+
+
+def _batch_moments(x):
+    """The per-channel mean and variance of an NHWC batch; inside the mesh
+    trainer's step (``parallel/mesh.local_batch``) over every data rank's
+    rows, as the JAX package's BatchNorm sees the sharded global batch."""
+    from mmlspark_tpu_torch.parallel.mesh import AllReduce, batch_stats_axis
+
+    axis = batch_stats_axis()
+    if axis is None:
+        mean = x.mean(dim=(0, 1, 2))
+        return mean, torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean,
+                                 min=0.0)
+    c = x.shape[-1]
+    n = torch.full((1,), x.shape[0] * x.shape[1] * x.shape[2],
+                   dtype=x.dtype, device=x.device)
+    sums = AllReduce.apply(torch.cat([x.sum(dim=(0, 1, 2)),
+                                      (x * x).sum(dim=(0, 1, 2)), n]), axis)
+    mean = sums[:c] / sums[-1]
+    return mean, torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
 
 
 class ConvBN(nn.Module):

@@ -481,9 +481,9 @@ def transformer_lm(
     :func:`~mmlspark_tpu_torch.models.bridge.init_variables` or
     :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
     ``mesh`` carries the sequence axis ``ring``/``ulysses`` shard over;
-    running the graph's parameters sharded on it belongs to the trainer's
-    and the engine's mesh modes (the rest of ROADMAP.md Queue 1
-    item 13)."""
+    the trainer's mesh mode trains the graph on it (``param_rules``:
+    ``TRANSFORMER_TP_RULES``), the engine's waits for ROADMAP.md Queue 1
+    item 13e."""
     if d_model % heads:
         raise ParamError(f"d_model {d_model} not divisible by heads {heads}")
     rope = validate_attention_features(

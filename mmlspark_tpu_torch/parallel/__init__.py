@@ -1,9 +1,11 @@
 """Parallelism layer: device meshes over a ``torch.distributed`` process
-group (:mod:`mesh`), tensor-parallel sharding rules (:mod:`sharding`),
+group (:mod:`mesh`), parameter sharding rules (:mod:`sharding`),
 sequence/context parallelism — ring attention and Ulysses
-(:mod:`context_parallel`) — and the single-device half of expert routing
-(:mod:`expert`). Pipeline parallelism, the sequence-parallel BiLSTM and
-``EXPERT_RULES`` wait for the rest of ROADMAP.md Queue 1 item 13.
+(:mod:`context_parallel`) — pipeline parallelism (:mod:`pipeline`),
+expert routing and its sharding rules (:mod:`expert`) and the
+sequence-parallel BiLSTM (:mod:`sequence_rnn`). The trainer's mesh mode
+(``train/trainer.py``) runs them; the engine's mesh mode waits for
+ROADMAP.md Queue 1 item 13e.
 """
 
 from mmlspark_tpu_torch.parallel.context_parallel import (
@@ -11,6 +13,7 @@ from mmlspark_tpu_torch.parallel.context_parallel import (
     ulysses_attention,
 )
 from mmlspark_tpu_torch.parallel.expert import (
+    EXPERT_RULES,
     moe_dispatch,
     moe_ffn,
     moe_ffn_dropless,
@@ -26,10 +29,19 @@ from mmlspark_tpu_torch.parallel.mesh import (
     axis_size,
     batch_spec,
     initialize_distributed,
+    local_batch,
     make_mesh,
     mesh_shape,
     parse_mesh_axes,
     replicated_spec,
+)
+from mmlspark_tpu_torch.parallel.pipeline import (
+    PIPELINE_STAGE_RULES,
+    pipeline_apply,
+)
+from mmlspark_tpu_torch.parallel.sequence_rnn import (
+    bilstm_seq_parallel_apply,
+    bilstm_seq_parallel_train_step,
 )
 from mmlspark_tpu_torch.parallel.sharding import (
     TRANSFORMER_TP_RULES,
@@ -41,11 +53,14 @@ from mmlspark_tpu_torch.parallel.sharding import (
 )
 
 __all__ = [
-    "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPELINE_AXIS",
-    "SEQUENCE_AXIS", "NamedSharding", "TRANSFORMER_TP_RULES", "axis_size",
-    "batch_spec", "build_param_shardings", "initialize_distributed",
+    "DATA_AXIS", "EXPERT_AXIS", "EXPERT_RULES", "MODEL_AXIS",
+    "PIPELINE_AXIS", "PIPELINE_STAGE_RULES", "SEQUENCE_AXIS",
+    "NamedSharding", "TRANSFORMER_TP_RULES", "axis_size", "batch_spec",
+    "bilstm_seq_parallel_apply", "bilstm_seq_parallel_train_step",
+    "build_param_shardings", "initialize_distributed", "local_batch",
     "make_mesh", "mesh_shape", "moe_dispatch", "moe_ffn",
-    "moe_ffn_dropless", "parse_mesh_axes", "replicated_spec",
-    "ring_attention", "router_probs", "shard_params", "spec_for_path",
-    "ulysses_attention", "unmatched_param_paths", "validate_experts",
+    "moe_ffn_dropless", "parse_mesh_axes", "pipeline_apply",
+    "replicated_spec", "ring_attention", "router_probs", "shard_params",
+    "spec_for_path", "ulysses_attention", "unmatched_param_paths",
+    "validate_experts",
 ]

@@ -49,6 +49,10 @@ from mmlspark_tpu_torch.ops.attention import (
 from mmlspark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SEQUENCE_AXIS,
+    Gather as _Gather,
+    MeshAxis as _Axis,
+    Scatter as _Scatter,
+    batch_split_axis,
     mesh_shape,
 )
 
@@ -72,63 +76,12 @@ def _ring_window_steps(n: int, chunk: int, window: int | None,
 # -- placement: the rank's shard of a replicated global tensor ---------------
 
 
-class _Axis:
-    """The calling rank's place along one mesh axis: its process group,
-    the group's global ranks in axis order, its index and the size."""
-
-    def __init__(self, mesh, axis: str):
-        import torch.distributed as dist
-
-        self.group = mesh.get_group(axis)
-        self.ranks = dist.get_process_group_ranks(self.group)
-        self.index = mesh.get_local_rank(axis)
-        self.size = len(self.ranks)
-
-    def peer(self, hops: int) -> int:
-        return self.ranks[(self.index + hops) % self.size]
-
-
-def _all_gather(x: torch.Tensor, dim: int, axis: _Axis) -> torch.Tensor:
-    import torch.distributed as dist
-
-    parts = [torch.empty_like(x) for _ in range(axis.size)]
-    dist.all_gather(parts, x.contiguous(), group=axis.group)
-    return torch.cat(parts, dim=dim)
-
-
-class _Scatter(torch.autograd.Function):
-    """A replicated tensor -> this rank's chunk along ``dim``; the
-    backward gathers every rank's chunk of the gradient back."""
-
-    @staticmethod
-    def forward(ctx, x, dim, axis):
-        ctx.dim, ctx.axis = dim, axis
-        return x.chunk(axis.size, dim=dim)[axis.index].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.axis), None, None
-
-
-class _Gather(torch.autograd.Function):
-    """Every rank's chunk along ``dim`` -> the replicated tensor; the
-    backward keeps this rank's chunk of the (replicated) gradient."""
-
-    @staticmethod
-    def forward(ctx, x, dim, axis):
-        ctx.dim, ctx.axis = dim, axis
-        return _all_gather(x, dim, axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g.chunk(ctx.axis.size, dim=ctx.dim)[ctx.axis.index]
-                .contiguous(), None, None)
-
-
 def _place(mesh, axis: str, batch_axis: str, batch: int):
     """The rank's (dim, axis) splits: the batch over ``batch_axis`` when
     the mesh has it and it divides the batch (dp × sp), else replicated
-    within the map as in the JAX package; the sequence over ``axis``."""
+    within the map as in the JAX package (and never inside
+    :func:`~mmlspark_tpu_torch.parallel.mesh.local_batch`, where the batch
+    is the rank's data shard already); the sequence over ``axis``."""
     if mesh.get_coordinate() is None:
         import torch.distributed as dist
 
@@ -136,8 +89,7 @@ def _place(mesh, axis: str, batch_axis: str, batch: int):
             f"rank {dist.get_rank()} is not in the mesh {mesh_shape(mesh)}"
         )
     splits = []
-    shape = mesh_shape(mesh)
-    if batch_axis in shape and batch % shape[batch_axis] == 0:
+    if batch_split_axis(mesh, batch_axis, batch) is not None:
         splits.append((0, _Axis(mesh, batch_axis)))
     seq = _Axis(mesh, axis)
     splits.append((1, seq))

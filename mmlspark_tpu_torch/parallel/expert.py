@@ -1,5 +1,5 @@
-"""Top-1 switch routing for a mixture-of-experts FFN on one device — the
-single-device half of ``mmlspark_tpu/parallel/expert.py``.
+"""Top-1 switch routing for a mixture-of-experts FFN — the port of
+``mmlspark_tpu/parallel/expert.py``.
 
 The expert FFN weights are stacked on a leading dim of ``n_experts``.
 Tokens route top-1 over a float32 softmax router with capacity-bounded
@@ -20,8 +20,21 @@ the dispatch and combine products in f32, the expert products in the
 compute dtype. No Pallas kernel stands behind MoE in the JAX package;
 the products are ``torch.einsum`` here as they are XLA's there.
 
-Not here: ``EXPERT_RULES`` and the check of ``n_experts`` against a
-mesh's ``expert`` axis (ROADMAP.md Queue 1 item 13, ``EXPERT_RULES``).
+Expert parallelism is a parameter layout: :data:`EXPERT_RULES` places the
+stacked expert dim on the ``expert`` mesh axis, and the trainer's mesh
+mode (``train/trainer.py``) stores each rank's experts and gathers the
+stack for the step, so the routing above runs unchanged on every rank.
+:func:`validate_experts` checks ``n_experts`` against that axis.
+
+Inside the mesh step each ``data`` rank holds a contiguous block of the
+global batch's tokens, and the routing is the global batch's, as the JAX
+package's sharded arrays compute it: where the global groups lie whole
+within the ranks' blocks (the group size divides a rank's token count)
+each rank routes its own groups; otherwise the ranks' tokens are
+gathered and every rank routes the global groups and keeps its rows.
+Either way the aux loss a rank returns is its share of the global one
+(the sum of the per-group losses it computed over the global group
+count), so the shares summed over ``data`` are the global mean.
 """
 
 from __future__ import annotations
@@ -30,6 +43,19 @@ import torch
 import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.exceptions import ParamError
+from mmlspark_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    Gather,
+    SumGrads,
+    batch_stats_axis,
+    mesh_shape,
+)
+
+#: param-sharding rules placing the stacked expert dim on the ``expert``
+#: mesh axis (leading dim of every leaf under an ``experts`` module)
+EXPERT_RULES: list[tuple[str, tuple]] = [
+    (r"/experts/", (EXPERT_AXIS,)),
+]
 
 
 def _one_hot(idx, n: int):
@@ -92,8 +118,38 @@ def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
     a multiple with masked tokens, so a prime token count keeps full
     groups), with ``capacity = max(int(capacity_factor * S / E), 1)``
     per group and expert — Python ints from static shapes. Returns
-    ``(out, aux)``; ``out`` in ``x``'s dtype.
+    ``(out, aux)``; ``out`` in ``x``'s dtype. Inside the mesh trainer's
+    step the groups are the global batch's, and ``aux`` is this ``data``
+    rank's share of the global loss (see the module docstring).
     """
+    data = batch_stats_axis()
+    if data is None:
+        out, aux = _moe_groups(x, gate_w, w_in, b_in, w_out, b_out,
+                               capacity_factor, mask, group_size)
+        return out, aux.mean()
+    n_local = x.shape[0] * x.shape[1]
+    if n_local % min(group_size, n_local * data.size) == 0:
+        # the global groups lie whole within the ranks' blocks (and no
+        # padding group exists): route this rank's own; every rank holds
+        # as many groups, so the global count is theirs times the width
+        out, aux = _moe_groups(x, gate_w, w_in, b_in, w_out, b_out,
+                               capacity_factor, mask, group_size)
+        return out, aux.sum() / (aux.numel() * data.size)
+    # groups straddle the ranks' blocks: route the gathered global batch
+    # (every rank computes every group; the gradient of each rank's rows
+    # is summed over the ranks that used them) and keep this rank's rows
+    b = x.shape[0]
+    xs = SumGrads.apply((data,), Gather.apply(x, 0, data))[0]
+    ms = None if mask is None else Gather.apply(mask, 0, data)
+    out, aux = _moe_groups(xs, gate_w, w_in, b_in, w_out, b_out,
+                           capacity_factor, ms, group_size)
+    return out[data.index * b:(data.index + 1) * b], aux.mean() / data.size
+
+
+def _moe_groups(x, gate_w, w_in, b_in, w_out, b_out, capacity_factor,
+                mask, group_size):
+    """:func:`moe_ffn` over the tokens of ``x``: the output and the
+    per-group aux losses."""
     b, t, d = x.shape
     e = w_in.shape[0]
     n = b * t
@@ -110,7 +166,6 @@ def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
     probs = router_probs(flat, gate_w).reshape(g, s, e)
     dispatch, combine, aux = moe_dispatch(probs, capacity,
                                           tok_mask.reshape(g, s))
-    aux = aux.mean()
     grouped = flat.reshape(g, s, d)
     dt = x.dtype
     buf = torch.einsum("gsec,gsd->gecd", dispatch,
@@ -145,13 +200,16 @@ def moe_ffn_dropless(x, gate_w, w_in, b_in, w_out, b_out):
 
 
 def validate_experts(n_experts: int, mesh=None) -> None:
-    """At least two experts; a mesh (and so its ``expert`` axis) is not
-    ported yet (ROADMAP.md Queue 1 item 13,
-    ``EXPERT_RULES``)."""
+    """At least two experts, and as many as split evenly over the mesh's
+    ``expert`` axis (a :func:`~mmlspark_tpu_torch.parallel.mesh.make_mesh`
+    DeviceMesh) when it has one."""
     if n_experts < 2:
         raise ParamError(f"need >= 2 experts, got {n_experts}")
-    if mesh is not None:
+    if mesh is None:
+        return
+    shape = mesh_shape(mesh)
+    if EXPERT_AXIS in shape and n_experts % shape[EXPERT_AXIS]:
         raise ParamError(
-            "the expert mesh axis is not ported yet (ROADMAP.md Queue 1 "
-            "item 13, EXPERT_RULES); build without mesh"
+            f"n_experts {n_experts} not divisible by mesh axis "
+            f"'{EXPERT_AXIS}' ({shape[EXPERT_AXIS]})"
         )

@@ -13,14 +13,24 @@ JAX's ``shard_map`` and ``pcast_varying`` have no counterpart here: in
 torch every rank already runs the body on its own shard, and nothing
 types values as varying across ranks. :func:`axis_size` reads an axis
 off the mesh instead of a ``shard_map`` frame.
+
+The parallel functions take the JAX package's GLOBAL view: every rank
+passes the same global tensors and gets the global result, each rank
+computing its part (:class:`Scatter` to its chunk, :class:`Gather` back).
+A data-parallel trainer hands its model the rank's shard of the batch
+instead; inside :func:`local_batch` the functions leave the batch dim as
+it is and split only their own axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
@@ -187,3 +197,157 @@ def initialize_distributed(
         init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
     )
+
+
+# -- a rank's place on an axis, and the differentiable moves between views ---
+
+#: set inside :func:`local_batch`: True, or the data axis to reduce batch
+#: statistics over
+_LOCAL_BATCH = contextvars.ContextVar("mmlspark_tpu_torch_local_batch",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def local_batch(data: "MeshAxis | None" = None):
+    """Within this block the batch dim of what the parallel functions
+    receive is the calling rank's data shard already (the mesh trainer's
+    step): they do not split it over ``data`` again. With ``data`` (the
+    rank's :class:`MeshAxis` on it), a train-mode BatchNorm reduces its
+    batch statistics over that axis: the global batch's."""
+    token = _LOCAL_BATCH.set(data if data is not None else True)
+    try:
+        yield
+    finally:
+        _LOCAL_BATCH.reset(token)
+
+
+def in_local_batch() -> bool:
+    """Whether the caller is inside :func:`local_batch`."""
+    return _LOCAL_BATCH.get() is not False
+
+
+def batch_stats_axis() -> "MeshAxis | None":
+    """The data axis of more than one rank that batch statistics reduce
+    over inside :func:`local_batch`, else None."""
+    axis = _LOCAL_BATCH.get()
+    if isinstance(axis, MeshAxis) and axis.size > 1:
+        return axis
+    return None
+
+
+def batch_split_axis(mesh, batch_axis: str | None, batch: int) -> str | None:
+    """The axis a parallel function splits a global batch of ``batch``
+    rows over: ``batch_axis`` when the mesh has it and it divides the
+    batch (the JAX package's dp x sp / dp x pp rule), else None — and
+    always None inside :func:`local_batch`."""
+    if batch_axis is None or in_local_batch():
+        return None
+    shape = mesh_shape(mesh)
+    if batch_axis in shape and batch % shape[batch_axis] == 0:
+        return batch_axis
+    return None
+
+
+class MeshAxis:
+    """The calling rank's place along one mesh axis: its process group,
+    the group's global ranks in axis order, its index and the size."""
+
+    def __init__(self, mesh, axis: str):
+        import torch.distributed as dist
+
+        self.name = axis
+        self.group = mesh.get_group(axis)
+        self.ranks = dist.get_process_group_ranks(self.group)
+        self.index = mesh.get_local_rank(axis)
+        self.size = len(self.ranks)
+
+    def peer(self, hops: int) -> int:
+        return self.ranks[(self.index + hops) % self.size]
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in axis
+    order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce_sum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum of every rank's ``x`` along ``axis`` (a new tensor)."""
+    import torch.distributed as dist
+
+    out = x.detach().clone()
+    dist.all_reduce(out, group=axis.group)
+    return out
+
+
+class Scatter(torch.autograd.Function):
+    """A replicated tensor -> this rank's chunk along ``dim``; the
+    backward gathers every rank's chunk of the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return x.chunk(axis.size, dim=dim)[axis.index].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.dim, ctx.axis), None, None
+
+
+class Gather(torch.autograd.Function):
+    """Every rank's chunk along ``dim`` -> the replicated tensor; the
+    backward keeps this rank's chunk of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather_cat(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.axis.size, dim=ctx.dim)[ctx.axis.index]
+                .contiguous(), None, None)
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum over ``axis`` of a per-rank partial (every rank's loss
+    depends on the sum, so the backward sums the ranks' gradients too)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.axis), None
+
+
+class SumGrads(torch.autograd.Function):
+    """Tensors every rank holds whole while each rank works on its own
+    part of the data: the forward is the identity, the backward sums
+    every gradient over ``axes`` (one flat bucket, one all-reduce an
+    axis) — the transpose of the JAX package's replicated ``shard_map``
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, axes, *leaves):
+        ctx.axes = axes
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for axis in ctx.axes:
+            dist.all_reduce(flat, group=axis.group)
+        out, off = [], 0
+        for g in grads:
+            out.append(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return (None, *out)

@@ -16,9 +16,10 @@ axes, exactly as the JAX package does, then carried to the port's axes.
 
 A resolved spec becomes DTensor placements (:class:`NamedSharding`'s
 ``placements``) and :func:`shard_params` places each leaf with
-``distribute_tensor``. Running a forward on sharded parameters belongs to
-the trainer's and the engine's mesh modes (the rest of ROADMAP.md Queue
-1 item 13).
+``distribute_tensor``. The trainer's mesh mode stores each rank's part of
+a sharded leaf by these layouts and gathers the whole for its step
+(``train/distributed.py``); the engine's waits for ROADMAP.md Queue 1
+item 13e.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ one flow-arrow-stitched ``trace.json`` and one labeled exposition — plus
 ``supervisor.events.jsonl``, the control plane's own timeline, for the
 replica planes. ``metrics_port`` serves the same hub live on 127.0.0.1
 while the demo runs. ``mesh`` waits for the engine's mesh mode
-(ROADMAP.md Queue 1 item 13, the mesh modes).
+(ROADMAP.md Queue 1 item 13e).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
 
     if mesh is not None:
         raise FriendlyError(f"mesh={mesh!r}: the engine's mesh mode "
-                            "(ROADMAP.md Queue 1 item 13, the mesh modes) "
+                            "(ROADMAP.md Queue 1 item 13e) "
                             "is not ported yet")
     dev = default_device(device)
     injector = parse_fault_spec(faults) if faults else None

@@ -158,7 +158,7 @@ stream unchanged either way.
 Decode is greedy — the same tokens as ``generate()`` per request, which
 is the engine's correctness contract (int8 pools and int8 weights:
 within a token-flip budget of the bf16 streams). Not in this slice:
-the mesh mode (the rest of ROADMAP.md Queue 1 item 13).
+the mesh mode (ROADMAP.md Queue 1 item 13e).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ dispatch interval to it, with no new host sync. ``attach_slo`` feeds an
 
 The port serves on one device: ``mesh_shape`` is ``{}`` and
 ``mesh_devices`` 1 (the engine's mesh mode is ROADMAP.md Queue 1 item
-13, the mesh modes). Tick-count
+13e). Tick-count
 figures (TTFT in ticks, queue depth) are deterministic given the arrival
 schedule; wall-clock figures (TTFT ms, per-token ms, tokens/sec, MFU)
 describe the host and device together and are only meaningful from a

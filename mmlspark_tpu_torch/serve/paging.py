@@ -57,7 +57,7 @@ ONE device page table serves every block (each block's entry holds the
 same tensor), and a copy-on-extend is ``pk[dst].copy_(pk[src])``.
 
 Not ported: mesh shards (one data shard here; ROADMAP.md Queue 1 item
-13).
+13e, the engine's mesh mode).
 """
 
 from __future__ import annotations

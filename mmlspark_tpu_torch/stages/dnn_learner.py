@@ -66,9 +66,9 @@ class DNNLearner(Estimator, HasFeaturesCol, HasLabelCol):
         "recompute forward in backward (activation-memory saver)", False,
         ptype=bool,
     )
-    mesh_axes = Param("mesh axis name -> size; None = one device "
-                      "(the trainer's mesh mode waits for ROADMAP.md "
-                      "Queue 1 item 13, the mesh modes)")
+    mesh_axes = Param("mesh axis name -> size over the ranks of an "
+                      "initialised process group (the trainer's mesh "
+                      "mode); None = one device")
     checkpoint_dir = Param("the port's .npy checkpoint directory "
                            "(None = off)")
     checkpoint_every = Param("checkpoint every N steps (0 = end only)", 0,

@@ -41,10 +41,11 @@ copy, so half the bytes cross; integer (token) rows are left alone. A
 bf16 output (a cut at a bf16 node) comes back as float32 holding the same
 values, where the JAX package returns an ``ml_dtypes`` bfloat16 array.
 
-``data_parallel`` is accepted for the JAX package's param table and is a
-no-op on one device, as it is there; sharding the batch over several
-cards waits for ``TPUModel(data_parallel)`` (ROADMAP.md Queue 1 item 13,
-the mesh modes).
+``data_parallel`` inside an initialised process group of more than one
+rank (NCCL, one card a rank; gloo on the CPU) splits the rows: every
+rank scores its contiguous block of them and the scores are gathered in
+row order, so every rank returns the whole column. On one device it is a
+no-op, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -103,9 +104,9 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         "output node name or index; None = full net (CNTK 'z' convention)"
     )
     data_parallel = Param(
-        "shard batches over all visible devices; a no-op on one device "
-        "(several cards wait for ROADMAP.md Queue 1 item 13, the mesh "
-        "modes)", True,
+        "shard the rows over the ranks of an initialised process group "
+        "(each scores its contiguous block; the scores are gathered in "
+        "order); a no-op on one device", True,
         ptype=bool,
     )
     feed_depth = Param(
@@ -260,10 +261,23 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         # blocks that learn their input width from the first input (the
         # MLP family, as a flax Dense does) take it from the rows
         self.graph().size_input(ds[self.input_col].shape[1:])
+        ranks = _data_parallel_ranks() if self.data_parallel else None
+        if ranks is not None:
+            rank, world = ranks
+            per = -(-ds.num_rows // world)
+            ds = ds.gather(np.arange(rank * per,
+                                   min((rank + 1) * per, ds.num_rows)))
         batches = ((torch.from_numpy(b[self.input_col]), b[MASK_COL])
                    for b in batch_iterator(ds, [self.input_col],
                                            self.batch_size))
-        return dataset.with_column(self.output_col, self.score(batches, dev))
+        scores = self.score(batches, dev)
+        if ranks is not None:
+            import torch.distributed as dist
+
+            parts = [None] * ranks[1]
+            dist.all_gather_object(parts, scores)
+            scores = np.concatenate([p for p in parts if len(p)], axis=0)
+        return dataset.with_column(self.output_col, scores)
 
     def score(self, batches, dev: torch.device) -> np.ndarray:
         """The outputs of the net over ``batches`` — ``(x, mask)`` pairs of
@@ -318,3 +332,14 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
             if outs
             else np.zeros((0,), dtype=np.float32)
         )
+
+
+def _data_parallel_ranks():
+    """``(rank, world size)`` of an initialised process group of more
+    than one rank, else None (one device: nothing to split)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return None
+    return dist.get_rank(), dist.get_world_size()

@@ -16,6 +16,10 @@ row, which drives the grad-anomaly quarantine. With ``telemetry_dir`` the
 flight recorder's timeline lands in ``events.jsonl``, the metrics dict in
 ``metrics.json`` and the registry's Prometheus text exposition in
 ``metrics.prom`` — the JAX demo's bundle, each file written atomically.
+
+``mesh`` (``"data=2,model=2"``) trains over the trainer's mesh mode:
+every rank of an initialised process group calls the demo, and a rank
+the mesh leaves out returns the metrics of a run with no steps.
 """
 
 from __future__ import annotations
@@ -24,8 +28,6 @@ import os
 import tempfile
 
 import numpy as np
-
-from mmlspark_tpu_torch.core.exceptions import ParamError
 
 
 def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
@@ -53,11 +55,8 @@ def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
     from mmlspark_tpu_torch.train.resilience import AtomicCheckpointStore
     from mmlspark_tpu_torch.train.trainer import SPMDTrainer, TrainConfig
 
-    if mesh is not None:
-        raise ParamError(
-            f"mesh={mesh!r}: the trainer's mesh mode is not ported yet "
-            "(ROADMAP.md Queue 1 item 13, the mesh modes); the "
-            "demo trains on one device")
+    from mmlspark_tpu_torch.parallel.mesh import parse_mesh_axes
+
     dev = default_device(device)
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_samples, features)).astype(np.float32)
@@ -68,10 +67,11 @@ def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
 
     # the kill-restart drill needs somewhere durable to resume from even
     # when the caller did not ask to keep checkpoints
-    ckpt_dir = checkpoint_dir or tempfile.mkdtemp(prefix="mmltpu-train-ck-")
+    ckpt_dir = checkpoint_dir or _shared_tempdir(mesh)
     cfg = TrainConfig(
         epochs=epochs, batch_size=batch_size, learning_rate=1e-2,
         seed=seed, log_every=log_every, shuffle=False,
+        mesh_axes=parse_mesh_axes(mesh) if mesh else None,
         checkpoint_dir=ckpt_dir, checkpoint_every=checkpoint_every,
         anomaly_limit=anomaly_limit, max_grad_norm=max_grad_norm,
         retry_backoff_s=0.0, audit_every=audit_every,
@@ -137,3 +137,18 @@ def run_train_demo(*, epochs: int = 2, batch_size: int = 32,
         atomic_write_text(os.path.join(telemetry_dir, "metrics.prom"),
                           registry.to_prometheus())
     return out
+
+
+def _shared_tempdir(mesh: str | None) -> str:
+    """A fresh checkpoint directory; over a mesh rank 0 makes it and every
+    rank takes its path (rank 0 writes, every rank restores)."""
+    import torch.distributed as dist
+
+    if not (mesh and dist.is_available() and dist.is_initialized()):
+        # without a group the trainer's make_mesh says what is missing
+        return tempfile.mkdtemp(prefix="mmltpu-train-ck-")
+
+    box = [tempfile.mkdtemp(prefix="mmltpu-train-ck-")
+           if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -28,7 +28,8 @@ their sum to the loss (JAX's ``_sown_aux_loss``), inside the captured
 step, and never carries them into the state, its checkpoints or the
 returned variables. Under gradient accumulation the aux loss is each
 micro-batch's, weighted with its loss (the JAX package's documented
-non-equivalence).
+non-equivalence). In the mesh step a sown loss is the rank's share of
+the global one: the shares sum over ``data`` with the loss.
 
 The quarantine's streak and total stay on the device; the host reads
 them at the ``log_every`` cadence, when it already syncs for the loss,
@@ -90,13 +91,17 @@ The update and the quarantine's select are one pass
 (``ops/fused_optim.py``): one multi-tensor CUDA launch on the card, the
 plain tensor updates on the CPU.
 
-Ported here for one device; left out, each a ``ParamError`` naming its
-ROADMAP item when asked for: meshes and tensor parallelism (``mesh_axes``
-wider than one device, ``param_rules``; item 13, the mesh
-modes), and with them the
-cross-replica vote of the audit and elastic resume at another data width.
-Checkpoints are the port's own ``.npy`` payloads and do not cross to the
-JAX package's orbax ones.
+The mesh mode (``mesh_axes`` other than None or ``{"data": 1}``, or
+``{"data": 1}`` inside an initialised process group) runs the same step
+on every rank of a :func:`~mmlspark_tpu_torch.parallel.mesh.make_mesh`
+mesh: data parallelism over ``data`` with the loss normalised by the
+global mask count and the gradients summed in one flat bucket,
+``param_rules`` as a sharded storage layout gathered for the step,
+whole-tensor checkpoints (rank 0 writes; elastic resume at another data
+width) and the audit's cross-replica vote (``train/distributed.py``).
+``mesh_axes=None`` is one device, group or not. Checkpoints are the
+port's own ``.npy`` payloads and do not cross to the JAX package's orbax
+ones.
 """
 
 from __future__ import annotations
@@ -133,7 +138,9 @@ from mmlspark_tpu_torch.models import bridge
 from mmlspark_tpu_torch.models.graph import LOSSES
 from mmlspark_tpu_torch.ops.fused_optim import moment_names, optimizer_update
 from mmlspark_tpu_torch.ops.tree_checksum import FoldPlan, as_uint32, tree_fold
+from mmlspark_tpu_torch.parallel.mesh import local_batch
 from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
+from mmlspark_tpu_torch.train.distributed import MeshRun, wants_mesh
 from mmlspark_tpu_torch.train.resilience import (
     AtomicCheckpointStore,
     next_accum_rung,
@@ -204,21 +211,6 @@ class TrainConfig:
     # integrity audit cadence in steps; 0 = no audit, and no fold in the
     # step program at all
     audit_every: int = 0
-
-
-def _check_ported(cfg: TrainConfig) -> None:
-    """Refuse the fields whose machinery this port has not brought over."""
-    if cfg.param_rules is not None:
-        raise ParamError(
-            "param_rules: the trainer's tensor parallelism is not ported "
-            "yet (ROADMAP.md Queue 1 item 13, the mesh modes)"
-        )
-    if cfg.mesh_axes not in (None, {"data": 1}):
-        raise ParamError(
-            f"mesh_axes={cfg.mesh_axes}: the trainer's mesh mode is not "
-            "ported yet (ROADMAP.md Queue 1 item 13, the mesh modes); the "
-            "trainer runs on one device"
-        )
 
 
 # -- the learning-rate schedules and optimizers, as optax computes them --------
@@ -296,6 +288,14 @@ def masked_loss(kind: str, logits, labels, mask):
     """Mask-weighted mean loss; the mask marks real (non-padding) rows.
     (B, T, C) logits are a sequence model's: the loss is per token and
     the row mask spans T."""
+    total, w = masked_loss_terms(kind, logits, labels, mask)
+    return total / torch.clamp(torch.sum(w), min=1.0)
+
+
+def masked_loss_terms(kind: str, logits, labels, mask):
+    """The masked loss's numerator (the weighted sum of per-token losses)
+    and its weights ((B,) or (B, T)): the mesh trainer divides the sum by
+    the weights' count over every data rank."""
     w = mask.float()
     if logits.ndim == 3:
         w = w[:, None] * torch.ones(logits.shape[:2], device=logits.device)
@@ -311,14 +311,16 @@ def masked_loss(kind: str, logits, labels, mask):
         per = torch.square(pred.float() - labels.float())
     else:
         raise ParamError(f"unknown loss '{kind}'")
-    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(per * w), w
 
 
 
 
 class SPMDTrainer:
     """Train a :class:`~mmlspark_tpu_torch.models.graph.NamedGraph` on one
-    device (``cuda`` unless ``device="cpu"``).
+    device (``cuda`` unless ``device="cpu"``), or on every rank of a mesh
+    (``config.mesh_axes``; ``train()`` returns None on a rank the mesh
+    leaves out).
 
     ``telemetry`` records the ``train.step_ms``, ``train.tokens_per_sec``,
     ``train.loss`` and ``train.grad_norm`` histograms at the log cadence
@@ -334,7 +336,6 @@ class SPMDTrainer:
                  telemetry: MetricRegistry | None = None,
                  recorder: FlightRecorder | None = None,
                  faults: FaultInjector | None = None, *, device=None):
-        _check_ported(config)
         self.graph = graph
         self.config = config
         self.device = default_device(device)
@@ -435,15 +436,25 @@ class SPMDTrainer:
         n = len(x)
         if n == 0:
             raise FriendlyError("empty training set")
+        mrun = MeshRun(cfg, dev) if wants_mesh(cfg) else None
+        if mrun is not None and not mrun.in_mesh:
+            # a rank the mesh does not use has made the groups with the
+            # others and takes no part in the run
+            _log.info("this rank is not in the mesh %s: nothing to train",
+                      mrun.shape)
+            return None
+        n_data = mrun.n_data if mrun is not None else 1
         batch = cfg.batch_size
+        if batch % n_data:
+            batch += n_data - batch % n_data
         steps_per_epoch = -(-n // batch)
         opt = _Optimizer(cfg, steps_per_epoch * cfg.epochs)
         accum = max(int(cfg.grad_accum), 1)
-        if accum > 1 and batch % accum:
+        if accum > 1 and batch % (accum * n_data):
             raise FriendlyError(
                 f"grad_accum={accum} needs the (data-axis rounded) batch "
                 f"size {batch} divisible by accum x data-axis size "
-                f"({accum})"
+                f"({accum * n_data})"
             )
 
         self.graph.size_input(np.shape(x)[1:])
@@ -455,9 +466,17 @@ class SPMDTrainer:
             b: {k: t.detach().to(dev, copy=True) for k, t in block.items()}
             for b, block in init_variables.items()
         }
+        stat_keys = {b: self.graph.stat_keys(b) for b in variables}
+        if mrun is not None:
+            # under param_rules a rank keeps only its part of each sharded
+            # weight (and of its optimizer state)
+            mrun.plan(self.graph, {b: {k: t for k, t in block.items()
+                                       if k not in stat_keys[b]}
+                                   for b, block in variables.items()})
+            variables = {b: {k: mrun.shard(b, k, t) for k, t in block.items()}
+                         for b, block in variables.items()}
         # the trained parameters and the rest (the blocks' statistics):
         # two views of variables' tensors
-        stat_keys = {b: self.graph.stat_keys(b) for b in variables}
         weights = {b: {k: t.requires_grad_(True) for k, t in block.items()
                        if k not in stat_keys[b]}
                    for b, block in variables.items()}
@@ -473,11 +492,14 @@ class SPMDTrainer:
         state_tensors = integrity.tree_leaves(state)
 
         store = self._ckpt_store()
-        step0 = self._resume(store, state, steps_per_epoch, batch)
+        step0 = self._resume(store, state, steps_per_epoch, batch, mrun)
         seen_anoms = int(anoms)
 
         def to_dev(a):
-            # no host sync: K steps a dispatch run back to back
+            # no host sync: K steps a dispatch run back to back; a mesh
+            # rank takes its block of the global batch's rows
+            if mrun is not None:
+                a = mrun.local_rows(a)
             return host_to_device(np.ascontiguousarray(a), dev)
 
         def loss_of(current, bx, by, bm):
@@ -506,6 +528,9 @@ class SPMDTrainer:
         eager_out: list = [None]
 
         def make_step(accum: int):
+            if mrun is not None:
+                return make_mesh_step(accum)
+
             def step(bx, by, bm, *flag):
                 for p in params:
                     p.grad = None
@@ -537,33 +562,104 @@ class SPMDTrainer:
                                    else p.grad / denom)
                              for p in params]
                     gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-                    bad = ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
-                    if cfg.max_grad_norm > 0.0:
-                        bad = bad | (gnorm > cfg.max_grad_norm)
-                    # made before the update, so that an allocation failure
-                    # leaves the state as it was
-                    new_streak = torch.where(bad, streak + 1,
-                                             torch.zeros_like(streak))
-                    bad_count = bad.int()
-                    new_rest = [(t, torch.where(bad, t, current[b][k]))
-                                for b, block in rest.items()
-                                for k, t in block.items()]
-                    # the update and the quarantine's select, in place
-                    opt.update(params, grads, opt_state, bad)
-                    streak.copy_(new_streak)
-                    anoms.add_(bad_count)
-                    for t, new in new_rest:
-                        t.copy_(new)
-                    if audit:
-                        tree_fold(fold_leaves, out=chk, flag=flag[0],
-                                  plan=plan)
-                out = (loss.detach(), gnorm)
-                if dev.type != "cuda" or \
-                        not torch.cuda.is_current_stream_capturing():
-                    eager_out[0] = out
-                return out
+                return finish(loss.detach(), grads, gnorm, current, flag)
 
             return step
+
+        def make_mesh_step(accum: int):
+            """The step over the mesh (``train/distributed.py``): this
+            rank's rows, the counts and then the gradients summed over
+            ``data``, the sharded weights gathered for the forward. At one
+            rank every collective is an identity and the arithmetic is the
+            one-device step's, in its order."""
+            keys = [(b, k) for b, block in weights.items() for k in block]
+
+            def terms(current, bx, by, bm):
+                """The rank's loss sum, its weights' tokens a row, the aux
+                loss (the rank's share of the global one: the MoE layer
+                routes the global batch's groups, ``parallel/expert.py``)
+                and the new statistics."""
+                with local_batch(mrun.data):
+                    out, updated = self.graph.apply(
+                        current, bx, train=True, mask=bm, remat=cfg.remat)
+                total, w = masked_loss_terms(cfg.loss, out, by, bm)
+                aux = None
+                if any(LOSSES in block for block in updated.values()):
+                    aux = cfg.moe_aux_weight * sown_aux_loss(updated)
+                return total, w.numel() // w.shape[0], aux, updated
+
+            def step(bx, by, bm, *flag):
+                for p in params:
+                    p.grad = None
+                whole = mrun.gather(variables, stages=False)
+                if accum == 1:
+                    rows = mrun.sum_over_data(bm.float().sum())
+                    total, per_row, aux, current = terms(whole, bx, by, bm)
+                    loss = total / torch.clamp(rows * per_row, min=1.0)
+                    if aux is not None:
+                        loss = loss + aux
+                    loss.backward()
+                    lsum, denom = loss.detach(), None
+                else:
+                    # the one-device step's strided split and weighting,
+                    # every micro's row count summed over data up front
+                    rows = mrun.sum_over_data(torch.stack(
+                        [bm[i::accum].float().sum() for i in range(accum)]))
+                    lsum = csum = torch.zeros((), device=dev)
+                    current = whole
+                    for i in range(accum):
+                        mm = bm[i::accum]
+                        total, per_row, aux, current = terms(
+                            current, bx[i::accum], by[i::accum], mm)
+                        micro = total / torch.clamp(rows[i] * per_row,
+                                                    min=1.0)
+                        if aux is not None:
+                            micro = micro + aux
+                        weighted = micro * torch.clamp(rows[i], min=1.0)
+                        weighted.backward()
+                        lsum = lsum + weighted.detach()
+                        csum = csum + rows[i]
+                    denom = torch.clamp(csum, min=1.0)
+                with torch.no_grad():
+                    grads = [torch.zeros_like(p) if p.grad is None
+                             else p.grad for p in params]
+                    grads, (lsum,) = mrun.reduce_grads(grads, [lsum])
+                    loss = lsum
+                    if denom is not None:
+                        grads = [g / denom for g in grads]
+                        loss = lsum / denom
+                    gnorm = mrun.grad_norm(keys, grads)
+                return finish(loss, grads, gnorm, current, flag)
+
+            return step
+
+        def finish(loss, grads, gnorm, current, flag):
+            """The quarantine, the update and the audit's fold, in place."""
+            with torch.no_grad():
+                bad = ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
+                if cfg.max_grad_norm > 0.0:
+                    bad = bad | (gnorm > cfg.max_grad_norm)
+                # made before the update, so that an allocation failure
+                # leaves the state as it was
+                new_streak = torch.where(bad, streak + 1,
+                                         torch.zeros_like(streak))
+                bad_count = bad.int()
+                new_rest = [(t, torch.where(bad, t, current[b][k]))
+                            for b, block in rest.items()
+                            for k, t in block.items()]
+                # the update and the quarantine's select, in place
+                opt.update(params, grads, opt_state, bad)
+                streak.copy_(new_streak)
+                anoms.add_(bad_count)
+                for t, new in new_rest:
+                    t.copy_(new)
+                if audit:
+                    tree_fold(fold_leaves, out=chk, flag=flag[0], plan=plan)
+            out = (loss, gnorm)
+            if dev.type != "cuda" or \
+                    not torch.cuda.is_current_stream_capturing():
+                eager_out[0] = out
+            return out
 
         capture_s = [0.0]
 
@@ -582,13 +678,13 @@ class SPMDTrainer:
             """Walk one rung down the accumulation ladder and make its
             program; the state keeps its addresses."""
             nonlocal accum, program
-            nxt = next_accum_rung(accum, batch=batch, n_data=1)
+            nxt = next_accum_rung(accum, batch=batch, n_data=n_data)
             if nxt is None:
                 raise FriendlyError(
                     f"RESOURCE_EXHAUSTED at step {tick} with the "
                     f"gradient-accumulation ladder exhausted (grad_accum="
-                    f"{accum}, batch {batch} over 1 data shards) — reduce "
-                    "batch_size or model size"
+                    f"{accum}, batch {batch} over {n_data} data shards) — "
+                    "reduce batch_size or model size"
                 ) from cause
             accum = nxt
             self.telemetry.gauge("train.grad_accum").set(accum)
@@ -649,30 +745,53 @@ class SPMDTrainer:
             audit_buf.clear()
 
         def run_audit(at_step: int) -> None:
-            """Compare the in-graph fold with a host fold of the state. A
-            mismatch is replayed from the last clean state through the
-            same program: the replay reproducing either fold makes the
-            flip a one-off (``transient_sdc``), and the replayed state is
-            adopted; reproducing neither makes the step program
-            nondeterministic, and the current state stands."""
+            """Compare the in-graph fold with host folds of the state. On a
+            mesh without rules every rank holds a replica: the ranks' host
+            folds vote, and a divergent replica is re-replicated from the
+            lowest rank holding the majority. A mismatch is then replayed
+            from the last clean state through the same program: the replay
+            reproducing either fold makes the flip a one-off
+            (``transient_sdc``), and the replayed state is adopted unless
+            the vote already repaired it; reproducing neither makes the
+            step program nondeterministic, and the current state stands.
+            Under rules a rank's copy is a shard: no vote and no replay, as
+            in the JAX package."""
             self.telemetry.counter("train.integrity.audits").inc()
             chk_val = as_uint32(chk)
-            # one device holds the only copy: the "majority" is its fold
-            (majority,) = integrity.per_device_checksums(fold_tree).values()
-            if majority == chk_val:
+            voting = mrun is not None and not cfg.param_rules
+            if voting:
+                majority, divergent, chk_val, _ = mrun.vote(
+                    integrity.tree_checksum_host(fold_tree), chk_val)
+            else:
+                # one rank's copy: the "majority" is its own fold
+                (majority,) = integrity.per_device_checksums(
+                    fold_tree).values()
+                divergent = []
+            if not divergent and majority == chk_val:
                 refresh_base()
                 return
             self.telemetry.counter("train.integrity.sdc_suspected").inc()
             self.recorder.record(
                 "integrity.sdc_suspected", tick=at_step,
                 device_checksum=chk_val, majority_checksum=majority,
-                divergent_devices=[],
+                divergent_devices=divergent,
             )
             _log.warning(
-                "step %d: integrity audit mismatch (in-graph fold %d, host "
-                "fold %d) — silent data corruption suspected", at_step,
-                chk_val, majority)
-            if audit_buf:
+                "step %d: integrity audit mismatch (in-graph fold %d, "
+                "majority host fold %d, divergent replicas %s) — silent "
+                "data corruption suspected", at_step, chk_val, majority,
+                divergent)
+            if divergent:
+                src = min(r for r in range(len(mrun.ranks))
+                          if r not in divergent)
+                mrun.replicate_from(state_tensors, src)
+                self.recorder.record("integrity.replica_quarantined",
+                                     tick=at_step, devices=divergent,
+                                     source=src)
+                _log.warning("step %d: quarantined divergent replicas %s; "
+                             "re-replicated from rank %d", at_step,
+                             divergent, src)
+            if audit_buf and not cfg.param_rules:
                 current = snapshot()
                 load(audit_base)
                 for bx, by, bm in audit_buf:
@@ -692,17 +811,24 @@ class SPMDTrainer:
                     **{k: v for k, v in entry.items() if k != "step"})
                 _log.warning("step %d: replay adjudication -> %s", at_step,
                              verdict)
-                if verdict != "transient_sdc":
+                if verdict != "transient_sdc" or divergent:
                     load(current)  # the replayed state is not adopted
             refresh_base()
 
         def corrupt_drill(tick: int) -> None:
             """The ``train.step`` silent-corruption drill: a seeded bit-flip
             in one parameter AFTER the dispatch, so the in-graph fold
-            precedes it and the next audit's host fold sees it."""
+            precedes it and the next audit's host fold sees it. On a mesh
+            it lands in one rank's replica (none under rules, as in the
+            JAX package)."""
             seed = self._faults.corrupt_spec("train.step", tick=tick)
-            if seed is not None:
-                integrity.corrupt_replica(weights, seed)
+            if seed is None:
+                return
+            if mrun is not None:
+                if cfg.param_rules or mrun.corrupt_target(
+                        seed, len(params)) != mrun.rank:
+                    return
+            integrity.corrupt_replica(weights, seed)
 
         def pull_guard(b: dict, tick: int) -> dict:
             """The ``train.data`` hook: transients retried, ``poison``
@@ -731,7 +857,20 @@ class SPMDTrainer:
             meta = {"steps_per_epoch": steps_per_epoch,
                     "history": self.restored_history + self.history}
             try:
-                store.save(at_step, state, meta=meta)
+                if mrun is None:
+                    store.save(at_step, state, meta=meta)
+                else:
+                    # whole tensors, written by rank 0; the others fire
+                    # the drill hook with it and wait for the commit
+                    whole = mrun.whole_state(state)
+                    try:
+                        if mrun.is_root:
+                            store.save(at_step, whole, meta=meta)
+                        elif self._faults is not None:
+                            self._faults.fire("train.checkpoint",
+                                              tick=at_step)
+                    finally:
+                        mrun.barrier()
             except EngineKilled:
                 raise  # the torn-write crash drill escapes train()
             except Exception as e:
@@ -756,6 +895,8 @@ class SPMDTrainer:
         if audit:
             refresh_base()
         k_steps = max(int(cfg.steps_per_dispatch), 1)
+        if cfg.param_rules:
+            k_steps = 1  # one step a dispatch under rules, as in JAX
         log_every = max(cfg.log_every, 1)
         tokens_per_step = batch * (x.shape[1] if np.ndim(x) == 2 else 1)
         step = step0
@@ -819,7 +960,9 @@ class SPMDTrainer:
                         for s in range(step - len(group), step)):
                     save_checkpoint(step - 1)
             if eval_fn is not None:
-                metrics = eval_fn(_detached(variables))
+                metrics = eval_fn(_detached(
+                    variables if mrun is None
+                    else mrun.gather(variables, differentiable=False)))
                 self.history.append({"step": step, "epoch": epoch,
                                      **metrics})
         # the end-of-run sweep: a bad streak that never met the cadence
@@ -828,26 +971,69 @@ class SPMDTrainer:
             save_checkpoint(step - 1)
         self.telemetry.gauge("train.step_capture_s").set(
             capture_s[0] + program.capture_seconds)
+        if mrun is not None:
+            return _detached(mrun.gather(variables, differentiable=False))
         return _detached(variables)
 
     def _resume(self, store, state: dict, steps_per_epoch: int,
-                batch: int) -> int:
+                batch: int, mrun=None) -> int:
         """Restore the newest intact checkpoint into ``state``'s tensors
         (in place, before the first step); returns the first step to run.
         A corrupt checkpoint is counted, quarantined by the store, and the
-        one before it tried; with none intact the run starts cold."""
+        one before it tried; with none intact the run starts cold. On a
+        mesh rank 0 searches (its ``train.restore`` hooks fire), and every
+        rank then reads the step it found and keeps its part."""
         cfg = self.config
         if store is None or not cfg.resume:
             return 0
+        if mrun is None:
+            restored, meta, latest = self._find_checkpoint(store, state)
+        else:
+            target = mrun.whole_template(state)
+            found = None
+            if mrun.is_root:
+                found = self._find_checkpoint(store, target)[2]
+            latest = mrun.broadcast_object(found)
+            restored = meta = None
+            if latest is not None:
+                restored, meta, latest = store.restore(target, step=latest)
+        if restored is None:
+            return 0
+        if mrun is None:
+            with torch.no_grad():
+                for t, r in zip(integrity.tree_leaves(state),
+                                integrity.tree_leaves(restored)):
+                    t.copy_(r)
+        else:
+            mrun.load_whole(state, restored)
+        self.restored_history = list(meta.get("history", []))
+        spe = meta.get("steps_per_epoch")
+        n_data = mrun.n_data if mrun is not None else 1
+        if spe is not None and int(spe) != steps_per_epoch:
+            raise FriendlyError(
+                f"checkpoint at {cfg.checkpoint_dir!r} was taken with "
+                f"steps_per_epoch={spe} but this run computes "
+                f"{steps_per_epoch} (batch {batch} over {n_data} data "
+                "shards): elastic resume needs a batch_size divisible by "
+                "both the old and new data-axis widths so the "
+                "deterministic data order is unchanged"
+            )
+        total = int(state["anomaly"]["total"])
+        self.recorder.record("restore", tick=latest, anomalies_total=total)
+        _log.info("resumed from checkpoint step %d", latest)
+        return latest + 1
+
+    def _find_checkpoint(self, store, target: dict):
+        """``(state, meta, step)`` of the newest intact checkpoint, or
+        ``(None, None, None)``; each corrupt one is counted and
+        quarantined by the store."""
         latest = store.latest_step()
-        restored = meta = None
         while latest is not None:
             # the train.restore drill site: transient -> a retried read,
             # kill -> the restore itself crashed (escapes)
             self._fire_hook("train.restore", latest)
             try:
-                restored, meta, latest = store.restore(state)
-                break
+                return store.restore(target)
             except CheckpointCorruption as e:
                 self.telemetry.counter(
                     "train.integrity.checksum_failures").inc()
@@ -857,27 +1043,7 @@ class SPMDTrainer:
                     actual=e.actual)
                 _log.warning("%s", e)
                 latest = store.latest_step()
-        if restored is None:
-            return 0
-        with torch.no_grad():
-            for t, r in zip(integrity.tree_leaves(state),
-                            integrity.tree_leaves(restored)):
-                t.copy_(r)
-        self.restored_history = list(meta.get("history", []))
-        spe = meta.get("steps_per_epoch")
-        if spe is not None and int(spe) != steps_per_epoch:
-            raise FriendlyError(
-                f"checkpoint at {cfg.checkpoint_dir!r} was taken with "
-                f"steps_per_epoch={spe} but this run computes "
-                f"{steps_per_epoch} (batch {batch} over 1 data shards): "
-                "elastic resume needs a batch_size divisible by both the "
-                "old and new data-axis widths so the deterministic data "
-                "order is unchanged"
-            )
-        total = int(state["anomaly"]["total"])
-        self.recorder.record("restore", tick=latest, anomalies_total=total)
-        _log.info("resumed from checkpoint step %d", latest)
-        return latest + 1
+        return None, None, None
 
     def _log_step(self, at_step: int, epoch: int, loss, gnorm,
                   step_s: float, tokens_per_step: int) -> None:

@@ -2,7 +2,8 @@
 package's, mirroring ``tests/test_cli.py``. The commands run in-process
 through ``main(argv)`` (``tests/test_torch_entry.py`` runs the ``-m``
 entry in a fresh process), on the CPU with ``--cpu-mesh 1``: the port's
-commands run on the card otherwise.
+commands run on the card otherwise. ``--cpu-mesh N`` with N > 1 starts N
+gloo rank processes.
 """
 
 from __future__ import annotations
@@ -92,8 +93,11 @@ def test_env_on_cpu_mesh(capsys):
                     "num_processes": 1, "platform": "cpu",
                     "device_kind": "cpu", "host_os": info["host_os"]}
     assert info.keys() == jax_env.describe().keys()
-    with pytest.raises(FriendlyError, match="item 13"):
-        main(["--cpu-mesh", "4", "env"])
+    # N > 1: N gloo rank processes, rank 0's view printed (JAX's N
+    # virtual CPU devices of one process are N ranks here)
+    info = json.loads(_cli(capsys, "--cpu-mesh", "4", "env"))
+    assert info.keys() == jax_env.describe().keys()
+    assert (info["num_devices"], info["num_processes"]) == (4, 4)
     if not torch.cuda.is_available():
         # no card and no --cpu-mesh: no quiet fall back to the host
         with pytest.raises(FriendlyError, match="no CUDA device"):
@@ -178,7 +182,7 @@ def test_serve_json_matches_jax_keys(capsys, monkeypatch):
     assert got.keys() == want.keys() | PORT_ONLY_SERVE_KEYS
     assert got["completed"] == want["completed"] == 2
     assert got["tokens_generated"] == want["tokens_generated"] == 4
-    with pytest.raises(FriendlyError, match="item 13"):
+    with pytest.raises(FriendlyError, match="item 13e"):
         main(["--cpu-mesh", "1", "serve", "--mesh", "data=1"])
 
 
@@ -192,5 +196,8 @@ def test_train_json_matches_jax_keys(capsys, monkeypatch, tmp_path):
                                "--checkpoint-dir", str(tmp_path / "j"))
                       .splitlines()[-1])
     assert got.keys() == want.keys() | PORT_ONLY_TRAIN_KEYS
-    with pytest.raises(Exception, match="item 13"):
-        main(["--cpu-mesh", "1", "train", "--mesh", "data=1"])
+    # train --mesh over two gloo rank processes: the same keys, one line
+    meshed = _cli(capsys, "--cpu-mesh", "2", *args, "--mesh", "data=2",
+                  "--checkpoint-dir", str(tmp_path / "m")).splitlines()
+    assert len(meshed) == 1
+    assert json.loads(meshed[0]).keys() == got.keys()

@@ -2026,6 +2026,117 @@ def test_ring_at_one_rank_is_within_bf16_of_flash(cuda, seq_mesh):
             key
 
 
+def _mesh_lm_run(cuda, graph, weights, x, y, **cfg):
+    """Four adam steps through SPMDTrainer: the curve, the variables, the
+    step programs and the attention kernels' mma launches."""
+    from mmlspark_tpu_torch.train import SPMDTrainer, TrainConfig
+
+    trainer = SPMDTrainer(graph, TrainConfig(
+        epochs=1, batch_size=2, learning_rate=1e-3, log_every=1,
+        shuffle=False, **cfg), device=cuda)
+    counters = ("fwd_mma_launches", "bwd_kv_mma_launches",
+                "bwd_q_mma_launches")
+    torch.cuda.synchronize()
+    for name in counters:
+        setattr(fa, name, 0)
+    out = trainer.train(x, y, init_variables=weights)
+    torch.cuda.synchronize()
+    return ([h["loss"] for h in trainer.history], out,
+            trainer.telemetry.counter("retrace.train.step").value,
+            [getattr(fa, name) for name in counters])
+
+
+def test_mesh_step_at_one_rank_is_bit_equal_to_plain(cuda, seq_mesh):
+    """The trainer's mesh mode over a one-rank NCCL group under
+    TRANSFORMER_TP_RULES: every collective is an identity and the mesh
+    step keeps the plain step's arithmetic, so the curve and the final
+    parameters equal the plain trainer's bit for bit; the step is one
+    captured program with its collectives inside, and the flash kernels
+    run on the tensor cores once a layer a step."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import TRANSFORMER_TP_RULES
+
+    graph = build_model("transformer_lm", attn_impl="flash", **CP_LM)
+    weights = init_variables(graph, 3, device=cuda)
+    x = np.random.default_rng(3).integers(
+        0, CP_LM["vocab_size"], size=(8, 256)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    plain = _mesh_lm_run(cuda, graph, weights, x, y)
+    meshed = _mesh_lm_run(cuda, graph, weights, x, y,
+                          mesh_axes={"data": 1, "model": 1},
+                          param_rules=TRANSFORMER_TP_RULES)
+    assert meshed[0] == plain[0]
+    for b in plain[1]:
+        for k in plain[1][b]:
+            assert torch.equal(meshed[1][b][k], plain[1][b][k]), (b, k)
+    assert meshed[2] == 1
+    assert meshed[3] == [CP_LM["depth"] * 4] * 3
+
+
+def test_pipelined_lm_on_the_card(cuda, seq_mesh):
+    """The pipelined LM over a one-rank pipe axis: its forward within
+    bf16 of its own stage loop (a plain transformer_lm on the stages'
+    layers), and four steps under PIPELINE_STAGE_RULES on one repeated
+    batch lower its loss (random tokens of a new batch a step need not
+    fall in four steps)."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import PIPELINE_STAGE_RULES, make_mesh
+
+    config = dict(CP_LM, max_len=64)
+    mesh = make_mesh({"data": 1, "pipe": 1})
+    graph = build_model("transformer_lm_pipelined", mesh=mesh,
+                        n_microbatches=2, **config)
+    weights = init_variables(graph, 4, device=cuda)
+    x = np.tile(np.random.default_rng(4).integers(
+        0, config["vocab_size"], size=(2, 64)), (4, 1)).astype(np.int32)
+    got = graph.apply(weights, torch.from_numpy(x[:4]).to(cuda))
+    loop_vars = {"embed": weights["embed"], "z": weights["z"]}
+    for i in range(config["depth"]):
+        loop_vars[f"block{i}"] = {
+            k[len(f"layer{i}."):]: t[0] for k, t in weights["stages"].items()
+            if k.startswith(f"layer{i}.")}
+    loop = build_model("transformer_lm", attn_impl="dense", **config)
+    want = loop.apply(loop_vars, torch.from_numpy(x[:4]).to(cuda))
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-2 * scale
+    losses, _, programs, _ = _mesh_lm_run(
+        cuda, graph, weights, x, np.roll(x, -1, axis=1),
+        mesh_axes={"data": 1, "pipe": 1}, param_rules=PIPELINE_STAGE_RULES)
+    assert programs == 1 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+
+
+def test_seq_parallel_tagger_on_the_card(cuda, seq_mesh):
+    """The sequence-parallel BiLSTM over a one-rank seq axis (cuDNN's
+    LSTM, one direction a call) against the dense tagger (one
+    bidirectional call), and three mixed-axis SGD steps lowering the
+    loss."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import (
+        bilstm_seq_parallel_apply,
+        bilstm_seq_parallel_train_step,
+        make_mesh,
+    )
+
+    mesh = make_mesh({"data": 1, "seq": 1})
+    graph = build_model("bilstm_tagger", vocab_size=500, embed_dim=32,
+                        hidden=32, num_tags=5)
+    v = init_variables(graph, 5, device=cuda)
+    ids = np.random.default_rng(5).integers(0, 500, size=(16, 24)).astype(
+        np.int32)
+    par = bilstm_seq_parallel_apply(graph, v, ids, mesh)
+    dense = graph.apply(v, torch.from_numpy(ids).to(cuda))
+    assert (par - dense).abs().max().item() <= \
+        2 * 2.0 ** -7 * dense.abs().max().item()
+    losses = []
+    for _ in range(3):
+        loss, v = bilstm_seq_parallel_train_step(
+            graph, v, ids, (ids % 5).astype(np.int32), mesh,
+            learning_rate=0.5)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
 def test_cli_env_names_the_card(cuda):
     import json
 

@@ -15,6 +15,8 @@ Seeded numpy inputs go to both sides in float32. Tolerances:
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -205,8 +207,13 @@ def test_router_probs_and_validate_experts():
                                rtol=1e-6)
     with pytest.raises(ParamError, match="2 experts"):
         expert.validate_experts(1)
-    with pytest.raises(ParamError, match="item 13"):
-        expert.validate_experts(4, mesh=object())
+    # a mesh's expert axis must split the experts evenly (over a real
+    # DeviceMesh: tests/test_torch_trainer_mesh.py::test_validate_experts)
+    four = types.SimpleNamespace(mesh_dim_names=("data", "expert"),
+                                 shape=(2, 4))
+    with pytest.raises(ParamError, match="not divisible"):
+        expert.validate_experts(6, mesh=four)
+    expert.validate_experts(8, mesh=four)
     expert.validate_experts(8)
 
 

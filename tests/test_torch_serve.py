@@ -395,6 +395,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.parallel.mesh, "
         "mmlspark_tpu_torch.parallel.sharding, "
         "mmlspark_tpu_torch.parallel.context_parallel, "
+        "mmlspark_tpu_torch.parallel.pipeline, "
+        "mmlspark_tpu_torch.parallel.sequence_rnn, "
+        "mmlspark_tpu_torch.models.pipelined, "
+        "mmlspark_tpu_torch.train.distributed, "
         "mmlspark_tpu_torch.__main__, mmlspark_tpu_torch.entry, "
         "mmlspark_tpu_torch.testing.rank_pool\n"
         "from mmlspark_tpu_torch.models import build_model\n"
@@ -450,7 +454,9 @@ def test_port_sources_name_no_jax_import():
                  "stages/text.py", "stages/word2vec.py",
                  "parallel/mesh.py", "parallel/sharding.py",
                  "parallel/context_parallel.py", "__main__.py", "entry.py",
-                 "testing/rank_pool.py"):
+                 "testing/rank_pool.py", "parallel/pipeline.py",
+                 "parallel/sequence_rnn.py", "models/pipelined.py",
+                 "train/distributed.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):

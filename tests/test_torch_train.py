@@ -229,15 +229,18 @@ def test_bf16_training_tracks_jax(setup):
 def test_unported_fields_raise(setup):
     _, _, _, _, tg, _ = setup
     # checkpoint_dir and audit_every are ported: their positive tests are
-    # in test_torch_train_resilience.py
-    for kw, match in (
-        (dict(param_rules=[("qkv", (None, "model"))]), "item 13"),
-        (dict(mesh_axes={"data": 2}), "item 13"),
-    ):
-        with pytest.raises(ParamError, match=match):
-            SPMDTrainer(tg, TrainConfig(**kw), device="cpu")
-    # one device on the data axis is what the trainer runs
-    SPMDTrainer(tg, TrainConfig(mesh_axes={"data": 1}), device="cpu")
+    # in test_torch_train_resilience.py. The mesh mode is ported too
+    # (tests/test_torch_trainer_mesh*.py, over gloo ranks): a mesh wider
+    # than one device needs a process group, and make_mesh says so
+    with pytest.raises(FriendlyError, match="initialised process group"):
+        _port_run(setup, mesh_axes={"data": 2})
+    # one device on the data axis, and rules on one device, are the plain
+    # trainer: the same curve as without them
+    plain, _ = _port_run(setup, epochs=1)
+    for kw in (dict(mesh_axes={"data": 1}),
+               dict(param_rules=[("qkv", (None, "model"))])):
+        got, _ = _port_run(setup, epochs=1, **kw)
+        assert _curve(got).tolist() == _curve(plain).tolist()
     with pytest.raises(ParamError, match="unknown optimizer"):
         _port_run(setup, optimizer="lion")
     with pytest.raises(FriendlyError, match="grad_accum=3"):

@@ -39,7 +39,7 @@ import torch
 
 from mmlspark_tpu.models import build_model as jax_build_model
 from mmlspark_tpu.train.demo import run_train_demo as jax_run_train_demo
-from mmlspark_tpu_torch.core.exceptions import FriendlyError, ParamError
+from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.core.faults import (
     EngineKilled,
     Fault,
@@ -188,8 +188,10 @@ def test_checkpoint_dir_and_audit_every_are_accepted(tmp_path, data):
     assert tel["train.checkpoints"] == 4  # steps 0, 2, 4 and the end, 5
     assert tel["train.integrity.audits"] == 2
     assert tel["train.integrity.sdc_suspected"] == 0
-    with pytest.raises(ParamError, match="item 13"):
-        _trainer(_cfg(mesh_axes={"data": 2}))
+    # a mesh wider than one device needs a process group (the mesh mode's
+    # tests run over gloo ranks, tests/test_torch_trainer_mesh*.py)
+    with pytest.raises(FriendlyError, match="initialised process group"):
+        _trainer(_cfg(mesh_axes={"data": 2})).train(*data)
 
 
 # -- disabled / inert hooks change nothing ---------------------------------------
@@ -649,7 +651,9 @@ def test_run_train_demo_matches_jax(kw, tmp_path, monkeypatch):
 
 
 def test_demo_refuses_a_mesh_and_writes_telemetry(tmp_path):
-    with pytest.raises(ParamError, match="item 13"):
+    # a mesh needs a process group (the demo over ranks:
+    # tests/test_torch_trainer_mesh_resilience.py)
+    with pytest.raises(FriendlyError, match="initialised process group"):
         run_train_demo(device="cpu", mesh="data=2")
     out = run_train_demo(device="cpu", epochs=1, n_samples=64,
                          telemetry_dir=str(tmp_path / "tel"),
