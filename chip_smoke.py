@@ -345,7 +345,25 @@ Phases (each one fails the run with a non-zero exit on error):
    and the CPU's f32 forward, and 8 steps under
    ``PIPELINE_STAGE_RULES``; the sequence-parallel BiLSTM tagger on
    ``{"data": 1, "seq": 1}`` against the dense one and 4 SGD steps; and
-   ``python -m mmlspark_tpu_torch train --mesh data=1`` as a process;
+   ``python -m mmlspark_tpu_torch train --mesh data=1`` as a process.
+   Then, over the same group, the serving engine's mesh mode (the
+   ``mesh_serve`` line, ``check_mesh_serve``): ``ServeEngine(...,
+   mesh={"data": 1, "model": 1})`` at the serve model's full width — the
+   dense bf16 engine on the random schedule, the paged bf16 and paged
+   int8 engines with the prefix cache and the dense int8 engine on the
+   shared-header schedule — each a main path with the counts set to 0
+   just before it and read just after, then a warm pass. Gates: every
+   request completes; ``flash_decode`` and ``paged_flash_decode``, float
+   and int8, launched ``depth`` times a micro-step through the mesh
+   engines; every stream bit-equal to the one-device engine's on the
+   same schedule (at one rank every collective is an identity and the
+   split is the whole); programs within their pins, none new on the warm
+   pass, captured with their collectives inside; and ``python -m
+   mmlspark_tpu_torch serve --mesh data=1,model=1`` as a process.
+   Reported: capture seconds, collective calls, warm tokens/s and
+   per-token ms beside the one-device engine's. The multi-rank
+   arithmetic is held on the CPU over gloo
+   (``tests/test_torch_serve_mesh.py``);
 14. the launcher (the ``cli`` line): ``python -m mmlspark_tpu_torch
    serve --requests 8`` as a subprocess on the card (one JSON line, every
    request completed, the decode kernel launched in that process, read
@@ -6233,6 +6251,133 @@ def check_mesh_train() -> dict:
     return out
 
 
+#: the engine's mesh mode on the card: the one-rank NCCL group ``main``
+#: starts, as a (data, model) mesh
+MESH_SERVE = {"data": 1, "model": 1}
+
+
+def mesh_serve_run(label: str, graph, variables, prompts, counter: str,
+                   plain: dict, **kw) -> dict:
+    """One mesh engine's main path (``ServeEngine(..., mesh=MESH_SERVE)``,
+    the counts set to 0 just before and read just after, the Python-level
+    collective calls counted: the eager first call and the capture of
+    each program issue its collectives, replays issue them from the
+    graph), then a warm pass of the same schedule. Gates: every request
+    completes; the kernel of ``counter`` launched ``depth`` times a
+    micro-step; every stream bit-equal to ``plain``'s (the one-device
+    engine's run of the same schedule in an earlier phase: at one rank
+    every collective is an identity and the split is the whole); program
+    counts within their pins and none new on the warm pass; something
+    captured."""
+    import torch
+
+    from mmlspark_tpu_torch.testing import compile_guard
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(graph, variables, mesh=MESH_SERVE, **kw)
+    collectives, undo = count_collectives()
+    try:
+        run = drive(engine, prompts)
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() - base
+    check_run(label, run, counter)
+    differ = [rid for rid, res in plain["results"].items()
+              if not np.array_equal(res.tokens, run["results"][rid].tokens)]
+    if differ:
+        raise AssertionError(f"{label}: streams of requests {differ} differ "
+                             "from the one-device engine's")
+    programs = program_summary(engine, peak)
+    metrics = run["metrics"]
+    fresh_metrics(engine)
+    with compile_guard(lambda: engine.decode_compile_count, max_programs=0,
+                       label=f"{label} warm decode"), \
+            compile_guard(lambda: engine.prefill_compile_count,
+                          max_programs=0, label=f"{label} warm prefill"):
+        warm = drive(engine, prompts)
+    check_run(f"{label} warm", warm, counter)
+    over = [k for k, pin in (("decode_compile_count", "num_decode_blocks"),
+                             ("prefill_compile_count", "num_prefill_buckets"),
+                             ("resume_compile_count", "num_prefill_buckets"))
+            if programs[k] > programs[pin]]
+    if over or DEVICE == "cuda" and not (programs["capture_s"] > 0
+                                         and programs["graph_pool_bytes"] > 0):
+        raise AssertionError(f"{label}: programs {programs}")
+    out = {
+        "mesh_shape": metrics["mesh_shape"],
+        "mesh_devices": metrics["mesh_devices"],
+        "cache_pool_bytes_per_device":
+            metrics["cache_pool_bytes_per_device"],
+        "completed": metrics["completed"],
+        "streams_bit_equal_plain": True,
+        "launch_counts": run["counts"], "decode_micro_steps":
+            run["micro_steps"], "collective_calls": collectives,
+        "programs": programs,
+        "warm_tokens_per_sec": warm["metrics"]["tokens_per_sec"],
+        "plain_warm_tokens_per_sec":
+            plain["programs"]["warm_tokens_per_sec"],
+        "warm_per_token_ms": warm["metrics"]["per_token_ms"],
+        "plain_warm_per_token_ms": plain["programs"]["warm_per_token_ms"],
+        "first_pass_tokens_per_sec": metrics["tokens_per_sec"],
+    }
+    if "paging" in plain:
+        out["paging"] = engine.pool.paging_stats()
+        if out["paging"]["prefix_cache_hits_total"] < 1:
+            raise AssertionError(f"{label}: no prefix-cache hit")
+    log(f"{label}: {out}")
+    del engine
+    gc.collect()
+    return out
+
+
+def check_mesh_serve(graph, variables, dense: dict, header: dict,
+                     smi: str) -> dict:
+    """The engine's mesh mode over the one-rank NCCL group ``main``
+    starts, at the full width of the serve model: the dense bf16 engine
+    on the random schedule and the paged bf16 (prefix cache), dense int8
+    and paged int8 (prefix cache) engines on the shared-header schedule,
+    each bit-equal to its one-device twin of the engine phases
+    (:func:`mesh_serve_run`); then ``python -m mmlspark_tpu_torch serve
+    --mesh data=1,model=1`` as a process."""
+    import torch.distributed as dist
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"mesh_serve: the group is "
+                             f"{dist.get_backend()}, not NCCL")
+    paged = dict(paged=True, page_size=PAGE_SIZE,
+                 num_pages=paged_num_pages(), prefix_cache=True)
+    runs = {"dense bf16": mesh_serve_run(
+        "mesh dense bf16", graph, variables, random_schedule(), "launches",
+        dense)}
+    for label, kw, counter in (
+        ("header paged bf16", paged, "paged_launches"),
+        ("header dense int8", dict(kv_dtype="int8"), "q8_launches"),
+        ("header paged int8", dict(paged, kv_dtype="int8"),
+         "paged_q8_launches"),
+    ):
+        runs[label] = mesh_serve_run(f"mesh {label}", graph, variables,
+                                     header_schedule(), counter,
+                                     header[label], **kw)
+    cli, cli_s = run_cli(["-c", CLI_SERVE.replace(
+        '"--requests", "8"', '"--requests", "8", "--mesh", '
+        '"data=1,model=1"')])
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("{")]
+    metrics = json.loads(lines[-1]) if len(lines) == 1 else {}
+    counts = json.loads(cli.stderr.split("KERNEL_COUNTS ")[-1]
+                        .splitlines()[0])
+    if metrics.get("completed") != 8 or \
+            metrics.get("mesh_shape") != MESH_SERVE or counts["launches"] < 1:
+        raise AssertionError(f"mesh_serve cli: {len(lines)} JSON lines, "
+                             f"{metrics}, decode launches {counts}")
+    return {"mesh": MESH_SERVE, "device": smi, "engines": runs,
+            "cli_serve_mesh": {k: metrics[k] for k in (
+                "completed", "tokens_generated", "tokens_per_sec",
+                "mesh_shape", "mesh_devices", "stream_digest")}
+            | {"process_s": cli_s, "kernel_counts": counts}}
+
+
 #: the CLI's serve demo as a subprocess: ``python -m mmlspark_tpu_torch``
 #: run by runpy (what ``-m`` does) with an exit hook that reports the
 #: decode kernels' launch counters on stderr
@@ -6423,35 +6568,46 @@ def main() -> int:
         t1 = time.perf_counter()
         mesh_train = check_mesh_train()
         log(f"mesh_train phase took {time.perf_counter() - t1:.1f}s")
+        t1 = time.perf_counter()
+        mesh_serve = check_mesh_serve(graph, variables, dense, header, smi)
+        log(f"mesh_serve phase took {time.perf_counter() - t1:.1f}s")
     finally:
         dist.destroy_process_group()
     cli = check_cli()
     entry_run = check_entry()
-    log(f"context_parallel, mesh_train, cli and entry phases took "
+    log(f"context_parallel, mesh_train, mesh_serve, cli and entry phases "
+        f"took "
         f"{time.perf_counter() - t0:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
     # plus the MoE engines' (decode), the MoE training run's (attention),
-    # the fleet phase's (decode) and the multi-model phase's (decode: the
-    # facade's lm deployment and the model-routed replica set)
+    # the fleet phase's (decode), the multi-model phase's (decode: the
+    # facade's lm deployment and the model-routed replica set) and the
+    # mesh engines' (decode)
     moe_counts = {label: moe[label]["launch_counts"]
                   for label in ("moe dense bf16", "moe paged bf16")}
     fleet_counts = fleet_launches(fleet)
+    mesh_counts = {label: run["launch_counts"]
+                   for label, run in mesh_serve["engines"].items()}
     launches = {
         "launches": dense["counts"]["launches"]
         + moe_counts["moe dense bf16"]["launches"]
         + fleet_counts["launches"]
         + multimodel["launch_counts"]["launches"]
-        + multimodel["replicas"]["launch_counts"]["launches"],
+        + multimodel["replicas"]["launch_counts"]["launches"]
+        + mesh_counts["dense bf16"]["launches"],
         "q8_launches": header["header dense int8"]["counts"]["q8_launches"]
-        + fleet_counts["q8_launches"],
+        + fleet_counts["q8_launches"]
+        + mesh_counts["header dense int8"]["q8_launches"],
         "paged_launches":
             header["header paged bf16"]["counts"]["paged_launches"]
             + moe_counts["moe paged bf16"]["paged_launches"]
-            + fleet_counts["paged_launches"],
+            + fleet_counts["paged_launches"]
+            + mesh_counts["header paged bf16"]["paged_launches"],
         "paged_q8_launches":
             header["header paged int8"]["counts"]["paged_q8_launches"]
-            + fleet_counts["paged_q8_launches"],
+            + fleet_counts["paged_q8_launches"]
+            + mesh_counts["header paged int8"]["paged_q8_launches"],
     }
     # the attention kernels' launches: the training runs', the MoE
     # training run's and the Ulysses run's of the context-parallel phase
@@ -6505,6 +6661,7 @@ def main() -> int:
     print(json.dumps({"classical": classical}))
     print(json.dumps({"context_parallel": context_parallel}))
     print(json.dumps({"mesh_train": mesh_train}))
+    print(json.dumps({"mesh_serve": mesh_serve}))
     print(json.dumps({"cli": cli, "entry": entry_run}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

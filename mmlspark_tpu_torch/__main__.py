@@ -18,14 +18,15 @@ Everything runs on the card unless ``--cpu-mesh`` is given, which here
 means "on the CPU": ``--cpu-mesh 1`` runs the plain PyTorch path on the
 host. JAX makes N virtual CPU devices in one process; PyTorch has no
 such device, so ``--cpu-mesh N`` (N > 1) starts N gloo rank processes on
-the host for ``run``, ``train`` and ``env`` (each under a time limit of
-``RANK_TIMEOUT_S`` seconds), and rank 0's output is the command's;
-``train`` there trains over ``data=N`` unless ``--mesh`` says
-otherwise, as the JAX trainer spans every device.
-``train --mesh`` without ranks from a launcher starts a one-process group
-of its own (NCCL on the card, gloo on the CPU). ``serve --mesh`` waits
-for the engine's mesh mode (ROADMAP.md Queue 1 item 13e). Without a GPU
-and without ``--cpu-mesh`` the commands raise rather than run on the
+the host for ``run``, ``serve``, ``train`` and ``env`` (each under a
+time limit of ``RANK_TIMEOUT_S`` seconds), and rank 0's output is the
+command's; ``serve`` and ``train`` there run over ``data=N`` unless
+``--mesh`` says otherwise, as the JAX engine and trainer span every
+device. ``serve --mesh`` and ``train --mesh`` without ranks from a
+launcher start a one-process group of their own (NCCL on the card, gloo
+on the CPU); ``serve --mesh AXES`` runs the engine's mesh mode (slots
+over ``data``, the model split over ``model``). Without a GPU and
+without ``--cpu-mesh`` the commands raise rather than run on the
 host.
 
 Usage: ``python -m mmlspark_tpu_torch <cmd> ...`` or the
@@ -45,7 +46,7 @@ from mmlspark_tpu_torch.core.exceptions import FriendlyError
 #: set in the rank processes ``--cpu-mesh N`` starts
 _RANK_ENV = "MML_TPU_TORCH_CPU_RANK"
 #: the commands ``--cpu-mesh N`` runs on N ranks
-_RANK_COMMANDS = ("run", "train", "env")
+_RANK_COMMANDS = ("run", "serve", "train", "env")
 #: the time limit of every rank process ``--cpu-mesh N`` starts
 RANK_TIMEOUT_S = 900.0
 _JAX_SCRIPTS = ("ROADMAP.md Queue 1 item 20: bench, evidence and docgen "
@@ -183,37 +184,48 @@ def cmd_serve(args) -> int:
     device = _apply_backend(args)
     from mmlspark_tpu_torch.serve.demo import run_demo
 
-    metrics = run_demo(
-        slots=args.slots,
-        n_requests=args.requests,
-        max_new_tokens=args.max_new_tokens,
-        arrivals_per_tick=args.arrivals_per_tick,
-        seed=args.seed,
-        decode_block=args.decode_block,
-        mesh=args.mesh or None,
-        telemetry_dir=args.telemetry_dir or None,
-        faults=args.faults or None,
-        slo=args.slo or None,
-        trace_out=args.trace_out or None,
-        paged=args.paged,
-        page_size=args.page_size,
-        prefix_cache=args.prefix_cache,
-        replicas=args.replicas,
-        hedge_ms=args.hedge_ms,
-        kv_dtype=args.kv_dtype,
-        quantize_weights=args.quantize_weights,
-        disagg=args.disagg,
-        prefill_replicas=args.prefill_replicas,
-        decode_replicas=args.decode_replicas,
-        autoscale=args.autoscale or None,
-        models=args.models or None,
-        device_budget=args.device_budget,
-        prefill_chunk=args.prefill_chunk,
-        async_host=args.async_host,
-        metrics_port=args.metrics_port,
-        device=device,
-    )
-    print(json.dumps(metrics, default=str))
+    ranked = bool(os.environ.get(_RANK_ENV))
+    mesh = args.mesh or (f"data={args.cpu_mesh}" if ranked else None)
+
+    def run() -> dict:
+        return run_demo(
+            slots=args.slots,
+            n_requests=args.requests,
+            max_new_tokens=args.max_new_tokens,
+            arrivals_per_tick=args.arrivals_per_tick,
+            seed=args.seed,
+            decode_block=args.decode_block,
+            mesh=mesh,
+            telemetry_dir=args.telemetry_dir or None,
+            faults=args.faults or None,
+            slo=args.slo or None,
+            trace_out=args.trace_out or None,
+            paged=args.paged,
+            page_size=args.page_size,
+            prefix_cache=args.prefix_cache,
+            replicas=args.replicas,
+            hedge_ms=args.hedge_ms,
+            kv_dtype=args.kv_dtype,
+            quantize_weights=args.quantize_weights,
+            disagg=args.disagg,
+            prefill_replicas=args.prefill_replicas,
+            decode_replicas=args.decode_replicas,
+            autoscale=args.autoscale or None,
+            models=args.models or None,
+            device_budget=args.device_budget,
+            prefill_chunk=args.prefill_chunk,
+            async_host=args.async_host,
+            metrics_port=args.metrics_port,
+            device=device,
+        )
+
+    if mesh is None:
+        metrics, rank = run(), 0
+    else:
+        with _Group(device) as group:
+            metrics, rank = run(), group.rank
+    if rank == 0:
+        print(json.dumps(metrics, default=str))
     return 0
 
 
@@ -325,7 +337,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument(
         "--cpu-mesh", type=int, metavar="N", default=0,
         help="run on the CPU instead of the card: N = 1 in this process, "
-        "N > 1 as N gloo rank processes for run, train and env",
+        "N > 1 as N gloo rank processes for run, serve, train and env",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -365,9 +377,11 @@ def main(argv: list[str] | None = None) -> int:
     )
     sp.add_argument(
         "--mesh", default="", metavar="AXES",
-        help="the JAX CLI's sharded engine on a (data, model) mesh, "
-        "e.g. 'data=4,model=2'; over the port it raises until the "
-        "engine's mesh mode lands (ROADMAP.md Queue 1 item 13e)",
+        help="run the SHARDED engine on a (data, model) mesh, e.g. "
+        "'data=2,model=2': slots split over data, the model "
+        "Megatron-split over model, one rank a device (--cpu-mesh N: "
+        "N gloo ranks on the CPU; on the card one NCCL rank a card, "
+        "from a launcher, or a one-rank group of its own)",
     )
     sp.add_argument(
         "--telemetry-dir", default="", metavar="DIR",

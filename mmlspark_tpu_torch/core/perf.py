@@ -168,6 +168,17 @@ class ProgramCost:
     def unavailable(cls) -> "ProgramCost":
         return cls(None, None, "unavailable")
 
+    def over_devices(self, n: int) -> "ProgramCost":
+        """The cost of a program that ``n`` devices each run at this
+        per-device cost (a serving mesh: every rank runs the same shapes
+        on its shard, and a prefill on every data rank), as one whole
+        execution — what :class:`PerfAnalytics` over ``n_devices`` divides
+        by ``n`` peaks again, so its MFU and bandwidth are per device."""
+        if self.flops is None:
+            return self
+        return ProgramCost(self.flops * n, self.bytes_accessed * n,
+                           self.source)
+
     def to_dict(self) -> dict:
         return {
             "flops": self.flops,

@@ -33,6 +33,9 @@ in four recorders.
   prefixes, :meth:`TelemetryHub.to_prometheus`), ONE merged metrics dict
   (:meth:`TelemetryHub.metrics_dict`), and the bundle of all of them
   (:meth:`TelemetryHub.write_bundle`).
+- **topology**: a mesh engine's source carries ``{mesh="data=2,model=2",
+  rank="r"}`` labels beside its own (each rank of a mesh engine keeps its
+  own recorder and registry; a hub reads the rank it runs on).
 - **anomaly detectors**: :meth:`TelemetryHub.detect` sweeps every source
   for retrace storms, host-syncs-per-block drift, queue-depth watermarks,
   tick-time p99 blowups and uneven SLO burn, emitting ``alert`` events on
@@ -201,6 +204,19 @@ def _strip_replica_view(engine, idx: int) -> "_RegistryView":
                          strip_prefix=f"replica{idx}.")
 
 
+def _topology(engine) -> dict:
+    """The labels of a mesh engine's place: its mesh (``"data=2,
+    model=2"``) and the rank the telemetry comes from (every rank of a
+    mesh keeps its own recorder and registry); {} on one device."""
+    place = getattr(engine, "_place", None)
+    if place is None:
+        return {}
+    import torch.distributed as dist
+
+    return {"mesh": ",".join(f"{a}={n}" for a, n in place.shape.items()),
+            "rank": str(dist.get_rank())}
+
+
 def _engine_stats(engine) -> Callable[[], dict]:
     """Host-side live figures for the detectors — plain attribute and
     dict reads, no device access."""
@@ -329,7 +345,8 @@ class TelemetryHub:
         recorder/registry pair across restarts)."""
         return self.add_source(
             name, recorder=engine.recorder,
-            registry=engine.metrics.registry, labels=labels,
+            registry=engine.metrics.registry,
+            labels={**_topology(engine), **(labels or {})} or None,
             stats=_engine_stats(engine),
         )
 
@@ -343,7 +360,7 @@ class TelemetryHub:
             # the supervisor REPLACES rep.engine on failover; walking
             # the live list each refresh is what catches the rebuild
             for rep in rs._reps:
-                labels = {"replica": str(rep.idx)}
+                labels = {"replica": str(rep.idx), **_topology(rep.engine)}
                 if rep.model:
                     labels["model"] = rep.model
                 yield dict(
@@ -367,7 +384,8 @@ class TelemetryHub:
                     name=f"{rep.role}{rep.idx}",
                     recorder=rep.engine.recorder,
                     registry=_strip_replica_view(rep.engine, rep.idx),
-                    labels={"replica": str(rep.idx), "role": rep.role},
+                    labels={"replica": str(rep.idx), "role": rep.role,
+                            **_topology(rep.engine)},
                     stats=_engine_stats(rep.engine),
                 )
 

@@ -13,13 +13,19 @@
 - **Placement** (:func:`to_device`): a batch goes to the device through
   :func:`~mmlspark_tpu_torch.core.env.host_to_device` (pinned memory, a
   copy that does not wait for the stream) in place of
-  ``jax.device_put``. The trainer's mesh mode gives each rank its rows
-  of a batch (``train/distributed.py``); the engine's waits for ROADMAP.md
-  Queue 1 item 13e.
+  ``jax.device_put``. Over a mesh, :func:`data_sharding` names the
+  calling rank's rows of a batch split over the ``data`` axis (the JAX
+  ``NamedSharding(mesh, P("data"))``) and ``to_device(batch, device,
+  sharding)`` places only those: every rank of the SPMD program holds
+  the global batch on the host and its own rows on its device. The
+  trainer's mesh mode gives each rank its rows of a batch the same way
+  (``train/distributed.py``); the serving engine's mesh mode splits its
+  slot rows over ``data`` (``serve/cache_pool.py``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -125,10 +131,47 @@ def bucket_by_length(
     return out
 
 
-def to_device(batch: dict[str, np.ndarray],
-              device: torch.device) -> dict[str, torch.Tensor]:
+@dataclass(frozen=True)
+class RowShard:
+    """The calling rank's part of a batch split over one mesh axis: the
+    ``index``-th of ``size`` equal, contiguous row blocks."""
+
+    index: int
+    size: int
+
+    def take(self, arr: np.ndarray) -> np.ndarray:
+        n = arr.shape[0]
+        if n % self.size:
+            raise SchemaError(
+                f"a batch of {n} rows does not split evenly over a mesh "
+                f"axis of {self.size} ranks; pad it to a multiple "
+                "(iter_batches pads the tail)"
+            )
+        per = n // self.size
+        return arr[self.index * per:(self.index + 1) * per]
+
+
+def data_sharding(mesh, axis: str = "data") -> RowShard:
+    """The calling rank's rows of a batch split over ``axis`` of
+    ``mesh`` (a DeviceMesh or a ``parallel.mesh.MeshPlace``); the whole
+    batch when the mesh has no such axis."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshAxis, MeshPlace
+
+    if isinstance(mesh, MeshPlace):
+        mesh = mesh.mesh
+    if axis not in mesh.mesh_dim_names:
+        return RowShard(0, 1)
+    ax = MeshAxis(mesh, axis)
+    return RowShard(ax.index, ax.size)
+
+
+def to_device(batch: dict[str, np.ndarray], device: torch.device,
+              sharding: RowShard | None = None) -> dict[str, torch.Tensor]:
     """Host batch -> tensors on ``device``, each through
     :func:`~mmlspark_tpu_torch.core.env.host_to_device` (to the card from
-    pinned memory, without waiting for the stream)."""
+    pinned memory, without waiting for the stream); with a ``sharding``
+    (:func:`data_sharding`), only the calling rank's rows."""
+    if sharding is not None:
+        batch = {k: sharding.take(np.asarray(v)) for k, v in batch.items()}
     return {k: host_to_device(np.ascontiguousarray(v), device)
             for k, v in batch.items()}

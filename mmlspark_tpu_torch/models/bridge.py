@@ -221,16 +221,23 @@ def flax_param_path(name: str, mod: nn.Module, key: str):
     return "/".join([name, coll, *parts, *flax_leaf]), perm
 
 
-def load_flax_variables(graph, variables, *, device=None) -> dict:
+def load_flax_variables(graph, variables, *, device=None,
+                        mesh=None) -> dict:
     """The port's variables from the JAX package's ``variables`` (a
     nested dict of numpy or numpy-convertible arrays, float or
     weight-quantized, with flax's ``batch_stats`` where a block keeps
     statistics), on ``device`` (``cuda`` unless the caller asks for
     ``"cpu"``). A graph that is not made of blocks (an imported ONNX
-    graph) converts its own through ``from_flax_variables``."""
+    graph) converts its own through ``from_flax_variables``. With a
+    serving ``mesh`` (see :func:`variables_to`) the result is the calling
+    rank's shards."""
     own = getattr(graph, "from_flax_variables", None)
     if own is not None:
         return own(variables, device=device)
+    if mesh is not None:
+        return variables_to(load_flax_variables(graph, variables,
+                                                device=device),
+                            default_device(device), graph=graph, mesh=mesh)
     dev = default_device(device)
     out = {}
     for name, mod in graph.blocks:
@@ -320,10 +327,28 @@ def _init_leaf(owner: nn.Module, leaf: str, shape: tuple, draw: dict):
     return torch.randn(shape, **draw) * 0.02  # the learned position table
 
 
-def variables_to(variables: dict, device) -> dict:
+def variables_to(variables: dict, device, *, graph=None, mesh=None) -> dict:
     """``variables`` on ``device``: the same dict when every tensor is
     already there (so a bound graph stays bound), else a moved copy. A
-    weight-quantized leaf (a dict of tensors) moves as a whole."""
+    weight-quantized leaf (a dict of tensors) moves as a whole.
+
+    With a serving ``mesh`` (a ``parallel.mesh.MeshPlace``, or what
+    :func:`~mmlspark_tpu_torch.parallel.mesh.serve_mesh` takes: a spec
+    string, an axes mapping or a DeviceMesh) and the ``graph``, the
+    result is the calling rank's shards of the float variables
+    (``parallel.sharding.local_variables`` under ``model_split``): what
+    the rank's copy of the graph for the split forward binds."""
+    if mesh is not None:
+        from mmlspark_tpu_torch.parallel.mesh import MeshPlace, serve_mesh
+        from mmlspark_tpu_torch.parallel.sharding import (
+            local_variables,
+            model_split,
+        )
+
+        place = mesh if isinstance(mesh, MeshPlace) else serve_mesh(mesh)
+        whole = variables_to(variables, device)
+        return local_variables(graph, whole,
+                               model_split(graph, whole, place))
     dev = torch.device(device)
     if all(_on(t, dev) for v in variables.values() for leaf in v.values()
            for t in _tensors(leaf)):

@@ -67,7 +67,8 @@ def cache_geometry(graph, variables) -> dict:
             ) from e
         if _is_quantized_leaf(weight):
             weight = weight[_Q8]
-        geometry[name] = (hk, weight.shape[0] // (heads + 2 * hk))
+        geometry[name] = (hk, graph.extra.get("head_dim")
+                          or weight.shape[0] // (heads + 2 * hk))
     return geometry
 
 
@@ -121,10 +122,17 @@ def _cached_apply(graph, variables, ids, cache, pos, rolled=False,
     return x, new_cache
 
 
-def greedy_next(logits):
+def greedy_next(logits, vocab_split=None):
     """The repo-wide greedy pick: argmax over f32-cast logits (the first
     maximum on ties), returned int32 — ONE definition shared by
-    ``generate()``, the engine's prefill and the fused decode block."""
+    ``generate()``, the engine's prefill and the fused decode block.
+    ``vocab_split`` (a ``parallel.mesh.MeshPlace``; the split forward's
+    ``graph.extra["vocab_split"]``) says ``logits`` are this rank's vocab
+    slice: the pick is then :meth:`~mmlspark_tpu_torch.parallel.mesh.
+    MeshPlace.greedy`'s combine over ``model``, the same token with the
+    same tie rule."""
+    if vocab_split is not None:
+        return vocab_split.greedy(logits)
     return logits.float().argmax(dim=-1).to(torch.int32)
 
 
@@ -146,7 +154,17 @@ def make_decode_block(graph, pad_id: int = 0):
     Returns ``(tokens (S, t), live (S,), buffers, pos)``. A row's stream
     equals single-request greedy ``generate()`` up to and including its
     EOS or last budgeted token; later columns are ``pad_id``.
+
+    On a rank's copy of the graph under a serving mesh (``graph.extra
+    ["mesh_place"]``, ``models/transformer.split_graph``) the rows are
+    the rank's slots and the greedy picks combine over the vocab shards;
+    ``tokens`` is then every ``data`` rank's rows gathered in slot order
+    — ONE (S_all, t + 1) int32 tensor, its last column the rows' live
+    flags, gathered inside the block (one collective, so the host still
+    fetches once a block) — while ``live`` and ``pos`` stay the rank's.
     """
+    place = graph.extra.get("mesh_place")
+    vocab_split = graph.extra.get("vocab_split")
 
     def decode_block(variables, buffers, pos, live, tok, rem, eos, t):
         pad = torch.full_like(tok, pad_id)
@@ -161,7 +179,8 @@ def make_decode_block(graph, pad_id: int = 0):
                 graph, variables, tok[:, None], buffers, pos,
                 step=True, live=live,
             )
-            emit = torch.where(live, greedy_next(logits[:, 0]), pad)
+            emit = torch.where(live, greedy_next(logits[:, 0], vocab_split),
+                               pad)
             pos = torch.where(live, pos + 1, pos)
             rem = torch.where(live, rem - 1, rem)
             # generate()'s semantics: the EOS token IS emitted, THEN the
@@ -170,7 +189,11 @@ def make_decode_block(graph, pad_id: int = 0):
             live = live & (emit != eos) & (rem > 0)
             tok = torch.where(live, emit, tok)
             toks.append(emit)
-        return torch.stack(toks, dim=1), live, buffers, pos
+        toks = torch.stack(toks, dim=1)
+        if place is not None:
+            toks = place.data_gather(
+                torch.cat([toks, live[:, None].to(toks.dtype)], dim=1))
+        return toks, live, buffers, pos
 
     return decode_block
 

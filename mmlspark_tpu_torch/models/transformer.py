@@ -32,6 +32,18 @@ the sequence-parallel paths of :mod:`mmlspark_tpu_torch.parallel.
 context_parallel` over the graph's ``mesh`` (every rank runs the model;
 the attention shards the sequence), and degrade to ``dense`` when no mesh
 is given, as in the JAX package.
+
+**The split forward** (the serving engine's mesh mode): :func:`split_graph`
+makes a rank's copy of the graph over its shard of the weights
+(``parallel/sharding.py``'s :func:`~mmlspark_tpu_torch.parallel.sharding.
+local_variables`), Megatron-style over the mesh's ``model`` axis —
+attention over the rank's heads, ``attn_out`` and ``mlp_out``
+row-parallel (the partial products summed over ``model``, then the
+replicated bias added), ``mlp_in`` column-parallel, the token embedding
+vocab-parallel (a masked lookup of the rank's rows, then a sum) and the
+``head`` column-parallel, giving the rank's vocab slice of the logits
+(the greedy combine is ``models/generate.greedy_next``'s). Without a mesh
+the code path and the arithmetic are the ones above.
 """
 
 from __future__ import annotations
@@ -85,7 +97,13 @@ class Dense(nn.Module):
     (out, in) and bias; ``forward(x, dtype)`` casts the input and the
     parameters to the caller's compute dtype and adds the bias after the
     product — two roundings, as in flax. ``bias=False`` is flax's
-    ``use_bias=False``."""
+    ``use_bias=False``. A row-parallel Dense of the split forward holds
+    its rows of the weight and a ``reduce`` (a ``parallel.mesh.
+    MeshPlace``): the partial product is summed over ``model`` before
+    the replicated bias is added."""
+
+    #: the split forward's row-parallel sum (None: a whole Dense)
+    reduce = None
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
@@ -95,10 +113,17 @@ class Dense(nn.Module):
 
     def forward(self, x, dtype):
         y = F.linear(x.to(dtype), self.weight.to(dtype))
+        if self.reduce is not None:
+            y = self.reduce.model_sum(y)
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class TokenPosEmbed(nn.Module):
+    #: the split forward's vocab-parallel sum (None: the whole table) and
+    #: the first vocab id of this rank's rows
+    reduce = None
+    vocab_start = 0
+
     def __init__(self, vocab_size: int, d_model: int, max_len: int,
                  learned_pos: bool = True):
         super().__init__()
@@ -111,7 +136,16 @@ class TokenPosEmbed(nn.Module):
         # ``pos`` offsets the position table for cached decode: an int
         # (or 0-d tensor), or a (B,) vector of PER-ROW offsets for the
         # serving engine's multi-tenant decode
-        tok = self.token(ids)
+        if self.reduce is None:
+            tok = self.token(ids)
+        else:
+            # vocab-parallel: this rank's rows of the table, zero for ids
+            # outside them; the sum over model has one non-zero term
+            local = ids - self.vocab_start
+            inside = (local >= 0) & (local < self.token.num_embeddings)
+            tok = self.token(torch.where(inside, local, 0))
+            tok = self.reduce.model_sum(
+                torch.where(inside[..., None], tok, 0.0))
         if not self.learned_pos:
             return tok
         t = ids.shape[1]
@@ -482,8 +516,8 @@ def transformer_lm(
     :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
     ``mesh`` carries the sequence axis ``ring``/``ulysses`` shard over;
     the trainer's mesh mode trains the graph on it (``param_rules``:
-    ``TRANSFORMER_TP_RULES``), the engine's waits for ROADMAP.md Queue 1
-    item 13e."""
+    ``TRANSFORMER_TP_RULES``). The serving engine's mesh mode takes its
+    own ``mesh`` and runs each rank on :func:`split_graph`'s copy."""
     if d_model % heads:
         raise ParamError(f"d_model {d_model} not divisible by heads {heads}")
     rope = validate_attention_features(
@@ -519,3 +553,55 @@ def transformer_lm(
             "pos_embedding": pos_embedding,
         },
     )
+
+
+def split_graph(graph: NamedGraph, split, place) -> NamedGraph:
+    """This rank's copy of a transformer LM ``graph`` for the split
+    forward: the blocks copied on ``meta`` and resized to the rank's
+    shard under ``split`` (a ``parallel.sharding.ModelSplit``) — local
+    heads and kv heads, ``d_ff / model`` hidden columns, ``vocab /
+    model`` embedding rows and head columns — with the row-parallel and
+    vocab-parallel modules summing over ``place``'s ``model`` axis.
+    ``extra`` records the local ``heads``/``kv_heads``, the ``head_dim``,
+    ``mesh_place`` (the data gather of the decode block) and
+    ``vocab_split`` (``place`` when the head is vocab-parallel: the
+    greedy combine), ``vocab_size`` staying the whole vocabulary. Bind it
+    to :func:`~mmlspark_tpu_torch.parallel.sharding.local_variables`."""
+    from mmlspark_tpu_torch.models.graph import _meta_copy
+
+    blocks = []
+    with torch.device("meta"):
+        for name, mod in graph.blocks:
+            mod = _meta_copy(mod)
+            if split.vocab and isinstance(mod, TokenPosEmbed):
+                n = mod.token.num_embeddings // split.size
+                mod.token = nn.Embedding(n, mod.token.embedding_dim)
+                mod.reduce = place
+                mod.vocab_start = split.index * n
+            if split.vocab and isinstance(mod, LMHead):
+                w = mod.head.weight
+                mod.head = Dense(w.shape[1], w.shape[0] // split.size)
+            attn = getattr(mod, "attn", None)
+            if split.attn and isinstance(attn, SelfAttention):
+                d, d_model = split.head_dim, attn.qkv.weight.shape[1]
+                attn.heads = split.local_heads
+                attn.kv_heads = split.local_kv_heads
+                attn.qkv = Dense(d_model, (split.local_heads
+                                           + 2 * split.local_kv_heads) * d)
+                attn.attn_out = Dense(split.local_heads * d, d_model)
+                attn.attn_out.reduce = place
+            if split.mlp and isinstance(mod, Block):
+                d_model, d_ff = mod.mlp_in.weight.shape[1], \
+                    mod.mlp_in.weight.shape[0]
+                mod.mlp_in = Dense(d_model, d_ff // split.size)
+                mod.mlp_out = Dense(d_ff // split.size, d_model)
+                mod.mlp_out.reduce = place
+            blocks.append((name, mod))
+    extra = dict(graph.extra, head_dim=split.head_dim, mesh_place=place,
+                 vocab_split=place if split.vocab else None)
+    if split.attn:
+        extra.update(heads=split.local_heads,
+                     kv_heads=split.local_kv_heads)
+    return NamedGraph(name=graph.name, blocks=blocks,
+                      input_shape=graph.input_shape,
+                      compute_dtype=graph.compute_dtype, extra=extra)

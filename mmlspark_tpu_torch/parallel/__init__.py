@@ -4,8 +4,12 @@ sequence/context parallelism — ring attention and Ulysses
 (:mod:`context_parallel`) — pipeline parallelism (:mod:`pipeline`),
 expert routing and its sharding rules (:mod:`expert`) and the
 sequence-parallel BiLSTM (:mod:`sequence_rnn`). The trainer's mesh mode
-(``train/trainer.py``) runs them; the engine's mesh mode waits for
-ROADMAP.md Queue 1 item 13e.
+(``train/trainer.py``) runs them. The serving engine's mesh mode
+(``serve/engine.py``) takes a rank's place on a (data, model) mesh
+(:class:`MeshPlace`, :func:`serve_mesh`: the sum over ``model``, the
+gather over ``data``, the vocab-parallel greedy combine and the control
+plane's agreement) and splits the model's compute over it
+(:func:`model_split`, :func:`local_variables`).
 """
 
 from mmlspark_tpu_torch.parallel.context_parallel import (
@@ -26,6 +30,8 @@ from mmlspark_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     PIPELINE_AXIS,
     SEQUENCE_AXIS,
+    MeshDesync,
+    MeshPlace,
     axis_size,
     batch_spec,
     initialize_distributed,
@@ -34,6 +40,7 @@ from mmlspark_tpu_torch.parallel.mesh import (
     mesh_shape,
     parse_mesh_axes,
     replicated_spec,
+    serve_mesh,
 )
 from mmlspark_tpu_torch.parallel.pipeline import (
     PIPELINE_STAGE_RULES,
@@ -45,8 +52,11 @@ from mmlspark_tpu_torch.parallel.sequence_rnn import (
 )
 from mmlspark_tpu_torch.parallel.sharding import (
     TRANSFORMER_TP_RULES,
+    ModelSplit,
     NamedSharding,
     build_param_shardings,
+    local_variables,
+    model_split,
     shard_params,
     spec_for_path,
     unmatched_param_paths,
@@ -55,12 +65,13 @@ from mmlspark_tpu_torch.parallel.sharding import (
 __all__ = [
     "DATA_AXIS", "EXPERT_AXIS", "EXPERT_RULES", "MODEL_AXIS",
     "PIPELINE_AXIS", "PIPELINE_STAGE_RULES", "SEQUENCE_AXIS",
-    "NamedSharding", "TRANSFORMER_TP_RULES", "axis_size", "batch_spec",
+    "MeshDesync", "MeshPlace", "ModelSplit", "NamedSharding",
+    "TRANSFORMER_TP_RULES", "axis_size", "batch_spec",
     "bilstm_seq_parallel_apply", "bilstm_seq_parallel_train_step",
     "build_param_shardings", "initialize_distributed", "local_batch",
-    "make_mesh", "mesh_shape", "moe_dispatch", "moe_ffn",
-    "moe_ffn_dropless", "parse_mesh_axes", "pipeline_apply",
-    "replicated_spec", "ring_attention", "router_probs", "shard_params",
-    "spec_for_path", "ulysses_attention", "unmatched_param_paths",
-    "validate_experts",
+    "local_variables", "make_mesh", "mesh_shape", "model_split",
+    "moe_dispatch", "moe_ffn", "moe_ffn_dropless", "parse_mesh_axes",
+    "pipeline_apply", "replicated_spec", "ring_attention",
+    "router_probs", "serve_mesh", "shard_params", "spec_for_path",
+    "ulysses_attention", "unmatched_param_paths", "validate_experts",
 ]

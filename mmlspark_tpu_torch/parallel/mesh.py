@@ -351,3 +351,248 @@ class SumGrads(torch.autograd.Function):
             out.append(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
         return (None, *out)
+
+
+# -- the serving mesh: a rank's data and model axes --------------------------
+
+#: outcome codes of one guarded engine step, in the order agreement takes
+#: the worst of them
+_OK, _TRANSIENT, _EXHAUSTED, _KILLED, _FATAL = range(5)
+
+
+def _error_code(err: BaseException | None) -> int:
+    from mmlspark_tpu_torch.core.faults import (
+        EngineKilled,
+        is_resource_exhausted,
+        is_transient,
+    )
+
+    if err is None:
+        return _OK
+    if isinstance(err, EngineKilled):
+        return _KILLED
+    if is_resource_exhausted(err):
+        return _EXHAUSTED
+    if is_transient(err):
+        return _TRANSIENT
+    return _FATAL
+
+
+class MeshDesync(FriendlyError):
+    """A guarded call failed on some ranks of a serving mesh and ran on
+    others: their collectives no longer pair up, so no rank may retry."""
+
+
+class MeshPlace:
+    """The calling rank's place on a serving mesh of ``data`` and
+    ``model`` axes, and the moves the engine's mesh mode makes over them.
+
+    Every rank runs the same host loop on the same requests. ``data``
+    splits the slot rows, ``model`` the heads, the MLP's hidden columns
+    and the vocabulary (Megatron); an axis the mesh lacks is None and its
+    moves are identities. An axis the mesh has, of one rank included,
+    issues its collectives (NCCL on the card, inside the captured
+    programs; gloo on the CPU). On ``meta`` tensors (the engine's cost
+    analysis) every move returns its shape and communicates nothing.
+
+    A mesh of several ranks also holds a gloo group over them, the
+    control plane: :meth:`agree_max`, :meth:`agree_error` and
+    :meth:`clock` make host decisions that one rank could take
+    differently (an error it alone saw, a wall-clock reading) the same on
+    every rank before any collective depends on them."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.shape = mesh_shape(mesh)
+        other = {a: s for a, s in self.shape.items()
+                 if a not in (DATA_AXIS, MODEL_AXIS) and s > 1}
+        if other:
+            raise FriendlyError(
+                f"a serving mesh splits slots over '{DATA_AXIS}' and the "
+                f"model over '{MODEL_AXIS}'; axes {other} have no serving "
+                "meaning (the sequence, pipeline and expert axes train)"
+            )
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        self.ranks = ranks
+        self.devices = len(ranks)
+        self.member = dist.get_rank() in ranks
+        # a collective of the whole group: every rank makes it, in or out
+        self.control = (dist.new_group(ranks, backend="gloo")
+                        if len(ranks) > 1 else None)
+        self.data = self.model = None
+        if self.member:
+            if DATA_AXIS in self.shape:
+                self.data = MeshAxis(mesh, DATA_AXIS)
+            if MODEL_AXIS in self.shape:
+                self.model = MeshAxis(mesh, MODEL_AXIS)
+
+    @property
+    def data_size(self) -> int:
+        return self.data.size if self.data is not None else 1
+
+    @property
+    def data_index(self) -> int:
+        return self.data.index if self.data is not None else 0
+
+    @property
+    def model_size(self) -> int:
+        return self.model.size if self.model is not None else 1
+
+    @property
+    def model_index(self) -> int:
+        return self.model.index if self.model is not None else 0
+
+    # -- the device moves ------------------------------------------------
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``model``, in place: the row-parallel
+        partial products and the vocab-parallel embedding rows."""
+        import torch.distributed as dist
+
+        if self.model is not None and x.device.type != "meta":
+            dist.all_reduce(x, group=self.model.group)
+        return x
+
+    def _gather(self, x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+        """(n, *x.shape): every rank's ``x`` along ``axis``, in axis
+        order."""
+        if x.device.type == "meta":
+            return x.unsqueeze(0).expand(axis.size, *x.shape).clone()
+        return all_gather_cat(x[None], 0, axis)
+
+    def data_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every ``data`` rank's rows of ``x``, concatenated in slot
+        order (dim 0)."""
+        if self.data is None:
+            return x
+        parts = self._gather(x, self.data)
+        return parts.reshape(parts.shape[0] * parts.shape[1],
+                             *parts.shape[2:])
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token over vocab-parallel ``logits`` (this rank's
+        contiguous slice of the vocabulary on the last dim): each rank's
+        local maximum and its global id, gathered over ``model`` in one
+        collective, and the best of them — ties to the lowest rank, so
+        to the lowest vocab id, as ``torch.argmax`` and ``jnp.argmax``
+        break them. int32."""
+        logits = logits.float()
+        idx = logits.argmax(dim=-1)
+        if self.model is None:
+            return idx.to(torch.int32)
+        n = logits.shape[-1]
+        if self.model.size * n > 2 ** 24:
+            raise FriendlyError(
+                f"vocab {self.model.size * n} exceeds 2**24: the greedy "
+                "combine carries token ids in float32"
+            )
+        vals = torch.gather(logits, -1, idx[..., None])[..., 0]
+        gid = (idx + self.model.index * n).float()
+        parts = self._gather(torch.stack([vals, gid], dim=-1), self.model)
+        best = parts[..., 0].argmax(dim=0)
+        return torch.gather(parts[..., 1], 0, best[None])[0].to(torch.int32)
+
+    def data_broadcast(self, x: torch.Tensor, src_index: int) -> None:
+        """``x`` of data rank ``src_index`` into every data rank's ``x``,
+        in place (one collective; the same model rank on each)."""
+        import torch.distributed as dist
+
+        if self.data is not None:
+            dist.broadcast(x, src=self.data.ranks[src_index],
+                           group=self.data.group)
+
+    # -- the control plane -------------------------------------------------
+
+    def agree_max(self, values: Sequence[float]) -> list[float]:
+        """Every rank's ``values``, reduced by max over the mesh (the
+        same list on every rank)."""
+        import torch.distributed as dist
+
+        if self.control is None:
+            return list(values)
+        t = torch.tensor(list(values), dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.control)
+        return t.tolist()
+
+    def clock(self) -> float:
+        """A wall clock every rank reads alike: the latest of the ranks'
+        ``time.monotonic()`` (a supervisor's hedging and stall probes)."""
+        import time
+
+        return self.agree_max([time.monotonic()])[0]
+
+    def agree_error(self, err: BaseException | None, site: str):
+        """The outcome of one guarded step BEFORE its call, agreed by
+        every rank: the worst error any rank saw (a fault site firing, a
+        failed allocation), so all retry, degrade or die together. A rank
+        that saw nothing gets an error of the agreed kind; returns None
+        when no rank failed."""
+        from mmlspark_tpu_torch.core.faults import (
+            EngineKilled,
+            ResourceExhausted,
+            TransientFault,
+        )
+
+        code = _error_code(err)
+        worst = int(self.agree_max([code])[0])
+        if worst == code:
+            return err
+        what = f"at {site} on another rank of the serving mesh"
+        return {
+            _TRANSIENT: TransientFault(f"transient fault {what}"),
+            _EXHAUSTED: ResourceExhausted(what),
+            _KILLED: EngineKilled(f"engine killed {what}"),
+        }.get(worst) or MeshDesync(f"a non-retryable error {what}")
+
+    def agree_after(self, err: BaseException | None, site: str) -> None:
+        """The outcome of one guarded CALL, agreed: nothing when every
+        rank succeeded or every rank failed alike (the caller handles its
+        own error); :class:`MeshDesync` on every rank when the call
+        failed on some ranks only — the others ran its collectives, so
+        no retry can pair them up again."""
+        if self.control is None:
+            return
+        code = _error_code(err)
+        lo, hi = self.agree_max([-code, code])
+        lo = -lo
+        if lo == hi:
+            return
+        raise MeshDesync(
+            f"{site} failed on some ranks of the serving mesh and ran on "
+            "others; their collectives no longer match, so the mesh engine "
+            "stops (rebuild it from a snapshot)"
+        ) from err
+
+
+#: (default group, axes or mesh, place) of every serving mesh resolved in
+#: this process: a mesh's subgroups are made collectively, so every engine
+#: asking for the same axes in one process group must share them
+_SERVE_MESHES: list = []
+
+
+def serve_mesh(mesh) -> MeshPlace | None:
+    """The serving engine's ``mesh`` argument — a spec string
+    (``"data=2,model=2"``), an axes mapping or a built DeviceMesh, the
+    forms of the JAX engine's ``_resolve_mesh`` — as the calling rank's
+    :class:`MeshPlace`, or None. A spec or a mapping resolves once per
+    process group: engines asking for the same axes (the replicas of a
+    supervised set) share one mesh and its groups, which are made
+    collectively on every rank."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return None
+    if isinstance(mesh, str):
+        mesh = parse_mesh_axes(mesh)
+    _group_device_type()
+    world = dist.distributed_c10d._get_default_group()
+    key = dict(mesh) if isinstance(mesh, Mapping) else mesh
+    for group, k, place in _SERVE_MESHES:
+        if group is world and (k is key or (
+                isinstance(k, dict) and isinstance(key, dict) and k == key)):
+            return place
+    place = MeshPlace(make_mesh(mesh) if isinstance(mesh, Mapping) else mesh)
+    _SERVE_MESHES.append((world, key, place))
+    return place

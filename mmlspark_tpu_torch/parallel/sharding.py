@@ -18,8 +18,22 @@ A resolved spec becomes DTensor placements (:class:`NamedSharding`'s
 ``placements``) and :func:`shard_params` places each leaf with
 ``distribute_tensor``. The trainer's mesh mode stores each rank's part of
 a sharded leaf by these layouts and gathers the whole for its step
-(``train/distributed.py``); the engine's waits for ROADMAP.md Queue 1
-item 13e.
+(``train/distributed.py``). The serving engine's mesh mode splits the
+COMPUTE instead (:func:`model_split`, :func:`local_variables`): each
+``model`` rank keeps only its shard of every split leaf and the forward
+runs on it (``models/transformer.py``'s split forward), as Megatron and
+GSPMD do — at decode batch sizes the weights are most of a step's bytes,
+so gathering them a step would defeat the split.
+
+One deliberate difference from a contiguous split: the fused ``qkv``
+kernel and bias are laid out ``[q heads | k heads | v heads]``, so the
+JAX rule ``qkv/kernel -> (None, model)`` read as a contiguous column
+split would give rank 0 only q heads (GSPMD then moves data to repair
+the reshape). The port splits ``qkv`` HEAD-ALIGNED: each rank takes its
+q heads, and the k and v heads those q heads read — split over
+``model`` when ``kv_heads % model == 0``, else (``model % kv_heads ==
+0``) the one kv head a rank's q heads share, which is replicated on the
+ranks that read it.
 """
 
 from __future__ import annotations
@@ -28,6 +42,8 @@ import re
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Sequence
+
+import torch
 
 from mmlspark_tpu_torch.parallel.mesh import MODEL_AXIS, mesh_shape
 
@@ -59,15 +75,18 @@ TRANSFORMER_TP_RULES: list[tuple[str, tuple]] = [
 
 
 def spec_for_path(path: str, rules: Sequence[tuple[str, tuple]],
-                  mesh) -> tuple:
+                  mesh, keep_unit_axes: bool = False) -> tuple:
     """Resolve the spec (one mesh axis name or None per leading dim) for
     one param path; unmatched or mesh-incompatible rules fall back to
-    replication per-axis."""
+    replication per-axis — axes of one rank too, unless
+    ``keep_unit_axes`` (the serving split, whose one-rank model axis
+    runs the split forward with the whole)."""
     shape = mesh_shape(mesh)
+    low = 0 if keep_unit_axes else 1
     for pattern, spec in rules:
         if re.search(pattern, path):
             return tuple(
-                a if (a is None or (a in shape and shape[a] > 1)) else None
+                a if (a is None or (a in shape and shape[a] > low)) else None
                 for a in spec
             )
     return ()
@@ -98,12 +117,13 @@ class NamedSharding:
         )
 
 
-def _resolve(path: str, flax_shape: tuple, mesh, rules) -> tuple:
+def _resolve(path: str, flax_shape: tuple, mesh, rules,
+             keep_unit_axes: bool = False) -> tuple:
     """The JAX package's spec for a leaf of ``flax_shape``: dims that a
     rule would shard unevenly degrade to replicated."""
     shape = mesh_shape(mesh)
     axes = []
-    for i, a in enumerate(spec_for_path(path, rules, mesh)):
+    for i, a in enumerate(spec_for_path(path, rules, mesh, keep_unit_axes)):
         if a is not None and (
             i >= len(flax_shape) or flax_shape[i] % shape[a]
         ):
@@ -112,7 +132,8 @@ def _resolve(path: str, flax_shape: tuple, mesh, rules) -> tuple:
     return tuple(axes)
 
 
-def _one(path: str, leaf, perm, mesh, rules) -> NamedSharding:
+def _one(path: str, leaf, perm, mesh, rules,
+         keep_unit_axes: bool = False) -> NamedSharding:
     port_shape = tuple(leaf.shape)
     flax_shape = port_shape
     if perm is not None and len(perm) == len(port_shape):
@@ -120,7 +141,7 @@ def _one(path: str, leaf, perm, mesh, rules) -> NamedSharding:
                            for j in range(len(perm)))
     else:
         perm = None
-    flax_spec = _resolve(path, flax_shape, mesh, rules)
+    flax_spec = _resolve(path, flax_shape, mesh, rules, keep_unit_axes)
     spec = flax_spec
     if perm is not None and flax_spec:
         padded = flax_spec + (None,) * (len(perm) - len(flax_spec))
@@ -166,14 +187,15 @@ def _nest(items) -> dict:
 
 def build_param_shardings(params, mesh,
                           rules: Sequence[tuple[str, tuple]] | None,
-                          graph=None) -> dict:
+                          graph=None, keep_unit_axes: bool = False) -> dict:
     """A dict of :class:`NamedSharding` shaped like ``params``; dims that
     a rule would shard unevenly degrade to replicated (the JAX package's
     even-tiling rule). ``params`` is the port's variables with ``graph``
     (paths and layouts through the bridge), or a nested mapping keyed by
-    the flax names without it."""
+    the flax names without it. ``keep_unit_axes`` keeps a one-rank axis
+    in the specs (see :func:`spec_for_path`)."""
     rules = rules or []
-    return _nest((keys, _one(path, leaf, perm, mesh, rules))
+    return _nest((keys, _one(path, leaf, perm, mesh, rules, keep_unit_axes))
                  for keys, path, perm, leaf in _walk(params, graph))
 
 
@@ -204,3 +226,143 @@ def unmatched_param_paths(params, rules: Sequence[tuple[str, tuple]],
         path for _, path, _, _ in _walk(params, graph)
         if not any(re.search(pat, path) for pat, _ in rules)
     )
+
+
+# -- the serving engine's compute split ---------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelSplit:
+    """How a transformer's compute splits over a serving mesh's ``model``
+    axis on the calling rank (:func:`model_split`). ``attn``, ``mlp`` and
+    ``vocab`` say which layers split (each degrades to replicated as a
+    whole when its leaves do not tile); the head ranges are the rank's
+    q heads and the kv heads they read."""
+
+    size: int
+    index: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    attn: bool
+    mlp: bool
+    vocab: bool
+
+    @property
+    def local_heads(self) -> int:
+        return self.heads // self.size if self.attn else self.heads
+
+    @property
+    def q_start(self) -> int:
+        return self.index * self.local_heads if self.attn else 0
+
+    @property
+    def kv_range(self) -> tuple[int, int]:
+        """The kv heads this rank's q heads read: ``[lo, hi)``."""
+        if not self.attn:
+            return 0, self.kv_heads
+        group = self.heads // self.kv_heads
+        lo = self.q_start // group
+        hi = (self.q_start + self.local_heads - 1) // group + 1
+        return lo, hi
+
+    @property
+    def local_kv_heads(self) -> int:
+        lo, hi = self.kv_range
+        return hi - lo
+
+    def qkv_rows(self, device) -> torch.Tensor:
+        """The rows of the fused ``[q | k | v]`` projection this rank
+        keeps: its q heads, then its k heads, then its v heads."""
+        d, h, hk = self.head_dim, self.heads, self.kv_heads
+        lo, hi = self.kv_range
+        q0 = self.q_start
+        rows = [torch.arange(q0 * d, (q0 + self.local_heads) * d),
+                torch.arange((h + lo) * d, (h + hi) * d),
+                torch.arange((h + hk + lo) * d, (h + hk + hi) * d)]
+        return torch.cat(rows).to(device)
+
+
+_SPLIT_LEAVES = {
+    "attn": ("attn.qkv.weight", "attn.attn_out.weight"),
+    "mlp": ("mlp_in.weight", "mlp_out.weight"),
+}
+
+
+def model_split(graph, variables: dict, place) -> ModelSplit:
+    """The compute split of ``graph`` (a transformer LM: dense or MoE
+    blocks) on ``place``'s ``model`` axis, by ``TRANSFORMER_TP_RULES``
+    through :func:`build_param_shardings` (a one-rank axis kept, so it
+    runs the split forward with the whole). A layer splits when all its
+    rule-split leaves tile evenly; attention also needs whole heads on
+    each rank and ``kv_heads % model == 0`` or ``model % kv_heads ==
+    0``."""
+    heads = int(graph.extra["heads"])
+    hk = int(graph.extra.get("kv_heads") or heads)
+    m = place.model_size
+    if place.model is None:
+        flags = dict.fromkeys(("attn", "mlp", "vocab"), False)
+    else:
+        sh = build_param_shardings(variables, place.mesh,
+                                   TRANSFORMER_TP_RULES, graph,
+                                   keep_unit_axes=True)
+
+        def split(block: str, key: str) -> bool:
+            leaf = sh.get(block, {}).get(key)
+            return leaf is not None and MODEL_AXIS in leaf.spec
+
+        flags = {}
+        for layer, keys in _SPLIT_LEAVES.items():
+            owners = [name for name, _ in graph.blocks
+                      if keys[0] in variables.get(name, {})]
+            flags[layer] = bool(owners) and all(
+                split(name, k) for name in owners for k in keys)
+        flags["attn"] = flags["attn"] and heads % m == 0 and (
+            hk % m == 0 or m % hk == 0)
+        embed, head = graph.blocks[0][0], graph.blocks[-1][0]
+        flags["vocab"] = (split(embed, "token.weight")
+                          and split(head, "head.weight"))
+    d = None
+    for name, _ in graph.blocks:
+        w = variables.get(name, {}).get("attn.qkv.weight")
+        if w is not None:
+            d = int(w.shape[0]) // (heads + 2 * hk)
+            break
+    return ModelSplit(m, place.model_index, heads, hk, d, **flags)
+
+
+def local_variables(graph, variables: dict, split: ModelSplit) -> dict:
+    """This rank's shards of ``variables`` under ``split``: the split
+    layers' leaves cut to the rank's part (``qkv`` head-aligned, the
+    rest by the rules' dims), every other leaf whole. Cut leaves are new
+    compact tensors; whole ones are the same tensors."""
+    m, r = split.size, split.index
+    embed, head = graph.blocks[0][0], graph.blocks[-1][0]
+    vocab_leaves = {(embed, "token.weight"), (head, "head.weight"),
+                    (head, "head.bias")}
+
+    def chunk(t, dim):
+        return t.chunk(m, dim=dim)[r].contiguous()
+
+    out = {}
+    for name, block in variables.items():
+        local = dict(block)
+        for key, t in block.items():
+            leaf = key.rsplit(".", 1)[-1]
+            owner = key[: len(key) - len(leaf) - 1]
+            if split.attn and owner.endswith("qkv"):
+                local[key] = t.index_select(0, split.qkv_rows(t.device))
+            elif split.attn and owner.endswith("attn_out") \
+                    and leaf == "weight":
+                d = split.head_dim
+                q0 = split.q_start
+                local[key] = t[:, q0 * d:(q0 + split.local_heads) * d] \
+                    .contiguous()
+            elif split.mlp and owner == "mlp_in":
+                local[key] = chunk(t, 0)
+            elif split.mlp and owner == "mlp_out" and leaf == "weight":
+                local[key] = chunk(t, 1)
+            elif split.vocab and (name, key) in vocab_leaves:
+                local[key] = chunk(t, 0)
+        out[name] = local
+    return out

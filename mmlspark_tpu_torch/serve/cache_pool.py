@@ -1,6 +1,6 @@
 """Slot-based KV-cache pool for the serving engine — the port of
-``mmlspark_tpu/serve/cache_pool.py`` on one device, with the bf16 and
-the int8 KV modes (meshes wait for a later slice).
+``mmlspark_tpu/serve/cache_pool.py``, with the bf16 and the int8 KV
+modes, on one device or sharded over a serving mesh.
 
 ONE ``(S, cache_len, Hkv, D)`` buffer pair per block for the whole
 process, where ``S`` is the number of serving slots. A request leases a
@@ -21,6 +21,15 @@ them and ``flash_decode`` dequantizes on use. :func:`quantize_kv` and
 by the pools' prefill writes and the transformer's decode-step writes
 (the paged pool's per-page scales included), so both land the same int8
 bytes as the JAX package on the same f32 inputs.
+
+Under a serving mesh (``place``, a ``parallel.mesh.MeshPlace``) the host
+bookkeeping — leases, the free list, the deferred frees — is the same on
+every rank and counts every slot, while the device holds the rank's
+shard: ``data`` rank ``r`` keeps slot rows ``[r·S/d, (r+1)·S/d)`` and the
+kv heads its ``model`` rank reads (the split forward's, from the graph's
+geometry), the int8 scales sharded like the dimensions they index. A
+write to a slot another data rank owns is that rank's to make: here it
+changes the host state only.
 """
 
 from __future__ import annotations
@@ -86,6 +95,20 @@ def kv_head_scales(values, axes) -> torch.Tensor:
     return torch.where(scale == 0.0, torch.ones_like(scale), scale)
 
 
+def check_slot_split(slots: int, place) -> int:
+    """The mesh's ``data`` size (1 without a mesh); raises unless it
+    divides ``slots``."""
+    data = place.data_size if place is not None else 1
+    if slots % data:
+        raise FriendlyError(
+            f"slots ({slots}) must be a multiple of the mesh's 'data' axis "
+            f"({data}): each data rank holds slots/data whole slot rows of "
+            "every K/V buffer. Round slots up (free slots are natural pad "
+            "rows: dead on the device) or shrink the axis"
+        )
+    return data
+
+
 class SlotCachePool:
     """Preallocated per-block K/V buffers with slot lease/free accounting.
 
@@ -103,9 +126,10 @@ class SlotCachePool:
     """
 
     def __init__(self, graph, variables, slots: int, cache_len: int, *,
-                 device, kv_dtype: str = "bf16"):
+                 device, kv_dtype: str = "bf16", place=None):
         if slots < 1:
             raise FriendlyError(f"slots must be >= 1, got {slots}")
+        data = check_slot_split(slots, place)
         if cache_len < 2:
             raise FriendlyError(
                 f"cache_len must be >= 2 (one prompt token + one "
@@ -123,6 +147,11 @@ class SlotCachePool:
         self.device = torch.device(device)
         self.num_slots = slots
         self.cache_len = cache_len
+        #: this rank's slot rows: ``[slot_base, slot_base + local_slots)``
+        self.local_slots = slots // data
+        self.slot_base = (place.data_index if place is not None
+                          else 0) * self.local_slots
+        local = self.local_slots
         quantized = kv_dtype == "int8"
         store = torch.int8 if quantized else torch.bfloat16
         # K, V (and the two scale tensors) are DISTINCT tensors: the
@@ -130,13 +159,13 @@ class SlotCachePool:
         self.buffers = {}
         for name, (hk, d) in geometry.items():
             entry = tuple(
-                torch.zeros((slots, cache_len, hk, d), dtype=store,
+                torch.zeros((local, cache_len, hk, d), dtype=store,
                             device=self.device)
                 for _ in range(2)
             )
             if quantized:
                 entry += tuple(
-                    torch.ones((slots, hk), dtype=torch.float32,
+                    torch.ones((local, hk), dtype=torch.float32,
                                device=self.device)
                     for _ in range(2)
                 )
@@ -151,10 +180,16 @@ class SlotCachePool:
         self._defer_gen: int | None = None
         self._deferred: list[tuple[int, int]] = []
         self._deferred_slots: set[int] = set()
-        self.positions = torch.zeros((slots,), dtype=torch.int32,
+        self.positions = torch.zeros((local,), dtype=torch.int32,
                                      device=self.device)
-        self.live = torch.zeros((slots,), dtype=torch.bool,
+        self.live = torch.zeros((local,), dtype=torch.bool,
                                 device=self.device)
+
+    def local_row(self, slot: int) -> int | None:
+        """``slot``'s row in this rank's buffers, or None when another
+        data rank holds it."""
+        row = slot - self.slot_base
+        return row if 0 <= row < self.local_slots else None
 
     @property
     def free_count(self) -> int:
@@ -221,14 +256,17 @@ class SlotCachePool:
         # flash-decode length reads as zero. The writes go on the
         # engine's one stream after any block in flight, which keeps the
         # row state it was dispatched with
-        self.positions[slot] = 0
-        self.live[slot] = False
+        row = self.local_row(slot)
+        if row is None:
+            return
+        self.positions[row] = 0
+        self.live[row] = False
         if self.kv_dtype == "int8":
             # the slot's scales go back to the 1.0 init: a freed lease
             # must not leak its calibration into the next tenant
             for _k, _v, ks, vs in self.buffers.values():
-                ks[slot] = 1.0
-                vs[slot] = 1.0
+                ks[row] = 1.0
+                vs[row] = 1.0
 
     def write_prefill(self, slot: int, prefill_cache: dict,
                       length: int, start: int = 0) -> None:
@@ -259,6 +297,9 @@ class SlotCachePool:
                 "scales are fixed per lease from the whole prompt "
                 "(use the paged pool for resumable int8 fills)"
             )
+        slot = self.local_row(slot)
+        if slot is None:
+            return
         for name, entry in self.buffers.items():
             ck, cv = prefill_cache[name][:2]
             if quantized:
@@ -279,7 +320,8 @@ class SlotCachePool:
 
     def device_bytes_per_device(self) -> int:
         """KV-pool bytes resident on the device: every buffer (int8 scales
-        included) plus the per-slot position/live state."""
+        included) plus the per-slot position/live state — this rank's
+        shard under a mesh."""
         tensors = [t for entry in self.buffers.values() for t in entry]
         tensors += [self.positions, self.live]
         return int(sum(t.numel() * t.element_size() for t in tensors))

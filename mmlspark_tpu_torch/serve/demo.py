@@ -18,12 +18,18 @@ one wall-clock-ordered ``events.jsonl`` across every replica's recorder,
 one flow-arrow-stitched ``trace.json`` and one labeled exposition — plus
 ``supervisor.events.jsonl``, the control plane's own timeline, for the
 replica planes. ``metrics_port`` serves the same hub live on 127.0.0.1
-while the demo runs. ``mesh`` waits for the engine's mesh mode
-(ROADMAP.md Queue 1 item 13e).
+while the demo runs. ``mesh`` (``"data=2,model=2"``) serves through the
+engine's mesh mode — every engine of the run (a replica set's and a
+fleet's too) on that mesh; call it on every rank of an initialised
+process group, with the same arguments: rank 0 writes the telemetry and
+serves the endpoint. ``stream_digest`` (a port-only key) is the SHA-256
+of every completed request's token stream in request order: the handle
+that holds one run's streams to another's across devices and meshes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -77,12 +83,15 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.serve.engine import ServeEngine
 
-    if mesh is not None:
-        raise FriendlyError(f"mesh={mesh!r}: the engine's mesh mode "
-                            "(ROADMAP.md Queue 1 item 13e) "
-                            "is not ported yet")
     dev = default_device(device)
+    lead = _is_lead(mesh)
     injector = parse_fault_spec(faults) if faults else None
+    if models and mesh is not None:
+        raise FriendlyError(
+            f"mesh={mesh!r} with models: the multi-model engine serves on "
+            "one device; the mesh serves a single engine, --replicas and "
+            "--disagg"
+        )
     if models:
         return _run_multimodel_demo(
             models, n_requests=n_requests, max_new_tokens=max_new_tokens,
@@ -102,7 +111,7 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
         slo=slo or None, retry_backoff_s=0.0, paged=paged,
         page_size=page_size, prefix_cache=prefix_cache, kv_dtype=kv_dtype,
         quantize_weights=quantize_weights, prefill_chunk=prefill_chunk,
-        async_host=async_host, device=dev,
+        async_host=async_host, device=dev, mesh=mesh,
         **({} if decode_block is None else {"decode_block": decode_block}),
     )
     if disagg:
@@ -137,13 +146,14 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
         else:
             hub.attach_engine(target)
     server = MetricsServer(hub, port=metrics_port) \
-        if metrics_port is not None else None
+        if metrics_port is not None and lead else None
 
     rng = np.random.default_rng(seed)
     lo, hi = 4, max(5, min(16, cache_len - max_new_tokens))
     lengths = rng.integers(lo, hi + 1, size=n_requests)
     prompts = [rng.integers(0, vocab, size=int(p)) for p in lengths]
 
+    results = {}
     try:
         submitted = 0
         while submitted < n_requests or target.busy:
@@ -152,7 +162,7 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
                     target.submit(prompts[submitted], max_new_tokens,
                                   deadline_ticks=deadline_ticks)
                     submitted += 1
-            target.step()
+            results.update((res.id, res) for res in target.step())
     finally:
         if server is not None:
             server.close()
@@ -174,11 +184,12 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
         model_config={"vocab": vocab, "d_model": d_model, "heads": heads,
                       "depth": depth},
         device=str(dev),
+        stream_digest=stream_digest(results),
     )
     if server is not None:
         out["metrics_port"] = server.port
     recorder = target.recorder
-    if telemetry_dir:
+    if telemetry_dir and lead:
         os.makedirs(telemetry_dir, exist_ok=True)
         if multi:
             # the MERGED bundle: every replica's events and metrics plus
@@ -196,7 +207,7 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
                 extra_meta={"model": graph.name})
             atomic_write_text(os.path.join(telemetry_dir, "metrics.prom"),
                               target.metrics.registry.to_prometheus())
-    if trace_out:
+    if trace_out and lead:
         if multi:
             hub.export_trace(path=trace_out,
                              extra_meta={"model": graph.name})
@@ -204,6 +215,28 @@ def run_demo(*, slots: int = 4, n_requests: int = 8,
             export_chrome_trace(recorder, path=trace_out,
                                 extra_meta={"model": graph.name})
     return out
+
+
+def stream_digest(results: dict) -> str:
+    """SHA-256 of every completed request's token stream (prompt and
+    generated), in request-id order."""
+    h = hashlib.sha256()
+    for rid in sorted(results):
+        res = results[rid]
+        if res.status == "completed":
+            h.update(np.asarray(res.tokens, np.int64).tobytes())
+            h.update(b"|")
+    return h.hexdigest()
+
+
+def _is_lead(mesh) -> bool:
+    """Whether this process writes a run's files: always without a mesh,
+    else rank 0 of the process group."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _run_multimodel_demo(spec: str, *, n_requests: int,

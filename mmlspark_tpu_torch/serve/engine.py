@@ -1,5 +1,5 @@
 """``ServeEngine`` — the continuous-batching serving API, ported from
-``mmlspark_tpu/serve/engine.py`` for one device.
+``mmlspark_tpu/serve/engine.py``, on one device or over a serving mesh.
 
 Requests of different prompt lengths and arrival times share the slot
 pool's fixed-shape buffers. Each tick admits queued requests into free
@@ -155,10 +155,35 @@ the leased slot by ``write_prefill`` (no program runs) through the
 falls back to a full local prefill, and greedy determinism keeps the
 stream unchanged either way.
 
+**The mesh mode** (``mesh=``: a spec string ``"data=2,model=2"``, an
+axes mapping or a built DeviceMesh, over an initialised process group —
+NCCL, one rank a card; gloo when the caller asks for the CPU): every rank
+runs this same host loop on the same requests, so the scheduler, the
+leases, the page tables, the free lists and the prefix index are the same
+everywhere, while the device state is sharded. ``data`` rank ``r`` holds
+slots ``[r·S/d, (r+1)·S/d)`` (``slots`` must be a multiple of the axis)
+and each ``model`` rank its heads and its columns or rows of the weights
+(``parallel/sharding.model_split``, ``models/transformer.split_graph``):
+the compute splits Megatron-style, as GSPMD partitions the JAX engine's
+programs. A prefill runs on every data rank (replicated over ``data``,
+split over ``model``, as XLA runs a batch of one) and only the owner's
+rows take its K/V, so every rank knows the first token without a
+collective; a decode block runs each rank's slots and gathers the
+block's tokens and live flags over ``data`` inside the program, so the
+host still fetches once a block. The programs are captured as CUDA graphs
+with their collectives inside them. Weight-int8 engines keep the JAX
+engine's trade: the int8 tree is replicated, and each rank dequantizes
+it and runs on its own slices. A fault site firing on one rank is agreed
+by every rank before any retries or degrades (``parallel.mesh.
+MeshPlace.agree_error``, over a gloo group beside the mesh), as are the
+SLO monitor's shed signal and its burn counters; a call that fails on
+some ranks after others ran its collectives stops every rank with
+``MeshDesync``. Snapshots hold host state only, so they cross between
+mesh and one-device engines both ways.
+
 Decode is greedy — the same tokens as ``generate()`` per request, which
 is the engine's correctness contract (int8 pools and int8 weights:
-within a token-flip budget of the bf16 streams). Not in this slice:
-the mesh mode (ROADMAP.md Queue 1 item 13e).
+within a token-flip budget of the bf16 streams).
 """
 
 from __future__ import annotations
@@ -198,10 +223,18 @@ from mmlspark_tpu_torch.models.generate import (
     init_cache,
     make_decode_block,
 )
-from mmlspark_tpu_torch.models.transformer import compute_dtype_variables
+from mmlspark_tpu_torch.models.transformer import (
+    compute_dtype_variables,
+    split_graph,
+)
 from mmlspark_tpu_torch.ops.quantize import dequantize_weights
 from mmlspark_tpu_torch.ops.quantize import (
     quantize_weights as _quantize_variables,
+)
+from mmlspark_tpu_torch.parallel.mesh import serve_mesh
+from mmlspark_tpu_torch.parallel.sharding import (
+    local_variables,
+    model_split,
 )
 from mmlspark_tpu_torch.serve.cache_pool import SlotCachePool
 from mmlspark_tpu_torch.serve.metrics import ServeMetrics
@@ -222,7 +255,7 @@ from mmlspark_tpu_torch.utils.profiling import annotate
 class ServeEngine:
     def __init__(self, graph, variables, *, slots: int = 4,
                  cache_len: int | None = None, max_queue: int = 16,
-                 pad_id: int = 0, decode_block: int = 32,
+                 pad_id: int = 0, decode_block: int = 32, mesh=None,
                  recorder: FlightRecorder | None = None,
                  faults: FaultInjector | None = None,
                  retry_limit: int = 3, retry_backoff_s: float = 0.02,
@@ -321,20 +354,46 @@ class ServeEngine:
         self._prev_block_done = 0.0
         self.device = default_device(device)
         self.graph = graph
-        self.variables = variables_to(variables, self.device)
+        # the mesh mode: this rank's place on the (data, model) mesh, the
+        # compute split and this rank's copy of the graph for it
+        self._place = place = serve_mesh(mesh)
+        self.mesh = place.mesh if place is not None else None
+        self._split = None
+        self._model = graph
+        whole = variables_to(variables, self.device)
+        if place is not None:
+            if not place.member:
+                raise FriendlyError(
+                    f"this rank is outside the serving mesh "
+                    f"{place.shape} (ranks {place.ranks}); every rank of "
+                    "a mesh engine serves, so start one rank per mesh "
+                    "device"
+                )
+            if self.mesh.device_type != self.device.type:
+                raise FriendlyError(
+                    f"the serving mesh lives on {self.mesh.device_type} "
+                    f"and the engine on {self.device.type}: NCCL meshes "
+                    "serve on the card, gloo meshes only when the caller "
+                    "asks for the CPU"
+                )
+            self._split = model_split(graph, whole, place)
+            self._model = split_graph(graph, self._split, place)
         # weight-only int8: EVERY projection goes int8 (min_size=0: at
         # decode batch sizes each call streams the whole weight set for
         # a handful of FLOPs); the engine keeps no reference to the float
         # weights, and the pools size their buffers from the int8 qkv
-        # payloads (models.generate.cache_geometry)
+        # payloads (models.generate.cache_geometry). Under a mesh the
+        # int8 tree is replicated and each program slices its dequantized
+        # weights to the rank's shard (the JAX engine's trade)
         self._quantized_weights = bool(quantize_weights)
         if quantize_weights:
-            self.variables = _quantize_variables(graph, self.variables,
-                                                 min_size=0)
+            self.variables = _quantize_variables(graph, whole, min_size=0)
         else:
+            if self._split is not None:
+                whole = local_variables(graph, whole, self._split)
             # every Dense leaf in its compute dtype once, in place of the
             # f32 leaf Dense.forward would cast on every call
-            self.variables = compute_dtype_variables(graph, self.variables)
+            self.variables = compute_dtype_variables(self._model, whole)
         self.pad_id = pad_id
         self.cache_len = cache_len
         # floor to a power of two: block sizes live on the ladder
@@ -352,14 +411,15 @@ class ServeEngine:
         self.kv_dtype = kv_dtype
         if paged:
             self.pool = PagedCachePool(
-                graph, self.variables, slots, cache_len, device=self.device,
-                page_size=page_size, num_pages=num_pages,
-                prefix_cache=prefix_cache, kv_dtype=kv_dtype,
+                self._model, self.variables, slots, cache_len,
+                device=self.device, page_size=page_size,
+                num_pages=num_pages, prefix_cache=prefix_cache,
+                kv_dtype=kv_dtype, place=place,
             )
         else:
-            self.pool = SlotCachePool(graph, self.variables, slots,
+            self.pool = SlotCachePool(self._model, self.variables, slots,
                                       cache_len, device=self.device,
-                                      kv_dtype=kv_dtype)
+                                      kv_dtype=kv_dtype, place=place)
         # the replica identity: tags every fault-hook firing (so
         # replica-pinned faults target THIS engine) and namespaces the
         # registry's metric names
@@ -395,6 +455,8 @@ class ServeEngine:
             kv_dtype=kv_dtype, prefill_chunk=prefill_chunk or 0,
             async_host=self._async_host,
             namespace=f"replica{replica}." if replica is not None else "",
+            mesh_shape=place.shape if place is not None else None,
+            mesh_devices=place.devices if place is not None else 1,
         )
         if paged:
             self.metrics.attach_paging(self.pool.paging_stats)
@@ -409,7 +471,7 @@ class ServeEngine:
                                                max_queue=max_queue)
         self._vocab = graph.extra.get("vocab_size")
         self._next_id = 0
-        self._block = make_decode_block(graph, pad_id)
+        self._block = make_decode_block(self._model, pad_id)
         # the SLO plane: a spec string, SloTargets or a SloMonitor; while
         # its budget burns, new admissions wait (in-flight requests
         # finish)
@@ -486,7 +548,7 @@ class ServeEngine:
         """(1, bucket) padded prompt -> (the first greedy token, read at
         position ``last``, the true prompt end; a bucket-long linear
         cache)."""
-        cache = init_cache(self.graph, variables, 1, ids.shape[1])
+        cache = init_cache(self._model, variables, 1, ids.shape[1])
         return self._resume_body(variables, ids, cache, 0, last)
 
     def _resume_body(self, variables, ids, cache, pos, last):
@@ -494,16 +556,18 @@ class ServeEngine:
         device tensor for the prefix-cache remainder and a chunk) against
         the linear ``cache``, written in place and returned."""
         with self._weights(variables) as weights:
-            logits, cache = _cached_apply(self.graph, weights, ids, cache,
+            logits, cache = _cached_apply(self._model, weights, ids, cache,
                                           pos)
-        return greedy_next(_row(logits, last)), cache
+        return greedy_next(_row(logits, last),
+                           self._model.extra.get("vocab_split")), cache
 
     def _decode_body(self, variables, buffers, positions, live, tok, rem,
                      eos, t):
         """One fused decode block of ``t`` micro-steps. The pool's
         buffers are written in place, and its per-slot positions and live
         mask advance in place from the block's outputs (the JAX engine
-        donates them); returns the (S, t) tokens."""
+        donates them); returns the (S, t) tokens — under a mesh every
+        data rank's, with the live flags as a last column."""
         with self._weights(variables) as weights:
             toks, new_live, _, new_pos = self._block(
                 weights, buffers, positions, live, tok, rem, eos, t)
@@ -729,9 +793,37 @@ class ServeEngine:
         return res
 
     def _fire(self, site: str, tick: int, request: int | None = None):
+        """The fault hook before a guarded call. Under a mesh of several
+        ranks the outcome is agreed first: a firing on any rank raises
+        the same kind of error on every rank, so all of them retry,
+        degrade or die together and their collectives keep pairing."""
+        err = None
         if self._faults is not None:
-            self._faults.fire(site, tick=tick, request=request,
-                              replica=self._replica)
+            try:
+                self._faults.fire(site, tick=tick, request=request,
+                                  replica=self._replica)
+            except Exception as e:  # noqa: BLE001 — agreed, then raised
+                err = e
+        if self._place is not None and self._place.control is not None:
+            err = self._place.agree_error(err, site)
+        if err is not None:
+            raise err
+
+    def _call(self, site: str, fn, *args):
+        """``fn(*args)``, a guarded call; under a mesh of several ranks
+        its outcome is agreed after it (``MeshPlace.agree_after``): a
+        failure on some ranks only stops every rank with ``MeshDesync``,
+        since the others ran its collectives."""
+        place = self._place
+        if place is None or place.control is None:
+            return fn(*args)
+        try:
+            out = fn(*args)
+        except Exception as e:
+            place.agree_after(e, site)
+            raise
+        place.agree_after(None, site)
+        return out
 
     # -- spans and analytics -------------------------------------------------
 
@@ -765,8 +857,8 @@ class ServeEngine:
         if perf.wants_program(family):
             cost = self._costs.get(family)
             if cost is None:
-                cost = self._costs[family] = analyze_program_cost(body,
-                                                                  *args)
+                cost = self._costs[family] = self._whole(
+                    analyze_program_cost(body, *args))
             perf.register_program(family, cost)
 
     def _analyze_block(self, t_block: int, *args) -> str:
@@ -782,8 +874,8 @@ class ServeEngine:
         if family not in self._costs:
             one, two = (self._costs.get(f"decode[T={t}]") for t in (1, 2))
             if one is None or two is None:
-                one, two = (analyze_program_cost(self._decode_body, *args,
-                                                 t) for t in (1, 2))
+                one, two = (self._whole(analyze_program_cost(
+                    self._decode_body, *args, t)) for t in (1, 2))
             if one.flops is None or two.flops is None:
                 cost = ProgramCost.unavailable()
             else:
@@ -796,6 +888,13 @@ class ServeEngine:
                                 family: cost})
         self.metrics.perf.register_program(family, self._costs[family])
         return family
+
+    def _whole(self, cost: ProgramCost) -> ProgramCost:
+        """A program's cost as the meta run counts it — this rank's shard
+        of the work — over every device of the mesh."""
+        if self._place is None:
+            return cost
+        return cost.over_devices(self._place.devices)
 
     # -- introspection -----------------------------------------------------
 
@@ -920,6 +1019,10 @@ class ServeEngine:
             self._slo is not None and self._slo.should_shed
             and self.pool.leased_count > 0
         )
+        if self._slo is not None and self._place is not None:
+            # the monitor reads this rank's clock: every rank sheds if any
+            # does, so the admissions stay the same everywhere
+            shedding = bool(self._place.agree_max([shedding])[0])
         if shedding and self._sched.queue_depth:
             self.metrics.record_slo_shed()
             self.recorder.record("slo_shed", tick=tick,
@@ -1132,7 +1235,7 @@ class ServeEngine:
         bucket. The dispatch interval, ending at the existing sync, is
         attributed to the program's family."""
         p = len(seq)
-        hit = (self.pool.prefix_lookup(seq, self.prefill_bucket)
+        hit = (self.pool.prefix_lookup(seq, self.prefill_bucket, slot)
                if self._prefix_cache else None)
         with annotate("serve.prefill"):
             if hit is not None:
@@ -1152,8 +1255,9 @@ class ServeEngine:
                 while True:
                     try:
                         self._fire("serve.prefill", tick, rid)
-                        tok, cache = self._resume(
-                            self.variables, ids, lin, self._scalar(keep),
+                        tok, cache = self._call(
+                            "serve.prefill", self._resume, self.variables,
+                            ids, lin, self._scalar(keep),
                             self._scalar(r - 1))
                         # map the shared pages FIRST (the slot's
                         # references keep them alive through any eviction
@@ -1183,7 +1287,8 @@ class ServeEngine:
             while True:
                 try:
                     self._fire("serve.prefill", tick, rid)
-                    tok, cache = self._prefill_program(
+                    tok, cache = self._call(
+                        "serve.prefill", self._prefill_program,
                         self.variables, ids, self._scalar(p - 1))
                     # only the REAL prompt's K/V enter the slot; the pad
                     # tail of the bucket cache is dropped (the program's
@@ -1220,6 +1325,14 @@ class ServeEngine:
         padded[0, :len(tokens)] = tokens
         return host_to_device(padded, self.device)
 
+    def _rows(self, a):
+        """This rank's slot rows of a per-slot vector (all of them
+        without a mesh)."""
+        if self._place is None:
+            return a
+        base = self.pool.slot_base
+        return a[base:base + self.pool.local_slots]
+
     def _scalar(self, value: int):
         """An int32 0-d device tensor (a fill, no host copy): a program's
         position input."""
@@ -1235,9 +1348,12 @@ class ServeEngine:
             yield variables
             return
         try:
-            yield dequantize_weights(variables)
+            weights = dequantize_weights(variables)
+            if self._split is not None:
+                weights = local_variables(self.graph, weights, self._split)
+            yield weights
         finally:
-            self.graph.unbind()
+            self._model.unbind()
 
     # -- chunked prefill -----------------------------------------------------
 
@@ -1246,7 +1362,7 @@ class ServeEngine:
         fill's carry, which every chunk program reads and extends. Its
         fixed shape keys the chunk programs by width alone; it lives
         outside the graph pool, so it survives every replay."""
-        return init_cache(self.graph, self.variables, 1, self.cache_len)
+        return init_cache(self._model, self.variables, 1, self.cache_len)
 
     def _start_fill(self, req, slot: int, seq, tick: int) -> None:
         """Begin a chunked fill in a freshly leased slot: probe the prefix
@@ -1254,7 +1370,7 @@ class ServeEngine:
         once) and register the fill with the scheduler. No forward runs
         here."""
         keep, entry = 0, None
-        hit = (self.pool.prefix_lookup(seq, self.chunk_bucket)
+        hit = (self.pool.prefix_lookup(seq, self.chunk_bucket, slot)
                if self._prefix_cache else None)
         if hit is not None:
             entry, keep = hit
@@ -1271,8 +1387,9 @@ class ServeEngine:
         is a static input (the fill's tensor is copied in) written in
         place; the result is copied back into the fill's own tensor
         before any other program replays. Returns (token, cache)."""
-        tok, cache = self._chunk(self.variables, ids, fs.carry["cache"],
-                                 self._scalar(start), self._scalar(last))
+        tok, cache = self._call("serve.prefill", self._chunk,
+                                self.variables, ids, fs.carry["cache"],
+                                self._scalar(start), self._scalar(last))
         for name, leaves in cache.items():
             for dst, src in zip(fs.carry["cache"][name], leaves):
                 if dst is not src:
@@ -1470,12 +1587,13 @@ class ServeEngine:
             if not rems:
                 return "idle"
             t_block = self._block_size(min(rems))
-            tok_d, rem_d, eos_d = (host_to_device(a, self.device)
+            tok_d, rem_d, eos_d = (host_to_device(self._rows(a), self.device)
                                    for a in (tok, rem, eos))
             if lag:
                 sel = np.zeros((self.pool.num_slots,), bool)
                 sel[list(lag)] = True
-                tok_d = torch.where(host_to_device(sel, self.device),
+                tok_d = torch.where(host_to_device(self._rows(sel),
+                                                   self.device),
                                     prev["last"], tok_d)
             pool = self.pool
             family = self._analyze_block(t_block, self.variables,
@@ -1492,7 +1610,8 @@ class ServeEngine:
                     # the hook fires BEFORE the call: an injected failure
                     # never touches the pool
                     self._fire("serve.decode", tick)
-                    staged = self._decode_call(t_block, tok_d, rem_d, eos_d)
+                    staged = self._call("serve.decode", self._decode_call,
+                                        t_block, tok_d, rem_d, eos_d)
             except Exception as e:
                 attempts += 1
                 if not self._absorb(e, attempts, tick, "serve.decode"):
@@ -1534,12 +1653,18 @@ class ServeEngine:
             raise
         self._decode_sizes.add(t_block)
         on_card = self.device.type == "cuda"
+        if self._place is not None:
+            # every data rank's rows, the live flags as a last column
+            toks, live = toks[:, :-1], toks[:, -1]
+            last = self._rows(toks[:, -1]).clone()
+        else:
+            live = pool.live
+            last = toks[:, -1].clone()
         toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=on_card)
-        live_h = torch.empty(pool.live.shape, dtype=pool.live.dtype,
+        live_h = torch.empty(live.shape, dtype=live.dtype,
                              pin_memory=on_card)
         toks_h.copy_(toks, non_blocking=on_card)
-        live_h.copy_(pool.live, non_blocking=on_card)
-        last = toks[:, -1].clone()
+        live_h.copy_(live, non_blocking=on_card)
         event = None
         if on_card:
             event = torch.cuda.Event()
@@ -1583,7 +1708,8 @@ class ServeEngine:
         while True:
             try:
                 self._fire("serve.device_get", tick)
-                toks_h, live_h = self._fetch(inflight)
+                toks_h, live_h = self._call("serve.device_get", self._fetch,
+                                            inflight)
                 break
             except Exception as e:
                 if not (is_transient(e) or is_resource_exhausted(e)):
@@ -1874,6 +2000,14 @@ class ServeEngine:
         """The supervisor's probe surface, host-side only (no device
         sync): tick progress, queue and slot load, degradation, SLO burn
         and the fault and retry totals."""
+        burning, burn_ticks = (
+            (bool(self._slo.should_shed), int(self._slo.burn_ticks))
+            if self._slo is not None else (False, 0))
+        if self._slo is not None and self._place is not None:
+            # each rank's monitor reads its own clock; the probe (a fleet's
+            # autoscaler) sees the same figures on every rank
+            burning, burn_ticks = self._place.agree_max([burning,
+                                                         burn_ticks])
         return {
             "tick": self.tick,
             "busy": self.busy,
@@ -1883,15 +2017,10 @@ class ServeEngine:
             "active": len(self._sched.active),
             "filling": len(self._sched.filling),
             "degraded": self.degraded,
-            "slo_burning": (
-                bool(self._slo.should_shed) if self._slo is not None
-                else False
-            ),
+            "slo_burning": bool(burning),
             # consecutive burning SLO evaluations: the fleet
             # autoscaler's scale-up signal
-            "slo_burn_ticks": (
-                int(self._slo.burn_ticks) if self._slo is not None else 0
-            ),
+            "slo_burn_ticks": int(burn_ticks),
             "retries_total": self.metrics.retries_total,
             "quarantined_total": self.metrics.quarantined_total,
             "faults_injected_total": self.metrics.faults_injected_total,

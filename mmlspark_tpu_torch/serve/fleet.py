@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -58,7 +57,12 @@ from mmlspark_tpu_torch.core.integrity import SnapshotCorruption
 from mmlspark_tpu_torch.core.telemetry import FlightRecorder, MetricRegistry
 from mmlspark_tpu_torch.serve.engine import ServeEngine
 from mmlspark_tpu_torch.serve.scheduler import RequestResult
-from mmlspark_tpu_torch.serve.supervisor import _LIVE_RANK
+from mmlspark_tpu_torch.parallel.mesh import serve_mesh
+from mmlspark_tpu_torch.serve.supervisor import (
+    _LIVE_RANK,
+    agreed_ttft,
+    mesh_clock,
+)
 
 _log = logging.getLogger("mmlspark_tpu_torch.serve.fleet")
 
@@ -295,7 +299,11 @@ class DisaggFleet:
         self._engine_kwargs = dict(engine_kwargs)
         self._snapshot_every = snapshot_every_ticks
         self._probe_stall_s = probe_stall_s
-        self._clock = clock if clock is not None else time.monotonic
+        #: the replicas' serving mesh (None: one device each); over one
+        #: the clock and the routing key's TTFT are agreed by every rank
+        #: (serve/supervisor.py's "Mesh replicas")
+        self._place = serve_mesh(engine_kwargs.get("mesh"))
+        self._clock = clock if clock is not None else mesh_clock(self._place)
         self._faults = faults
         self._max_failovers = max_failovers
         self._autoscale = autoscale
@@ -446,11 +454,12 @@ class DisaggFleet:
             r for r in self._role_reps(role, live_only=True)
             if r.idx not in exclude
         ]
+        ttft = agreed_ttft(self._place, live)
         return sorted(live, key=lambda r: (
             0 if r.idx in prefer else 1,
             _LIVE_RANK[r.state],
             r.engine.queue_depth + r.engine.pool.leased_count,
-            r.engine.metrics.ttft_p99_ms(),
+            ttft[r.idx],
             r.idx,
         ))
 

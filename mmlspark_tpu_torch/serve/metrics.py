@@ -17,9 +17,10 @@ dispatch interval to it, with no new host sync. ``attach_slo`` feeds an
 ``snapshot()`` returns structured
 :class:`~mmlspark_tpu_torch.core.metrics_contracts.MetricData` records.
 
-The port serves on one device: ``mesh_shape`` is ``{}`` and
-``mesh_devices`` 1 (the engine's mesh mode is ROADMAP.md Queue 1 item
-13e). Tick-count
+The serving topology: ``mesh_shape`` (axis -> size; ``{}`` on one
+device), ``mesh_devices`` and ``cache_pool_bytes_per_device`` (the KV
+pool bytes one device holds: a rank's shard under a mesh, below the
+pool's total). Tick-count
 figures (TTFT in ticks, queue depth) are deterministic given the arrival
 schedule; wall-clock figures (TTFT ms, per-token ms, tokens/sec, MFU)
 describe the host and device together and are only meaningful from a
@@ -52,7 +53,9 @@ class ServeMetrics:
                  kv_dtype: str = "bf16",
                  prefill_chunk: int = 0,
                  async_host: bool = False,
-                 namespace: str = ""):
+                 namespace: str = "",
+                 mesh_shape: dict[str, int] | None = None,
+                 mesh_devices: int = 1):
         self.model = model
         self.slots = slots
         #: per-replica metric namespacing (serve/supervisor.py): a
@@ -65,10 +68,12 @@ class ServeMetrics:
         #: the engine's configured max fused-block size (T); surfaced in
         #: to_dict so dashboards can normalize block-aware figures
         self.decode_block = decode_block
-        #: the serving topology: one device, no mesh, and the KV-pool
-        #: bytes that device holds
-        self.mesh_shape: dict[str, int] = {}
-        self.mesh_devices = 1
+        #: the serving topology: axis name -> size of the engine's mesh
+        #: ({} on one device), its device count — what dashboards
+        #: normalize tokens/sec by across mesh shapes — and the KV-pool
+        #: bytes one device holds
+        self.mesh_shape: dict[str, int] = dict(mesh_shape or {})
+        self.mesh_devices = mesh_devices
         self.cache_pool_bytes_per_device = cache_pool_bytes_per_device
         #: KV-store dtype of the engine's cache pool ("bf16" or "int8"
         #: — the quantized decode path); paired with
@@ -171,7 +176,8 @@ class ServeMetrics:
         #: family's analytic cost once and attributes every dispatch
         #: interval here — to_dict() grows mfu / hbm_bw_util_pct / the
         #: device-vs-host time split from it, with zero new host syncs
-        self.perf = PerfAnalytics(registry=r, n_devices=1)
+        self.perf = PerfAnalytics(registry=r,
+                                  n_devices=max(1, mesh_devices))
         #: rolling-window SLO monitor (attach_slo); None -> undeclared
         self.slo: SloMonitor | None = None
         self._slo_shed_ticks = r.counter(n("serve.slo_shed_ticks"))

@@ -56,8 +56,20 @@ page copies are per-block functional updates. The port updates in place:
 ONE device page table serves every block (each block's entry holds the
 same tensor), and a copy-on-extend is ``pk[dst].copy_(pk[src])``.
 
-Not ported: mesh shards (one data shard here; ROADMAP.md Queue 1 item
-13e, the engine's mesh mode).
+Under a serving mesh (``place``, a ``parallel.mesh.MeshPlace``) the pages
+shard over ``data`` like the slot rows, as in the JAX package: data rank
+``s`` holds pages ``[s·P, (s+1)·P)`` (``P = pages_per_shard``, page
+``s·P`` its trash page) and the page-table rows of its slots, with
+per-shard free lists, so every page a slot maps lives on the slot's own
+rank; its ``model`` rank holds the kv heads it reads. The host mirror —
+the whole page table, the refcounts, the free lists, the prefix cache —
+is the same on every rank. A prefix hit from a slot on another shard is
+made local by a page copy across data ranks: every rank knows the plan
+from its mirror, so the copy is one matched collective (a broadcast over
+``data`` from the entry's rank), never a host round trip;
+``prefix_shard_copies`` counts them. A prefix's linear cache, the resume
+prefill's input, is broadcast the same way, since prefill runs on every
+data rank.
 """
 
 from __future__ import annotations
@@ -73,6 +85,7 @@ from mmlspark_tpu_torch.core.faults import ResourceExhausted
 from mmlspark_tpu_torch.models.generate import cache_geometry
 from mmlspark_tpu_torch.ops.flash_attention import MIN_PAGE_SIZE
 from mmlspark_tpu_torch.serve.cache_pool import (
+    check_slot_split,
     kv_head_scales,
     quantize_kv,
     validate_kv_dtype,
@@ -139,9 +152,11 @@ class PagedCachePool:
     def __init__(self, graph, variables, slots: int, cache_len: int, *,
                  device, page_size: int | None = None,
                  num_pages: int | None = None,
-                 prefix_cache: bool = False, kv_dtype: str = "bf16"):
+                 prefix_cache: bool = False, kv_dtype: str = "bf16",
+                 place=None):
         if slots < 1:
             raise FriendlyError(f"slots must be >= 1, got {slots}")
+        data = check_slot_split(slots, place)
         if cache_len < 2:
             raise FriendlyError(
                 f"cache_len must be >= 2 (one prompt token + one "
@@ -180,32 +195,49 @@ class PagedCachePool:
         self.cache_len = cache_len
         self.page_size = page_size
         self.max_pages = cache_len // page_size
+        self._place = place
+        self._data = data
+        self.local_slots = slots // data
+        self._shard = place.data_index if place is not None else 0
+        self.slot_base = self._shard * self.local_slots
         if num_pages is None:
-            # worst case: every slot fully paged, plus the trash page —
-            # a budget that can never exhaust. Callers size it DOWN to
-            # realize the memory win.
-            num_pages = slots * self.max_pages + 1
-        if num_pages < 2:
+            # worst case: every slot fully paged, plus one trash page a
+            # shard — a budget that can never exhaust. Callers size it
+            # DOWN to realize the memory win.
+            num_pages = data * (self.local_slots * self.max_pages + 1)
+        if num_pages % data:
             raise FriendlyError(
-                f"num_pages ({num_pages}) leaves no allocatable page; the "
-                "pool needs its reserved trash page plus at least one "
-                "allocatable page"
+                f"num_pages ({num_pages}) must be a multiple of the mesh's "
+                f"'data' axis ({data}): pages shard over it and each "
+                "shard owns its own free list"
+            )
+        self.pages_per_shard = num_pages // data
+        if self.pages_per_shard < 2:
+            raise FriendlyError(
+                f"num_pages ({num_pages}) leaves no allocatable page on a "
+                "data shard; each shard needs its reserved trash page plus "
+                "at least one allocatable page"
             )
         self.num_pages = num_pages
         self.prefix_cache_enabled = bool(prefix_cache)
 
         # -- host allocator state --------------------------------------
-        # page table mirror: every entry starts at the trash page, so
-        # unmapped (and freed) rows absorb the fused block's fixed-shape
-        # writes without touching a live page
-        self._pt_host = np.full((slots, self.max_pages), TRASH_PAGE,
-                                np.int32)
+        # page table mirror: every entry starts at its shard's trash
+        # page, so unmapped (and freed) rows absorb the fused block's
+        # fixed-shape writes without touching a live page
+        self._pt_host = np.empty((slots, self.max_pages), np.int32)
+        for slot in range(slots):
+            self._pt_host[slot, :] = self._trash_page(
+                self._shard_of_slot(slot))
         #: logical pages currently mapped per slot (contiguous [0, n))
         self._npages = [0] * slots
         self._refcount = np.zeros((num_pages,), np.int64)
-        # LIFO free list popping the lowest page id first (the slot
-        # pool's determinism convention); the trash page never enters it
-        self._free_pages = list(range(num_pages - 1, TRASH_PAGE, -1))
+        # LIFO free lists, one a shard, popping the lowest page id first
+        # (the slot pool's determinism convention); trash pages never
+        # enter them
+        pps = self.pages_per_shard
+        self._free_pages = [list(range((s + 1) * pps - 1, s * pps, -1))
+                            for s in range(data)]
         self._pt_dirty = False
 
         # -- prefix cache ----------------------------------------------
@@ -216,24 +248,27 @@ class PagedCachePool:
         self.prefix_tokens_saved = 0
         self.prefix_evictions = 0
         self.cow_copies = 0
+        #: cross-shard hits localized by page copy (mesh only)
+        self.prefix_shard_copies = 0
 
         # -- device tensors --------------------------------------------
         quantized = kv_dtype == "int8"
         store = torch.int8 if quantized else torch.bfloat16
-        #: the ONE device page table every block's entry holds
-        self.page_table = torch.from_numpy(self._pt_host.copy()).to(
+        #: the ONE device page table every block's entry holds: this
+        #: rank's slot rows, in the shard's own page ids
+        self.page_table = torch.from_numpy(self._local_table()).to(
             self.device)
         self.buffers = {}
         for name, (hk, d) in geometry.items():
             k, v = (
-                torch.zeros((num_pages, hk, page_size, d), dtype=store,
+                torch.zeros((pps, hk, page_size, d), dtype=store,
                             device=self.device)
                 for _ in range(2)
             )
             entry = (k, v, self.page_table)
             if quantized:
                 entry += tuple(
-                    torch.ones((num_pages, hk), dtype=torch.float32,
+                    torch.ones((pps, hk), dtype=torch.float32,
                                device=self.device)
                     for _ in range(2)
                 )
@@ -245,23 +280,61 @@ class PagedCachePool:
         self._defer_gen: int | None = None
         self._deferred: list[tuple[int, int, list[int]]] = []
         self._deferred_slots: set[int] = set()
-        self.positions = torch.zeros((slots,), dtype=torch.int32,
+        self.positions = torch.zeros((self.local_slots,), dtype=torch.int32,
                                      device=self.device)
-        self.live = torch.zeros((slots,), dtype=torch.bool,
+        self.live = torch.zeros((self.local_slots,), dtype=torch.bool,
                                 device=self.device)
+
+    # -- shard geometry ----------------------------------------------------
+
+    def _shard_of_slot(self, slot: int) -> int:
+        return slot // self.local_slots
+
+    def _shard_of_page(self, page: int) -> int:
+        return page // self.pages_per_shard
+
+    def _trash_page(self, shard: int) -> int:
+        return shard * self.pages_per_shard + TRASH_PAGE
+
+    def _entry_shard(self, entry: "_PrefixEntry") -> int:
+        """The data shard holding ALL of an entry's pages: an entry
+        registers a slot's own pages, and :meth:`map_prefix` copies
+        another shard's pages before a slot maps them."""
+        return self._shard_of_page(entry.pages[0])
+
+    def local_row(self, slot: int) -> int | None:
+        """``slot``'s row in this rank's state, or None when another data
+        rank holds it."""
+        return slot - self.slot_base \
+            if self._shard_of_slot(slot) == self._shard else None
+
+    def _local_pages(self, pages) -> torch.Tensor:
+        """Global page ids of this rank's shard -> its store's indices,
+        on the device."""
+        return host_to_device(
+            np.asarray(pages, np.int64) - self._shard * self.pages_per_shard,
+            self.device)
+
+    def _local_table(self) -> np.ndarray:
+        """This rank's rows of the page-table mirror, in local page
+        ids."""
+        lo = self.slot_base
+        return (self._pt_host[lo:lo + self.local_slots]
+                - self._shard * self.pages_per_shard).astype(np.int32)
 
     # -- page allocator ----------------------------------------------------
 
-    def _alloc_page(self) -> int:
-        if not self._free_pages:
-            self._evict_prefix_entries()
-        if not self._free_pages:
+    def _alloc_page(self, shard: int) -> int:
+        free = self._free_pages[shard]
+        if not free:
+            self._evict_prefix_entries(shard)
+        if not free:
             raise ResourceExhausted(
-                f"page allocator exhausted: all {self.pages_allocatable} "
-                "allocatable pages are mapped and the prefix cache has "
-                "nothing left to evict"
+                f"page allocator exhausted on data shard {shard}: all "
+                f"{self.pages_per_shard - 1} allocatable pages are mapped "
+                "and the prefix cache has nothing left to evict there"
             )
-        page = self._free_pages.pop()
+        page = free.pop()
         self._refcount[page] = 1
         return page
 
@@ -275,15 +348,21 @@ class PagedCachePool:
         rc -= 1
         self._refcount[page] = rc
         if rc == 0:
-            self._free_pages.append(page)
+            self._free_pages[self._shard_of_page(page)].append(page)
 
-    def _evict_prefix_entries(self) -> None:
-        """Free-list pressure valve: drop least-recently-used prefix
-        entries until a page is free (or no entry is left). Pages still
-        mapped by active slots survive their entry's eviction — the
-        refcount only reaches zero once the last slot frees too."""
-        while not self._free_pages and self._prefix:
-            key = min(self._prefix, key=lambda k: self._prefix[k].last_used)
+    def _evict_prefix_entries(self, shard: int) -> None:
+        """Free-list pressure valve: drop the least-recently-used prefix
+        entries whose pages live on ``shard`` until it has a free page
+        (or no such entry is left); other shards' entries free nothing
+        there and survive. Pages still mapped by active slots survive
+        their entry's eviction — the refcount only reaches zero once the
+        last slot frees too."""
+        while not self._free_pages[shard]:
+            mine = [k for k, e in self._prefix.items()
+                    if self._entry_shard(e) == shard]
+            if not mine:
+                return
+            key = min(mine, key=lambda k: self._prefix[k].last_used)
             entry = self._prefix.pop(key)
             for page in entry.pages:
                 self._decref(page)
@@ -301,16 +380,17 @@ class PagedCachePool:
             return
         first_pg = start // self.page_size
         last_pg = (stop - 1) // self.page_size
+        shard = self._shard_of_slot(slot)
         for pg in range(min(self._npages[slot], first_pg), last_pg + 1):
             if pg >= self._npages[slot]:
-                self._pt_host[slot, pg] = self._alloc_page()
+                self._pt_host[slot, pg] = self._alloc_page(shard)
                 self._npages[slot] = pg + 1
                 self._pt_dirty = True
             elif pg >= first_pg:
                 phys = int(self._pt_host[slot, pg])
                 if int(self._refcount[phys]) > 1:
                     # copy-on-extend: privatize before the write lands
-                    page = self._alloc_page()
+                    page = self._alloc_page(shard)
                     self._copy_page(phys, page)
                     self._decref(phys)
                     self._pt_host[slot, pg] = page
@@ -318,21 +398,53 @@ class PagedCachePool:
                     self.cow_copies += 1
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy one physical page, in place — with its int8 scales, or
-        the copied values would decode through the wrong multipliers."""
+        """Copy one physical page of one shard, in place — with its int8
+        scales, or the copied values would decode through the wrong
+        multipliers. The shard's rank copies; the others have nothing to
+        do."""
+        if self._shard_of_page(src) != self._shard:
+            return
+        base = self._shard * self.pages_per_shard
+        src, dst = src - base, dst - base
         for pk, pv, _pt, *scales in self.buffers.values():
             pk[dst].copy_(pk[src])
             pv[dst].copy_(pv[src])
             for s in scales:
                 s[dst].copy_(s[src])
 
+    def _copy_pages_across(self, src_pages: list[int],
+                           dst_pages: list[int]) -> None:
+        """Copy pages of one shard onto another's, with their int8
+        scales: the source rank packs them into one byte buffer and
+        broadcasts it over ``data`` (one collective, which every data
+        rank joins — each knows the plan from its mirror), the destination
+        rank unpacks it into its pages."""
+        src_shard = self._shard_of_page(src_pages[0])
+        dst_shard = self._shard_of_page(dst_pages[0])
+        leaves = [t for pk, pv, _pt, *scales in self.buffers.values()
+                  for t in (pk, pv, *scales)]
+        n = len(src_pages)
+        sizes = [n * t[0].numel() * t.element_size() for t in leaves]
+        buf = torch.empty((sum(sizes),), dtype=torch.uint8,
+                          device=self.device)
+        if self._shard == src_shard:
+            idx = self._local_pages(src_pages)
+            buf.copy_(torch.cat([t[idx].contiguous().view(-1)
+                                 .view(torch.uint8) for t in leaves]))
+        self._place.data_broadcast(buf, src_shard)
+        if self._shard == dst_shard:
+            idx = self._local_pages(dst_pages)
+            for t, part in zip(leaves, buf.split(sizes)):
+                t[idx] = part.view(t.dtype).view(n, *t.shape[1:])
+
     def _commit_pt(self) -> None:
-        """Copy the host page table to the device, in place: a copy of the
-        mirror staged in a fresh pinned buffer (the mirror is mutated
-        again right after), enqueued without a host sync."""
+        """Copy this rank's rows of the host page table to the device, in
+        place: a copy of the mirror staged in a fresh pinned buffer (the
+        mirror is mutated again right after), enqueued without a host
+        sync."""
         if not self._pt_dirty:
             return
-        self.page_table.copy_(host_to_device(self._pt_host.copy(),
+        self.page_table.copy_(host_to_device(self._local_table(),
                                              self.device))
         self._pt_dirty = False
 
@@ -354,12 +466,12 @@ class PagedCachePool:
 
     @property
     def pages_free(self) -> int:
-        return len(self._free_pages)
+        return sum(len(f) for f in self._free_pages)
 
     @property
     def pages_allocatable(self) -> int:
-        """Capacity net of the reserved trash page."""
-        return self.num_pages - 1
+        """Capacity net of the reserved trash pages (one a shard)."""
+        return self.num_pages - self._data
 
     def lease(self) -> int:
         if not self._free:
@@ -416,7 +528,8 @@ class PagedCachePool:
             self._deferred.append((self._defer_gen, slot, pages))
             self._deferred_slots.add(slot)
             if self._npages[slot]:
-                self._pt_host[slot, :] = TRASH_PAGE
+                self._pt_host[slot, :] = self._trash_page(
+                    self._shard_of_slot(slot))
                 self._npages[slot] = 0
                 self._pt_dirty = True
         else:
@@ -424,8 +537,10 @@ class PagedCachePool:
             self._free.append(slot)
             self._release_mappings(slot)
         self._commit_pt()
-        self.positions[slot] = 0
-        self.live[slot] = False
+        row = self.local_row(slot)
+        if row is not None:
+            self.positions[row] = 0
+            self.live[row] = False
 
     def _release_mappings(self, slot: int) -> None:
         """Unmap every logical page of ``slot``: decref (pages shared
@@ -436,7 +551,7 @@ class PagedCachePool:
             return
         for pg in range(self._npages[slot]):
             self._decref(int(self._pt_host[slot, pg]))
-        self._pt_host[slot, :] = TRASH_PAGE
+        self._pt_host[slot, :] = self._trash_page(self._shard_of_slot(slot))
         self._npages[slot] = 0
         self._pt_dirty = True
 
@@ -464,11 +579,15 @@ class PagedCachePool:
                 f"{length})"
             )
         self._ensure_writable(slot, start, length)
+        self._commit_pt()
+        row = self.local_row(slot)
+        if row is None:
+            return  # another data rank's pages
         ps = self.page_size
         pos = np.arange(start, length)
-        pages = host_to_device(
-            self._pt_host[slot, pos // ps].astype(np.int64), self.device)
+        pages = self._local_pages(self._pt_host[slot, pos // ps])
         offs = host_to_device(pos % ps, self.device)
+        base = self._shard * self.pages_per_shard
         quantized = self.kv_dtype == "int8"
         for name, (pk, pv, _pt, *scales) in self.buffers.items():
             ck, cv = prefill_cache[name][:2]
@@ -487,7 +606,7 @@ class PagedCachePool:
                 for pg in range(start // ps, (length - 1) // ps + 1):
                     lo, hi = max(pg * ps, start), min((pg + 1) * ps, length)
                     sk, sv = ck[0, lo:hi].float(), cv[0, lo:hi].float()
-                    page = int(self._pt_host[slot, pg])
+                    page = int(self._pt_host[slot, pg]) - base
                     if pg * ps >= start:
                         ks[page] = kv_head_scales(sk, axes=(0, 2))
                         vs[page] = kv_head_scales(sv, axes=(0, 2))
@@ -498,9 +617,8 @@ class PagedCachePool:
             else:
                 pk.index_put_(idx, ck[0, start:length].to(pk.dtype))
                 pv.index_put_(idx, cv[0, start:length].to(pv.dtype))
-        self._commit_pt()
-        self.positions[slot] = length
-        self.live[slot] = True
+        self.positions[row] = length
+        self.live[row] = True
 
     def ensure_decode_pages(self, positions: dict[int, int],
                             t_block: int) -> None:
@@ -517,27 +635,33 @@ class PagedCachePool:
 
     # -- prefix cache ------------------------------------------------------
 
-    def prefix_lookup(self, seq, bucket_fn):
+    def prefix_lookup(self, seq, bucket_fn, slot: int | None = None):
         """Best reusable prefix for ``seq``: the cached entry sharing the
         longest common prefix, trimmed to ``keep`` positions such that
         (a) at least one remainder token is left to prefill (its logits
         seed decode), and (b) the remainder's padded bucket still fits
         the linear resume cache (``keep + bucket_fn(len - keep) <=
-        cache_len``). Returns ``(entry, keep)`` or None when nothing
-        covers at least one page. (The JAX pool's ``slot`` argument
-        breaks ties between data shards; one device has one shard.)"""
+        cache_len``). With ``slot`` given, entries on the slot's data
+        shard win coverage ties (a same-shard hit maps shared pages for
+        free, a cross-shard one pays :meth:`map_prefix`'s page copies).
+        Returns ``(entry, keep)`` or None when nothing covers at least
+        one page."""
         if not self._prefix:
             return None
+        shard = None if slot is None else self._shard_of_slot(slot)
         seq = np.asarray(seq, np.int32)
-        best, best_c = None, 0
+        best, best_c, best_local = None, 0, False
         for entry in self._prefix.values():
             m = min(int(seq.size), entry.length)
             if m < best_c:
                 continue
             neq = np.nonzero(seq[:m] != entry.prompt[:m])[0]
             c = int(neq[0]) if neq.size else m
-            if c > best_c:
-                best, best_c = entry, c
+            local = shard is None or self._entry_shard(entry) == shard
+            if c > best_c or (
+                c == best_c and c > 0 and local and not best_local
+            ):
+                best, best_c, best_local = entry, c, local
         keep = min(best_c, int(seq.size) - 1)
         while (
             keep >= self.page_size
@@ -552,7 +676,12 @@ class PagedCachePool:
                    keep: int) -> bool:
         """Map the entry's pages covering ``[0, keep)`` into ``slot``,
         SHARED (refcounts rise, nothing is copied — the prefix prefilled
-        once). Any mappings the slot already holds are released first.
+        once) when they live on the slot's data shard; another shard's
+        pages are first copied onto fresh pages of the slot's shard (one
+        collective over ``data``, :meth:`_copy_pages_across`), which keeps
+        every page a slot maps on its own rank while still skipping the
+        prefix's prefill. Any mappings the slot already holds are released
+        first.
 
         Returns False — mapping nothing — when the entry is STALE
         (evicted since the lookup): mapping it could resurrect pages
@@ -565,10 +694,23 @@ class PagedCachePool:
             return False
         self._release_mappings(slot)
         n = -(-keep // self.page_size)  # ceil
-        for i in range(n):
-            phys = entry.pages[i]
-            self._refcount[phys] += 1
-            self._pt_host[slot, i] = phys
+        shard = self._shard_of_slot(slot)
+        if self._entry_shard(entry) == shard:
+            pages = entry.pages[:n]
+            for phys in pages:
+                self._refcount[phys] += 1
+        else:
+            # localize: an allocator raise here leaves the pages already
+            # taken accounted to the slot, so a retry or free releases
+            # them
+            pages = []
+            for i in range(n):
+                pages.append(self._alloc_page(shard))
+                self._pt_host[slot, i] = pages[-1]
+                self._npages[slot] = i + 1
+            self._copy_pages_across(entry.pages[:n], pages)
+            self.prefix_shard_copies += 1
+        self._pt_host[slot, :n] = pages
         self._npages[slot] = n
         self._pt_dirty = True
         self._use_counter += 1
@@ -583,24 +725,33 @@ class PagedCachePool:
         ``(1, cache_len, Hkv, D)`` bf16 caches — the resume prefill's
         input (the transformer's scalar-pos prefill path wants a linear
         cache; the paged layout is a decode-side format). int8 pages
-        dequantize through their per-page scales."""
+        dequantize through their per-page scales. Under a mesh the
+        entry's rank linearizes and broadcasts the caches over ``data``
+        in one collective: the resume prefill runs on every data rank."""
         n = -(-keep // self.page_size)
-        idx = host_to_device(np.asarray(entry.pages[:n], np.int64),
-                             self.device)
-        out = {}
+        owner = self._entry_shard(entry)
+        out, flat = {}, []
         for name, (pk, pv, _pt, *scales) in self.buffers.items():
             hk, d = pk.shape[1], pk.shape[3]
             lin = []
             for store, scl in zip((pk, pv), scales or (None, None)):
-                g = store[idx]  # (n, hk, ps, d)
-                if scl is not None:
-                    g = g.float() * scl[idx][:, :, None, None]
-                g = g.transpose(1, 2).reshape(n * self.page_size, hk, d)
                 arr = torch.zeros((1, self.cache_len, hk, d),
                                   dtype=torch.bfloat16, device=self.device)
-                arr[0, :keep] = g[:keep].to(torch.bfloat16)
+                if owner == self._shard:
+                    idx = self._local_pages(entry.pages[:n])
+                    g = store[idx]  # (n, hk, ps, d)
+                    if scl is not None:
+                        g = g.float() * scl[idx][:, :, None, None]
+                    g = g.transpose(1, 2).reshape(n * self.page_size, hk, d)
+                    arr[0, :keep] = g[:keep].to(torch.bfloat16)
                 lin.append(arr)
             out[name] = tuple(lin)
+            flat += lin
+        if self._data > 1:
+            buf = torch.cat([t.view(-1) for t in flat])
+            self._place.data_broadcast(buf, owner)
+            for t, part in zip(flat, buf.split([t.numel() for t in flat])):
+                t.view(-1).copy_(part)
         return out
 
     def prefix_insert(self, slot: int, seq) -> None:
@@ -627,8 +778,9 @@ class PagedCachePool:
 
     def device_bytes_per_device(self) -> int:
         """Pool bytes resident on the device: page stores, int8 scales,
-        the one page table and the per-slot state. Below the dense
-        pool's reservation whenever ``num_pages < slots * max_pages``."""
+        the one page table and the per-slot state (this rank's shard
+        under a mesh). Below the dense pool's reservation whenever
+        ``num_pages < slots * max_pages``."""
         tensors = {id(t): t for entry in self.buffers.values()
                    for t in entry}
         tensors[id(self.positions)] = self.positions

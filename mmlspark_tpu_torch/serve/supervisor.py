@@ -40,6 +40,14 @@ Pure host-side control: the supervisor never touches device buffers,
 and reads no clock on the engines' hot path, so every per-replica
 invariant (program pins, one fetch a decode block) holds exactly as on
 an unsupervised engine.
+
+**Mesh replicas** (``mesh=`` among the engine kwargs): every replica is a
+mesh engine over the same mesh, and every rank runs this same control
+plane. Its decisions must then be the same on every rank, so what reads
+a rank's own clock is agreed over the mesh: the default clock is the
+mesh's (``MeshPlace.clock``, the latest of the ranks' readings) and the
+routing key's TTFT p99 is each replica's worst over the ranks
+(:func:`agreed_ttft`).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from mmlspark_tpu_torch.core.exceptions import FriendlyError
 from mmlspark_tpu_torch.core.faults import EngineKilled, FaultInjector
 from mmlspark_tpu_torch.core.integrity import SnapshotCorruption
 from mmlspark_tpu_torch.core.telemetry import FlightRecorder, MetricRegistry
+from mmlspark_tpu_torch.parallel.mesh import serve_mesh
 from mmlspark_tpu_torch.serve.engine import ServeEngine
 from mmlspark_tpu_torch.serve.scheduler import RequestResult
 
@@ -120,6 +129,24 @@ class _Replica:
     model: str | None = None
 
 
+def mesh_clock(place):
+    """A control plane's default clock: ``time.monotonic``, or over a
+    serving mesh of several ranks the mesh's agreed clock."""
+    if place is not None and place.control is not None:
+        return place.clock
+    return time.monotonic
+
+
+def agreed_ttft(place, reps) -> dict[int, float]:
+    """Replica index -> its engine's TTFT p99 in ms (a routing key), over
+    a serving mesh the worst of every rank's reading, so every rank
+    routes alike."""
+    vals = [r.engine.metrics.ttft_p99_ms() for r in reps]
+    if place is not None and vals:
+        vals = place.agree_max(vals)
+    return {r.idx: v for r, v in zip(reps, vals)}
+
+
 class ReplicaSet:
     """N health-checked ServeEngine replicas behind one facade.
 
@@ -184,7 +211,9 @@ class ReplicaSet:
         self._snapshot_every = snapshot_every_ticks
         self._hedge_ms = hedge_ms
         self._probe_stall_s = probe_stall_s
-        self._clock = clock if clock is not None else time.monotonic
+        #: the replicas' serving mesh (None: one device each)
+        self._place = serve_mesh(engine_kwargs.get("mesh"))
+        self._clock = clock if clock is not None else mesh_clock(self._place)
         self._faults = faults
         self._max_failovers = max_failovers
         #: the supervisor's OWN flight recorder (routing, failover,
@@ -312,12 +341,13 @@ class ReplicaSet:
             if r.state in _LIVE_RANK and r.idx not in exclude
             and r.model == model
         ]
+        ttft = agreed_ttft(self._place, live)
         return sorted(live, key=lambda r: (
             _LIVE_RANK[r.state],
             r.engine.queue_depth + r.engine.pool.leased_count,
             # 0.0 on a cold replica's empty histogram (the helper's
             # contract) — cold replicas route as cheapest
-            r.engine.metrics.ttft_p99_ms(),
+            ttft[r.idx],
             r.idx,
         ))
 

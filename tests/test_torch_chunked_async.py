@@ -1,11 +1,12 @@
 """The port's chunked prefill and pipelined async host loop against the
-JAX engine, mirroring ``tests/test_chunked_async.py`` (its 2x2 mesh,
-disaggregated hand-off and ``core/perf`` cases wait for the mesh and the
-replica plane): with ``prefill_chunk`` a long prompt's fill runs as
-bounded chunk programs, one program per chunk bucket; with
-``async_host`` block N+1 is dispatched before block N is fetched, still
-at most one fetch a block; every stream equals the JAX engine's, and a
-JAX engine's snapshot, killed mid-fill, restores on the port.
+JAX engine, mirroring ``tests/test_chunked_async.py`` (its 2x2 mesh case
+is in ``tests/test_torch_serve_mesh_planes.py``; its disaggregated
+hand-off and ``core/perf`` cases are the replica plane's): with
+``prefill_chunk`` a long prompt's fill runs as bounded chunk programs,
+one program per chunk bucket; with ``async_host`` block N+1 is
+dispatched before block N is fetched, still at most one fetch a block;
+every stream equals the JAX engine's, and a JAX engine's snapshot,
+killed mid-fill, restores on the port.
 
 The model is the JAX package's overfit periodic LM bridged into the port,
 so greedy picks have wide margins and the streams compare token for

@@ -21,9 +21,10 @@ from mmlspark_tpu_torch.__main__ import main
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
 REPO = Path(__file__).resolve().parents[1]
-#: keys only the port's demos report: the device they ran on, and the
-#: trainer's captured-step program counter and capture seconds
-PORT_ONLY_SERVE_KEYS = {"device"}
+#: keys only the port's demos report: the device they ran on, the serve
+#: run's stream digest, and the trainer's captured-step program counter
+#: and capture seconds
+PORT_ONLY_SERVE_KEYS = {"device", "stream_digest"}
 PORT_ONLY_TRAIN_KEYS = {"retrace.train.step", "train.step_capture_s"}
 
 
@@ -182,8 +183,24 @@ def test_serve_json_matches_jax_keys(capsys, monkeypatch):
     assert got.keys() == want.keys() | PORT_ONLY_SERVE_KEYS
     assert got["completed"] == want["completed"] == 2
     assert got["tokens_generated"] == want["tokens_generated"] == 4
-    with pytest.raises(FriendlyError, match="item 13e"):
-        main(["--cpu-mesh", "1", "serve", "--mesh", "data=1"])
+
+
+def test_serve_mesh_streams_match_one_device(capsys):
+    """``serve --mesh data=2,model=2`` over 4 gloo rank processes: one
+    JSON line (rank 0's), the mesh topology, and every request's token
+    stream (``stream_digest``) equal to the one-device run's."""
+    args = ("serve", "--requests", "4", "--max-new-tokens", "4", "--slots",
+            "4", "--decode-block", "2")
+    single = json.loads(_cli(capsys, "--cpu-mesh", "1", *args)
+                        .splitlines()[-1])
+    meshed = _cli(capsys, "--cpu-mesh", "4", *args, "--mesh",
+                  "data=2,model=2").splitlines()
+    assert len(meshed) == 1
+    got = json.loads(meshed[0])
+    assert got["mesh_shape"] == {"data": 2, "model": 2}
+    assert got["mesh_devices"] == 4 and single["mesh_devices"] == 1
+    assert got["completed"] == single["completed"] == 4
+    assert got["stream_digest"] == single["stream_digest"]
 
 
 def test_train_json_matches_jax_keys(capsys, monkeypatch, tmp_path):

@@ -2137,6 +2137,40 @@ def test_seq_parallel_tagger_on_the_card(cuda, seq_mesh):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
+@pytest.mark.parametrize("kw", [
+    dict(), dict(kv_dtype="int8"),
+    dict(paged=True, page_size=16, prefix_cache=True),
+    dict(paged=True, page_size=16, prefix_cache=True, kv_dtype="int8"),
+    dict(prefill_chunk=16, async_host=True),
+], ids=["dense", "dense_int8", "paged_prefix", "paged_prefix_int8",
+        "chunked_async"])
+def test_mesh_engine_at_one_rank_is_bit_equal_to_plain(cuda, seq_mesh, kw):
+    """The engine's mesh mode over a one-rank (data, model) mesh of the
+    NCCL group: every stream bit-equal to the plain engine's (at one rank
+    every collective is an identity and the split is the whole), the
+    decode kernel of its pool launched through it, and its programs
+    captured with their collectives inside."""
+    from mmlspark_tpu_torch.serve import ServeEngine
+
+    graph, variables = _small_lm()
+    prompts = _fleet_prompts(9)
+    common = dict(slots=4, cache_len=64, decode_block=8, max_queue=16, **kw)
+    counter = ("paged_" if kw.get("paged") else "") + (
+        "q8_launches" if kw.get("kv_dtype") else "launches")
+    out = []
+    for mesh in (None, {"data": 1, "model": 1}):
+        engine = ServeEngine(graph, variables, mesh=mesh, **common)
+        rids = [engine.submit(p, 12) for p in prompts]
+        before = getattr(fa, counter)
+        res = engine.run()
+        out.append([res[r].tokens for r in rids])
+        assert getattr(fa, counter) > before
+    for want, got in zip(*out):
+        np.testing.assert_array_equal(got, want)
+    assert engine.mesh is not None and engine.capture_seconds > 0
+    assert engine.decode_compile_count <= engine.num_decode_blocks
+
+
 def test_cli_env_names_the_card(cuda):
     import json
 

@@ -11,7 +11,7 @@ either role and drains; the fleet-wide prefix index turns a repeat
 prompt into a decode-only request with every pool's refcounts conserved;
 the autoscaler grows a role under load and drains back; and fleet
 snapshots (JSON, no K/V) restore across the frameworks both ways. The
-2x2 mesh cases wait for the mesh (ROADMAP.md Queue 1 item 13).
+2x2 mesh cases are ``tests/test_torch_serve_mesh_planes.py``'s.
 
 The model is the JAX package's overfit periodic LM bridged into the port;
 the reference streams come from ONE JAX engine over every prompt at its

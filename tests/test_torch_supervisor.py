@@ -5,9 +5,9 @@ health-checked port engines behind one ``submit()/run()`` facade
 survives replica kills, failed health probes, hedged duplicates, drains
 and corrupted snapshots, and every final stream equals the JAX single
 engine's, exactly one result per request, with every replica's program
-pins intact. The 2x2 mesh cases wait for the mesh (ROADMAP.md Queue 1
-item 13); routing by model (``models=``) is held to the JAX set in
-``tests/test_torch_multimodel.py``.
+pins intact. The 2x2 mesh case is in
+``tests/test_torch_serve_mesh_planes.py``; routing by model
+(``models=``) is held to the JAX set in ``tests/test_torch_multimodel.py``.
 
 The model is the JAX package's overfit periodic LM bridged into the port
 (``tests/test_torch_chunked_async.py``'s fixture), so greedy picks have

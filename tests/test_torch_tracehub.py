@@ -1,6 +1,6 @@
 """The port's telemetry hub (``mmlspark_tpu_torch/core/tracehub.py``)
 against the JAX package's, mirroring ``tests/test_tracehub.py`` without
-its 2x2 mesh case (the mesh waits for ROADMAP.md Queue 1 item 13).
+its 2x2 mesh case (``tests/test_torch_serve_mesh_planes.py``'s).
 
 The merge plane is compared on synthetic inputs: the SAME events are
 recorded on a JAX flight recorder and on a port one, and the same metrics
