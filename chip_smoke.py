@@ -337,10 +337,14 @@ Phases (each one fails the run with a non-zero exit on error):
    the card machine has one GPU and NCCL puts one rank on a GPU. Then,
    over the same group, the trainer's mesh mode (the ``mesh_train``
    line, ``check_mesh_train``): the flash LM under
-   ``TRANSFORMER_TP_RULES`` on ``{"data": 1, "model": 1}`` against the
-   plain trainer, bit-equal in loss curve and final parameters, one
-   captured step with its collectives inside, the forward and both
-   backward kernels depth x steps times each on the tensor cores; the
+   ``TRANSFORMER_TP_RULES`` on ``{"data": 1, "model": 1}`` through the
+   split step (the Megatron-split copy on its shards, the vocab-parallel
+   loss) against the plain trainer, bit-equal in loss curve and final
+   parameters, one captured step with its collectives inside, the
+   forward and both backward kernels depth x steps times each on the
+   tensor cores; the MoE LM at ``MOE_MODEL``'s widths under
+   ``EXPERT_RULES`` on ``{"data": 1, "expert": 1}`` through the
+   expert-local FFN, gated the same way; the
    pipelined LM on ``{"data": 1, "pipe": 1}`` against its own stage loop
    and the CPU's f32 forward, and 8 steps under
    ``PIPELINE_STAGE_RULES``; the sequence-parallel BiLSTM tagger on
@@ -6006,6 +6010,27 @@ def check_context_parallel() -> dict:
 
 #: the mesh phase's training runs: TRAIN_BATCH x max_len rows, 8 steps
 MESH_STEPS, MESH_SEED = 8, 17
+#: the one-rank mesh step when the rules' leaves were gathered whole for
+#: an unsplit forward: 8.00 ms on an H100 80GB HBM3 at 700 W (PERF.md),
+#: printed beside the split step's
+GATHERED_MESH_STEP_MS = 8.00
+
+
+def split_step_collectives(depth: int) -> int:
+    """The split step's all-reduce calls on a ``{"data": 1, "model": 1}``
+    mesh: the embedding's sum and each layer's ``attn_out`` and
+    ``mlp_out`` sums, the loss's max and sums, the gradient sums of each
+    layer's ``qkv`` and ``mlp_in`` inputs and of the head's, the norm's
+    sum over model, and the row count's and the gradients' sums over
+    data."""
+    return (1 + 2 * depth) + 2 + (2 * depth + 1) + 1 + 2
+
+
+def expert_step_collectives(depth: int) -> int:
+    """The expert-local step's all-reduce calls on ``{"data": 1,
+    "expert": 1}``: each block's combine sum and the gradient sums of
+    its tokens and gate, and the two sums over data."""
+    return 3 * depth + 2
 #: the pipelined LM: the serve model's widths, 4 microbatches a batch
 PIPE_MICROBATCHES = 4
 #: the sequence-parallel tagger's rows (the dnn_stages phase's, seed 12)
@@ -6100,12 +6125,16 @@ def check_mesh_train() -> dict:
     starts, at the serve model's widths:
 
     (a) ``TRANSFORMER_TP_RULES`` on ``{"data": 1, "model": 1}`` with the
-        flash LM against the plain trainer, from the same weights on the
-        same batches: loss curves and final parameters bit-equal (every
-        collective is an identity at one rank, and the mesh step keeps
-        the plain step's arithmetic and order), the step captured once
-        with its collectives inside, the forward and both backward
-        kernels launched depth x steps times each on the tensor cores;
+        flash LM through the split step (each rank's Megatron-split copy
+        on its shards, the vocab-parallel loss) against the plain
+        trainer, from the same weights on the same batches: loss curves
+        and final parameters bit-equal (every collective is an identity
+        at one rank, the split's leaves are the whole ones, and the
+        vocab-parallel loss is ``log_softmax`` plus a rest that is
+        exactly 0 at one rank, with a gradient of exact zeros), the step
+        captured once with its split_step_collectives() all-reduces
+        inside, the forward and both backward kernels launched depth x
+        steps times each on the tensor cores;
     (b) ``transformer_lm_pipelined`` on ``{"data": 1, "pipe": 1}`` with
         4 microbatches under ``PIPELINE_STAGE_RULES``: its forward
         against its own stage loop on the card (PIPE_SEQUENTIAL_TOL) and
@@ -6115,12 +6144,20 @@ def check_mesh_train() -> dict:
         (TAGGER_LOGIT_TOL), and 4 ``bilstm_seq_parallel_train_step``
         calls lowering the loss;
     (d) ``python -m mmlspark_tpu_torch train --mesh data=1`` as a
-        process."""
+        process;
+    (e) ``EXPERT_RULES`` on ``{"data": 1, "expert": 1}`` with the flash
+        MoE LM at ``MOE_MODEL``'s widths through the expert-local FFN
+        against the plain trainer: bit-equal (the rank's experts are all
+        of them, its dispatch slice the whole buffer, and the sum over
+        expert an identity), captured once with its
+        expert_step_collectives() all-reduces, the kernels launched
+        depth x steps times each."""
     import torch
     import torch.distributed as dist
 
     from mmlspark_tpu_torch.models import build_model, init_variables
     from mmlspark_tpu_torch.parallel import (
+        EXPERT_RULES,
         PIPELINE_STAGE_RULES,
         TRANSFORMER_TP_RULES,
         bilstm_seq_parallel_apply,
@@ -6144,24 +6181,11 @@ def check_mesh_train() -> dict:
         "tp rules", graph, weights, x, y,
         mesh_axes={"data": 1, "model": 1},
         param_rules=TRANSFORMER_TP_RULES)
-    differ = [f"{b}.{k}" for b in plain_vars for k in plain_vars[b]
-              if not torch.equal(plain_vars[b][k], mesh_vars[b][k])]
-    if meshed["losses"] != plain["losses"] or differ:
-        raise AssertionError(
-            f"mesh_train: the one-rank mesh step is not bit-equal to the "
-            f"plain step: losses {meshed['losses']} vs {plain['losses']}, "
-            f"parameters that differ: {differ[:8]} ({len(differ)})")
-    if meshed["step_programs"] != 1 or not meshed["step_capture_s"] > 0:
-        raise AssertionError(f"mesh_train: {meshed['step_programs']} step "
-                             f"programs, capture {meshed['step_capture_s']}")
-    for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
-        if meshed["launch_counts"][name] != want:
-            raise AssertionError(
-                f"mesh_train: {name} = {meshed['launch_counts'][name]}, "
-                f"want {want} (depth x steps)")
-    out["tp_rules_vs_plain"] = {
-        "mesh": {"data": 1, "model": 1}, "bit_equal": True,
-        "plain": plain, "mesh_step": meshed}
+    out["tp_rules_vs_plain"] = mesh_leg_vs_plain(
+        "split step", plain, meshed, plain_vars, mesh_vars, want,
+        split_step_collectives(depth), {"data": 1, "model": 1})
+    del plain_vars, mesh_vars, weights
+    gc.collect()
 
     # (b) the pipelined LM
     pmesh = make_mesh({"data": 1, "pipe": 1})
@@ -6248,7 +6272,68 @@ def check_mesh_train() -> dict:
     out["cli_train_mesh"] = {k: metrics[k] for k in (
         "steps_total", "final_loss", "retrace.train.step",
         "train.step_ms_p50")} | {"process_s": cli_s}
+
+    # (e) the expert-local FFN against the plain step
+    mgraph = moe_graph(attn_impl="flash", **MOE_MODEL)
+    mweights = init_variables(mgraph, MESH_SEED, device=DEVICE)
+    plain, plain_vars = mesh_train_run("moe plain", mgraph, mweights, x, y)
+    meshed, mesh_vars = mesh_train_run(
+        "expert rules", mgraph, mweights, x, y,
+        mesh_axes={"data": 1, "expert": 1}, param_rules=EXPERT_RULES)
+    out["expert_local_vs_plain"] = mesh_leg_vs_plain(
+        "expert-local step", plain, meshed, plain_vars, mesh_vars,
+        MOE_MODEL["depth"] * MESH_STEPS,
+        expert_step_collectives(MOE_MODEL["depth"]),
+        {"data": 1, "expert": 1}, gathers=0)
     return out
+
+
+def mesh_leg_vs_plain(label: str, plain: dict, meshed: dict,
+                      plain_vars: dict, mesh_vars: dict, want: int,
+                      per_step: int, mesh: dict, gathers: int = 1) -> dict:
+    """Gate a mesh leg against the plain step on the same weights and
+    batches: loss curves and final parameters bit-equal, one step
+    program captured, ``per_step`` all-reduce calls a step (the eager
+    first step and the capture each make them once; the replays run
+    them from the graph) and ``gathers`` all-gathers (the end of the
+    run's join of the split's leaves; none in the step), each attention
+    kernel launched ``want`` times. Returns the leg's summary with the
+    step ms beside the plain step's and the gathering mesh step's."""
+    import torch
+
+    differ = [f"{b}.{k}" for b in plain_vars for k in plain_vars[b]
+              if not torch.equal(plain_vars[b][k], mesh_vars[b][k])]
+    if meshed["losses"] != plain["losses"] or differ:
+        raise AssertionError(
+            f"mesh_train {label}: not bit-equal to the plain step: losses "
+            f"{meshed['losses']} vs {plain['losses']}, parameters that "
+            f"differ: {differ[:8]} ({len(differ)})")
+    if meshed["step_programs"] != 1 or not meshed["step_capture_s"] > 0:
+        raise AssertionError(
+            f"mesh_train {label}: {meshed['step_programs']} step programs, "
+            f"capture {meshed['step_capture_s']}")
+    calls = meshed["collective_calls"]
+    if calls["all_reduce"] != 2 * per_step or calls["all_gather"] != gathers:
+        raise AssertionError(
+            f"mesh_train {label}: collective calls {calls}, want "
+            f"{2 * per_step} all-reduces (2 x {per_step}) and {gathers} "
+            "all-gathers")
+    for name in ATTN_COUNTERS + ATTN_MMA_COUNTERS:
+        if meshed["launch_counts"][name] != want:
+            raise AssertionError(
+                f"mesh_train {label}: {name} = "
+                f"{meshed['launch_counts'][name]}, want {want} (depth x "
+                "steps)")
+    step_ms = meshed["step_ms_median_steps_2_on"]
+    plain_ms = plain["step_ms_median_steps_2_on"]
+    log(f"mesh_train {label}: step {step_ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, the gathering mesh step {GATHERED_MESH_STEP_MS} ms; "
+        f"{per_step} NCCL calls a step")
+    return {"mesh": mesh, "bit_equal": True, "step_ms": step_ms,
+            "plain_step_ms": plain_ms,
+            "gathered_mesh_step_ms": GATHERED_MESH_STEP_MS,
+            "nccl_calls_per_step": per_step, "plain": plain,
+            "mesh_step": meshed}
 
 
 #: the engine's mesh mode on the card: the one-rank NCCL group ``main``
@@ -6610,18 +6695,22 @@ def main() -> int:
             + mesh_counts["header paged int8"]["paged_q8_launches"],
     }
     # the attention kernels' launches: the training runs', the MoE
-    # training run's and the Ulysses run's of the context-parallel phase
+    # training run's, the Ulysses run's of the context-parallel phase and
+    # the mesh phase's split and expert-local steps
     moe_train = moe["training"]["launch_counts"]
     ulysses = context_parallel["launch_counts"]["ulysses"]
     mesh_step = mesh_train["tp_rules_vs_plain"]["mesh_step"]["launch_counts"]
+    expert_step = mesh_train["expert_local_vs_plain"]["mesh_step"][
+        "launch_counts"]
     attn_rows, attn_backward = measure_attention_kernels(
         attn_errors, {k: v + moe_train[k] + ulysses.get(k, 0)
-                      + mesh_step[k]
+                      + mesh_step[k] + expert_step[k]
                       for k, v in training["launch_counts"].items()})
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
             optim_equal, training["launch_counts"]["fused_optim_launches"]
-            + mesh_step["fused_optim_launches"]),
+            + mesh_step["fused_optim_launches"]
+            + expert_step["fused_optim_launches"]),
         measure_tree_checksum(train_resilience["fold_bit_equal"],
                               fold_launches)]
     print(json.dumps({"kernel_errors": errors,

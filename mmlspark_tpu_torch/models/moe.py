@@ -19,6 +19,10 @@ load-balance loss is left in :attr:`MoEFFN.new_losses`, which the graph
 collects into ``updated[block]["losses"]`` (flax's sown ``losses``
 collection); the trainer adds ``moe_aux_weight`` times their sum to the
 loss.
+
+:func:`expert_local_graph` makes a rank's copy for the trainer's mesh
+mode under ``EXPERT_RULES``: each MoE FFN holds the rank's experts only
+and runs them on its slice of the dispatch (``parallel/expert.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +69,10 @@ class ExpertParams(nn.Module):
 
 
 class MoEFFN(nn.Module):
+    #: the expert-local FFN's ``expert`` axis (a ``parallel.mesh.
+    #: MeshAxis``; :func:`expert_local_graph`), None: every expert here
+    expert_axis = None
+
     def __init__(self, d_model: int, n_experts: int, d_ff: int,
                  capacity_factor: float = 1.25, dtype=torch.bfloat16,
                  group_size: int = 1024):
@@ -89,7 +97,8 @@ class MoEFFN(nn.Module):
             return moe_ffn_dropless(x.to(self.dtype), *weights).to(x.dtype)
         out, aux = moe_ffn(x.to(self.dtype), *weights,
                            capacity_factor=self.capacity_factor, mask=mask,
-                           group_size=self.group_size)
+                           group_size=self.group_size,
+                           expert=self.expert_axis)
         if train:
             self.new_losses = {"load_balance": aux}
         return out.to(x.dtype)
@@ -188,3 +197,28 @@ def transformer_lm_moe(
             "pos_embedding": pos_embedding,
         },
     )
+
+
+def expert_local_graph(graph: NamedGraph, axis) -> NamedGraph:
+    """This rank's copy of a switch-MoE ``graph`` whose FFNs run only
+    the rank's experts: the blocks copied on ``meta``, each expert bank
+    resized to ``n_experts / axis.size`` experts and its FFN given
+    ``axis`` (the rank's ``parallel.mesh.MeshAxis`` on ``expert``; the
+    router's gate stays whole). Bind it to the rank's contiguous chunk
+    of every expert leaf (``EXPERT_RULES``' layout)."""
+    from mmlspark_tpu_torch.models.graph import _meta_copy
+
+    blocks = []
+    with torch.device("meta"):
+        for name, mod in graph.blocks:
+            mod = _meta_copy(mod)
+            for ffn in mod.modules():
+                if isinstance(ffn, MoEFFN):
+                    n, d, f = ffn.experts.w_in.shape
+                    ffn.experts = ExpertParams(n // axis.size, d, f)
+                    ffn.expert_axis = axis
+            blocks.append((name, mod))
+    return NamedGraph(name=graph.name, blocks=blocks,
+                      input_shape=graph.input_shape,
+                      compute_dtype=graph.compute_dtype,
+                      extra=dict(graph.extra))

@@ -33,17 +33,24 @@ context_parallel` over the graph's ``mesh`` (every rank runs the model;
 the attention shards the sequence), and degrade to ``dense`` when no mesh
 is given, as in the JAX package.
 
-**The split forward** (the serving engine's mesh mode): :func:`split_graph`
-makes a rank's copy of the graph over its shard of the weights
-(``parallel/sharding.py``'s :func:`~mmlspark_tpu_torch.parallel.sharding.
-local_variables`), Megatron-style over the mesh's ``model`` axis —
-attention over the rank's heads, ``attn_out`` and ``mlp_out``
-row-parallel (the partial products summed over ``model``, then the
-replicated bias added), ``mlp_in`` column-parallel, the token embedding
-vocab-parallel (a masked lookup of the rank's rows, then a sum) and the
-``head`` column-parallel, giving the rank's vocab slice of the logits
-(the greedy combine is ``models/generate.greedy_next``'s). Without a mesh
-the code path and the arithmetic are the ones above.
+**The split forward** (the serving engine's and the trainer's mesh
+modes): :func:`split_graph` makes a rank's copy of the graph over its
+shard of the weights (``parallel/sharding.py``'s :func:`~mmlspark_tpu_torch.
+parallel.sharding.local_variables`), Megatron-style over the mesh's
+``model`` axis — attention over the rank's heads, ``attn_out`` and
+``mlp_out`` row-parallel (the partial products summed over ``model``,
+then the replicated bias added), ``qkv`` and ``mlp_in`` column-parallel,
+the token embedding vocab-parallel (a masked lookup of the rank's rows,
+then a sum) and the ``head`` column-parallel, giving the rank's vocab
+slice of the logits (the greedy combine is ``models/generate.
+greedy_next``'s, the training loss ``train/distributed.
+vocab_parallel_loss_terms``). Under autograd each sum's backward is the
+identity and each column-parallel input's backward sums the ranks'
+partial gradients over ``model`` (``parallel/mesh.ModelPlace``), so
+every replicated leaf — the layer norms, the row-parallel biases, the
+position table — ends the backward with its whole gradient on every
+rank; under ``no_grad`` both moves are the serving engine's, unchanged.
+Without a mesh the code path and the arithmetic are the ones above.
 """
 
 from __future__ import annotations
@@ -99,11 +106,16 @@ class Dense(nn.Module):
     product — two roundings, as in flax. ``bias=False`` is flax's
     ``use_bias=False``. A row-parallel Dense of the split forward holds
     its rows of the weight and a ``reduce`` (a ``parallel.mesh.
-    MeshPlace``): the partial product is summed over ``model`` before
-    the replicated bias is added."""
+    ModelPlace``): the partial product is summed over ``model`` before
+    the replicated bias is added. A column-parallel one holds its
+    columns and a ``copy``: its whole input enters through
+    ``model_copy``, whose backward sums the ranks' partial input
+    gradients."""
 
-    #: the split forward's row-parallel sum (None: a whole Dense)
+    #: the split forward's row-parallel sum and column-parallel copy
+    #: (None: a whole Dense)
     reduce = None
+    copy = None
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
@@ -112,6 +124,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x, dtype):
+        if self.copy is not None:
+            x = self.copy.model_copy(x)
         y = F.linear(x.to(dtype), self.weight.to(dtype))
         if self.reduce is not None:
             y = self.reduce.model_sum(y)
@@ -516,8 +530,9 @@ def transformer_lm(
     :func:`~mmlspark_tpu_torch.models.bridge.load_flax_variables`.
     ``mesh`` carries the sequence axis ``ring``/``ulysses`` shard over;
     the trainer's mesh mode trains the graph on it (``param_rules``:
-    ``TRANSFORMER_TP_RULES``). The serving engine's mesh mode takes its
-    own ``mesh`` and runs each rank on :func:`split_graph`'s copy."""
+    ``TRANSFORMER_TP_RULES``: each rank runs :func:`split_graph`'s copy).
+    The serving engine's mesh mode takes its own ``mesh`` and runs each
+    rank on the same copy."""
     if d_model % heads:
         raise ParamError(f"d_model {d_model} not divisible by heads {heads}")
     rope = validate_attention_features(
@@ -562,12 +577,17 @@ def split_graph(graph: NamedGraph, split, place) -> NamedGraph:
     heads and kv heads, ``d_ff / model`` hidden columns, ``vocab /
     model`` embedding rows and head columns — with the row-parallel and
     vocab-parallel modules summing over ``place``'s ``model`` axis.
+    The column-parallel ``qkv``, ``mlp_in`` and ``head`` take their
+    input through ``place``'s ``model_copy`` (the backward's sum).
     ``extra`` records the local ``heads``/``kv_heads``, the ``head_dim``,
     ``mesh_place`` (the data gather of the decode block) and
     ``vocab_split`` (``place`` when the head is vocab-parallel: the
     greedy combine), ``vocab_size`` staying the whole vocabulary. Bind it
-    to :func:`~mmlspark_tpu_torch.parallel.sharding.local_variables`."""
+    to :func:`~mmlspark_tpu_torch.parallel.sharding.local_variables`.
+    Ulysses attention over ``seq`` needs the rank's q and kv heads to
+    divide by ``seq``: a ``ParamError`` otherwise."""
     from mmlspark_tpu_torch.models.graph import _meta_copy
+    from mmlspark_tpu_torch.parallel.mesh import SEQUENCE_AXIS, mesh_shape
 
     blocks = []
     with torch.device("meta"):
@@ -581,6 +601,7 @@ def split_graph(graph: NamedGraph, split, place) -> NamedGraph:
             if split.vocab and isinstance(mod, LMHead):
                 w = mod.head.weight
                 mod.head = Dense(w.shape[1], w.shape[0] // split.size)
+                mod.head.copy = place
             attn = getattr(mod, "attn", None)
             if split.attn and isinstance(attn, SelfAttention):
                 d, d_model = split.head_dim, attn.qkv.weight.shape[1]
@@ -588,12 +609,26 @@ def split_graph(graph: NamedGraph, split, place) -> NamedGraph:
                 attn.kv_heads = split.local_kv_heads
                 attn.qkv = Dense(d_model, (split.local_heads
                                            + 2 * split.local_kv_heads) * d)
+                attn.qkv.copy = place
                 attn.attn_out = Dense(split.local_heads * d, d_model)
                 attn.attn_out.reduce = place
+                seq = mesh_shape(attn.mesh).get(SEQUENCE_AXIS, 1) \
+                    if attn.mesh is not None else 1
+                if attn.attn_impl == ULYSSES and (
+                        split.local_heads % seq
+                        or split.local_kv_heads % seq):
+                    raise ParamError(
+                        f"ulysses over '{SEQUENCE_AXIS}' ({seq}) needs "
+                        f"each model rank's heads divisible by it: "
+                        f"{split.heads} heads ({split.kv_heads} kv) over "
+                        f"model ({split.size}) leave "
+                        f"{split.local_heads} ({split.local_kv_heads} kv) "
+                        "a rank")
             if split.mlp and isinstance(mod, Block):
                 d_model, d_ff = mod.mlp_in.weight.shape[1], \
                     mod.mlp_in.weight.shape[0]
                 mod.mlp_in = Dense(d_model, d_ff // split.size)
+                mod.mlp_in.copy = place
                 mod.mlp_out = Dense(d_ff // split.size, d_model)
                 mod.mlp_out.reduce = place
             blocks.append((name, mod))

@@ -9,7 +9,10 @@ sequence-parallel BiLSTM (:mod:`sequence_rnn`). The trainer's mesh mode
 (:class:`MeshPlace`, :func:`serve_mesh`: the sum over ``model``, the
 gather over ``data``, the vocab-parallel greedy combine and the control
 plane's agreement) and splits the model's compute over it
-(:func:`model_split`, :func:`local_variables`).
+(:func:`model_split`, :func:`local_variables`). The trainer's mesh mode
+runs the same split with its backward over any mesh that has a
+``model`` axis (:class:`ModelPlace`: :class:`CopyToAxis` and
+:class:`ReduceFromAxis`, Megatron's conjugate pair).
 """
 
 from mmlspark_tpu_torch.parallel.context_parallel import (
@@ -30,8 +33,11 @@ from mmlspark_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     PIPELINE_AXIS,
     SEQUENCE_AXIS,
+    CopyToAxis,
     MeshDesync,
     MeshPlace,
+    ModelPlace,
+    ReduceFromAxis,
     axis_size,
     batch_spec,
     initialize_distributed,
@@ -65,7 +71,8 @@ from mmlspark_tpu_torch.parallel.sharding import (
 __all__ = [
     "DATA_AXIS", "EXPERT_AXIS", "EXPERT_RULES", "MODEL_AXIS",
     "PIPELINE_AXIS", "PIPELINE_STAGE_RULES", "SEQUENCE_AXIS",
-    "MeshDesync", "MeshPlace", "ModelSplit", "NamedSharding",
+    "CopyToAxis", "MeshDesync", "MeshPlace", "ModelPlace", "ModelSplit",
+    "NamedSharding", "ReduceFromAxis",
     "TRANSFORMER_TP_RULES", "axis_size", "batch_spec",
     "bilstm_seq_parallel_apply", "bilstm_seq_parallel_train_step",
     "build_param_shardings", "initialize_distributed", "local_batch",

@@ -20,10 +20,19 @@ the dispatch and combine products in f32, the expert products in the
 compute dtype. No Pallas kernel stands behind MoE in the JAX package;
 the products are ``torch.einsum`` here as they are XLA's there.
 
-Expert parallelism is a parameter layout: :data:`EXPERT_RULES` places the
-stacked expert dim on the ``expert`` mesh axis, and the trainer's mesh
-mode (``train/trainer.py``) stores each rank's experts and gathers the
-stack for the step, so the routing above runs unchanged on every rank.
+Expert parallelism splits the experts' compute: :data:`EXPERT_RULES`
+places the stacked expert dim on the ``expert`` mesh axis, and the
+trainer's mesh mode (``train/trainer.py``) stores each rank's experts
+and runs only them (``models/moe.expert_local_graph``). As in the JAX
+trainer, whose batch shards over ``data`` only, every ``expert`` rank
+holds the same tokens: the router, the dispatch and the aux loss are
+computed on every rank; each rank runs its ``E / expert`` experts on its
+slice of the dispatch buffer, the tokens and the gate entering through
+copy-to-axis over ``expert`` (the backward sums the ranks' partial
+gradients), and its partial combine is summed over ``expert`` by
+reduce-from-axis (the backward is the identity). So the gate's gradient
+holds the combine's part summed over ``expert`` and the aux loss's part
+once, and each expert's gradient is computed only where it lives.
 :func:`validate_experts` checks ``n_experts`` against that axis.
 
 Inside the mesh step each ``data`` rank holds a contiguous block of the
@@ -45,7 +54,9 @@ import torch.nn.functional as F
 from mmlspark_tpu_torch.core.exceptions import ParamError
 from mmlspark_tpu_torch.parallel.mesh import (
     EXPERT_AXIS,
+    CopyToAxis,
     Gather,
+    ReduceFromAxis,
     SumGrads,
     batch_stats_axis,
     mesh_shape,
@@ -83,6 +94,14 @@ def moe_dispatch(probs, capacity: int, mask=None):
     version, and the Switch load-balance loss ``E * sum_e f_e p_e`` per
     group.
     """
+    dispatch, gate, aux = _route(probs, capacity, mask)
+    return dispatch, dispatch * gate[..., None, None], aux
+
+
+def _route(probs, capacity: int, mask=None):
+    """:func:`moe_dispatch`'s dispatch mask, the chosen expert's
+    probability a token (0 when dropped; the combine is the dispatch
+    scaled by it) and the aux loss."""
     e = probs.shape[-1]
     expert = probs.argmax(dim=-1)  # top-1; ties to the first index
     onehot = _one_hot(expert, e)  # (..., N, E)
@@ -95,7 +114,6 @@ def moe_dispatch(probs, capacity: int, mask=None):
     slot = _one_hot(pos.long(), capacity)  # (..., N, E, C)
     dispatch = kept[..., None] * slot
     gate = (probs * kept).sum(-1)  # chosen-expert prob, 0 when dropped
-    combine = dispatch * gate[..., None, None]
     n_real = onehot.sum(dim=(-2, -1)).clamp(min=1.0)
     frac = onehot.sum(dim=-2) / n_real[..., None]
     if mask is not None:
@@ -105,14 +123,18 @@ def moe_dispatch(probs, capacity: int, mask=None):
     else:
         mean_prob = probs.mean(dim=-2)
     aux = e * (frac * mean_prob).sum(-1)
-    return dispatch, combine, aux
+    return dispatch, gate, aux
 
 
 def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
             capacity_factor: float = 1.25, mask=None,
-            group_size: int = 1024):
+            group_size: int = 1024, expert=None):
     """Top-1 switch FFN. x: (B, T, D); w_in: (E, D, F); w_out: (E, F, D);
     mask: optional (B,) real-row mask (padding rows route nowhere).
+    With ``expert`` (the rank's :class:`~mmlspark_tpu_torch.parallel.
+    mesh.MeshAxis` on the ``expert`` axis) the expert leaves are the
+    rank's ``E / expert`` experts and the FFN is expert-local (see the
+    module docstring); the router's ``gate_w`` stays whole.
 
     Tokens route in groups of ``group_size`` (the token dim padded up to
     a multiple with masked tokens, so a prime token count keeps full
@@ -125,7 +147,7 @@ def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
     data = batch_stats_axis()
     if data is None:
         out, aux = _moe_groups(x, gate_w, w_in, b_in, w_out, b_out,
-                               capacity_factor, mask, group_size)
+                               capacity_factor, mask, group_size, expert)
         return out, aux.mean()
     n_local = x.shape[0] * x.shape[1]
     if n_local % min(group_size, n_local * data.size) == 0:
@@ -133,7 +155,7 @@ def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
         # padding group exists): route this rank's own; every rank holds
         # as many groups, so the global count is theirs times the width
         out, aux = _moe_groups(x, gate_w, w_in, b_in, w_out, b_out,
-                               capacity_factor, mask, group_size)
+                               capacity_factor, mask, group_size, expert)
         return out, aux.sum() / (aux.numel() * data.size)
     # groups straddle the ranks' blocks: route the gathered global batch
     # (every rank computes every group; the gradient of each rank's rows
@@ -142,16 +164,16 @@ def moe_ffn(x, gate_w, w_in, b_in, w_out, b_out, *,
     xs = SumGrads.apply((data,), Gather.apply(x, 0, data))[0]
     ms = None if mask is None else Gather.apply(mask, 0, data)
     out, aux = _moe_groups(xs, gate_w, w_in, b_in, w_out, b_out,
-                           capacity_factor, ms, group_size)
+                           capacity_factor, ms, group_size, expert)
     return out[data.index * b:(data.index + 1) * b], aux.mean() / data.size
 
 
 def _moe_groups(x, gate_w, w_in, b_in, w_out, b_out, capacity_factor,
-                mask, group_size):
+                mask, group_size, expert=None):
     """:func:`moe_ffn` over the tokens of ``x``: the output and the
     per-group aux losses."""
     b, t, d = x.shape
-    e = w_in.shape[0]
+    e = gate_w.shape[-1]
     n = b * t
     flat = x.reshape(n, d)
     tok_mask = (mask.float().repeat_interleave(t) if mask is not None
@@ -164,17 +186,27 @@ def _moe_groups(x, gate_w, w_in, b_in, w_out, b_out, capacity_factor,
     g = (n + pad) // s
     capacity = max(int(capacity_factor * s / e), 1)
     probs = router_probs(flat, gate_w).reshape(g, s, e)
-    dispatch, combine, aux = moe_dispatch(probs, capacity,
-                                          tok_mask.reshape(g, s))
-    grouped = flat.reshape(g, s, d)
+    dispatch, gate, aux = _route(probs, capacity, tok_mask.reshape(g, s))
+    grouped = flat.reshape(g, s, d).float()
+    if expert is not None:
+        # the rank's experts on their slice of the dispatch: the tokens
+        # and the gate enter through copy-to-axis (each rank's products
+        # give a part of their gradients), the combine leaves through
+        # reduce-from-axis
+        lo = expert.index * w_in.shape[0]
+        dispatch = dispatch[:, :, lo:lo + w_in.shape[0]]
+        grouped = CopyToAxis.apply(grouped, expert)
+        gate = CopyToAxis.apply(gate, expert)
+    combine = dispatch * gate[..., None, None]
     dt = x.dtype
-    buf = torch.einsum("gsec,gsd->gecd", dispatch,
-                       grouped.float()).to(dt)
+    buf = torch.einsum("gsec,gsd->gecd", dispatch, grouped).to(dt)
     h = torch.einsum("gecd,edf->gecf", buf, w_in.to(dt))
     h = F.gelu(h + b_in[None, :, None, :].to(dt), approximate="tanh")
     y = torch.einsum("gecf,efd->gecd", h, w_out.to(dt))
     y = y + b_out[None, :, None, :].to(dt)
     out = torch.einsum("gsec,gecd->gsd", combine, y.float())
+    if expert is not None:
+        out = ReduceFromAxis.apply(out, expert)
     out = out.reshape(n + pad, d)[:n]
     return out.reshape(b, t, d).to(dt), aux
 

@@ -261,6 +261,10 @@ class MeshAxis:
         self.index = mesh.get_local_rank(axis)
         self.size = len(self.ranks)
 
+    def __deepcopy__(self, memo):
+        # a handle on a process group: a copied module shares it
+        return self
+
     def peer(self, hops: int) -> int:
         return self.ranks[(self.index + hops) % self.size]
 
@@ -327,6 +331,38 @@ class AllReduce(torch.autograd.Function):
         return all_reduce_sum(g, ctx.axis), None
 
 
+class CopyToAxis(torch.autograd.Function):
+    """A tensor every rank of ``axis`` holds whole, entering a product
+    each rank computes only its part of (a column-parallel ``Dense``,
+    the rank's experts): the forward is the identity, the backward sums
+    the ranks' partial gradients over ``axis`` — Megatron's ``f``."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.axis), None
+
+
+class ReduceFromAxis(torch.autograd.Function):
+    """The sum over ``axis`` of every rank's partial product (a
+    row-parallel ``Dense``, the vocab-parallel embedding rows, the
+    experts' combine), which every rank then uses whole: the backward is
+    the identity — Megatron's ``g``, the conjugate of
+    :class:`CopyToAxis`."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class SumGrads(torch.autograd.Function):
     """Tensors every rank holds whole while each rank works on its own
     part of the data: the forward is the identity, the backward sums
@@ -383,17 +419,84 @@ class MeshDesync(FriendlyError):
     others: their collectives no longer pair up, so no rank may retry."""
 
 
-class MeshPlace:
+class ModelPlace:
+    """The calling rank's place on a mesh's ``model`` axis, and the two
+    moves of the Megatron split over it (``models/transformer.
+    split_graph``). The mesh may hold any other axes (the trainer's
+    ``data``, ``seq``, ``pipe``, ``expert``); an absent ``model`` axis
+    is None and both moves are identities. An axis the mesh has, of one
+    rank included, issues its collectives; on ``meta`` tensors (the
+    engine's cost analysis) nothing is communicated.
+
+    The moves record their transposes when autograd tracks the tensor
+    (the trainer's split step): :meth:`model_copy` is
+    :class:`CopyToAxis`, :meth:`model_sum` :class:`ReduceFromAxis`.
+    Otherwise (``no_grad``, the serving engine's captured programs) the
+    copy is the tensor itself and the sum is taken in place."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.shape = mesh_shape(mesh)
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        self.ranks = ranks
+        self.devices = len(ranks)
+        self.member = dist.get_rank() in ranks
+        self.model = None
+        if self.member and MODEL_AXIS in self.shape:
+            self.model = MeshAxis(mesh, MODEL_AXIS)
+
+    def __deepcopy__(self, memo):
+        # held by the split graph's modules: a copied module shares it
+        return self
+
+    @property
+    def model_size(self) -> int:
+        return self.model.size if self.model is not None else 1
+
+    @property
+    def model_index(self) -> int:
+        return self.model.index if self.model is not None else 0
+
+    def _tracked(self, x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and x.requires_grad
+
+    def model_copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` entering a column-parallel product: itself; under
+        autograd its gradient is summed over ``model``."""
+        if self.model is None or x.device.type == "meta" \
+                or not self._tracked(x):
+            return x
+        return CopyToAxis.apply(x, self.model)
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``model``: the row-parallel partial products
+        and the vocab-parallel embedding rows. In place, unless autograd
+        tracks ``x`` (then a new tensor whose gradient is the
+        identity)."""
+        import torch.distributed as dist
+
+        if self.model is None or x.device.type == "meta":
+            return x
+        if self._tracked(x):
+            return ReduceFromAxis.apply(x, self.model)
+        dist.all_reduce(x, group=self.model.group)
+        return x
+
+
+class MeshPlace(ModelPlace):
     """The calling rank's place on a serving mesh of ``data`` and
     ``model`` axes, and the moves the engine's mesh mode makes over them.
 
     Every rank runs the same host loop on the same requests. ``data``
     splits the slot rows, ``model`` the heads, the MLP's hidden columns
-    and the vocabulary (Megatron); an axis the mesh lacks is None and its
-    moves are identities. An axis the mesh has, of one rank included,
-    issues its collectives (NCCL on the card, inside the captured
-    programs; gloo on the CPU). On ``meta`` tensors (the engine's cost
-    analysis) every move returns its shape and communicates nothing.
+    and the vocabulary (Megatron, :class:`ModelPlace`); an axis the mesh
+    lacks is None and its moves are identities. An axis the mesh has, of
+    one rank included, issues its collectives (NCCL on the card, inside
+    the captured programs; gloo on the CPU). On ``meta`` tensors (the
+    engine's cost analysis) every move returns its shape and
+    communicates nothing.
 
     A mesh of several ranks also holds a gloo group over them, the
     control plane: :meth:`agree_max`, :meth:`agree_error` and
@@ -404,9 +507,8 @@ class MeshPlace:
     def __init__(self, mesh):
         import torch.distributed as dist
 
-        self.mesh = mesh
-        self.shape = mesh_shape(mesh)
-        other = {a: s for a, s in self.shape.items()
+        shape = mesh_shape(mesh)
+        other = {a: s for a, s in shape.items()
                  if a not in (DATA_AXIS, MODEL_AXIS) and s > 1}
         if other:
             raise FriendlyError(
@@ -414,19 +516,13 @@ class MeshPlace:
                 f"model over '{MODEL_AXIS}'; axes {other} have no serving "
                 "meaning (the sequence, pipeline and expert axes train)"
             )
-        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
-        self.ranks = ranks
-        self.devices = len(ranks)
-        self.member = dist.get_rank() in ranks
+        super().__init__(mesh)
         # a collective of the whole group: every rank makes it, in or out
-        self.control = (dist.new_group(ranks, backend="gloo")
-                        if len(ranks) > 1 else None)
-        self.data = self.model = None
-        if self.member:
-            if DATA_AXIS in self.shape:
-                self.data = MeshAxis(mesh, DATA_AXIS)
-            if MODEL_AXIS in self.shape:
-                self.model = MeshAxis(mesh, MODEL_AXIS)
+        self.control = (dist.new_group(self.ranks, backend="gloo")
+                        if len(self.ranks) > 1 else None)
+        self.data = None
+        if self.member and DATA_AXIS in self.shape:
+            self.data = MeshAxis(mesh, DATA_AXIS)
 
     @property
     def data_size(self) -> int:
@@ -436,24 +532,7 @@ class MeshPlace:
     def data_index(self) -> int:
         return self.data.index if self.data is not None else 0
 
-    @property
-    def model_size(self) -> int:
-        return self.model.size if self.model is not None else 1
-
-    @property
-    def model_index(self) -> int:
-        return self.model.index if self.model is not None else 0
-
     # -- the device moves ------------------------------------------------
-
-    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over ``model``, in place: the row-parallel
-        partial products and the vocab-parallel embedding rows."""
-        import torch.distributed as dist
-
-        if self.model is not None and x.device.type != "meta":
-            dist.all_reduce(x, group=self.model.group)
-        return x
 
     def _gather(self, x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
         """(n, *x.shape): every rank's ``x`` along ``axis``, in axis

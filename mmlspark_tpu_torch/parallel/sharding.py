@@ -16,14 +16,13 @@ axes, exactly as the JAX package does, then carried to the port's axes.
 
 A resolved spec becomes DTensor placements (:class:`NamedSharding`'s
 ``placements``) and :func:`shard_params` places each leaf with
-``distribute_tensor``. The trainer's mesh mode stores each rank's part of
-a sharded leaf by these layouts and gathers the whole for its step
-(``train/distributed.py``). The serving engine's mesh mode splits the
-COMPUTE instead (:func:`model_split`, :func:`local_variables`): each
-``model`` rank keeps only its shard of every split leaf and the forward
-runs on it (``models/transformer.py``'s split forward), as Megatron and
-GSPMD do — at decode batch sizes the weights are most of a step's bytes,
-so gathering them a step would defeat the split.
+``distribute_tensor``. The serving engine's and the trainer's mesh modes
+split the COMPUTE by them (:func:`model_split`, :func:`split_leaves`,
+:func:`local_variables`): each ``model`` rank keeps only its shard of
+every split leaf and the forward (and, training, its backward) runs on
+it (``models/transformer.py``'s split forward), as Megatron and GSPMD
+do. The trainer gathers for its step only the sharded leaves that no
+split computes on (``train/distributed.py``).
 
 One deliberate difference from a contiguous split: the fused ``qkv``
 kernel and bias are laid out ``[q heads | k heads | v heads]``, so the
@@ -40,7 +39,7 @@ from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Sequence
 
 import torch
@@ -228,13 +227,14 @@ def unmatched_param_paths(params, rules: Sequence[tuple[str, tuple]],
     )
 
 
-# -- the serving engine's compute split ---------------------------------------
+# -- the compute split over ``model`` ---------------------------------------
 
 
 @dataclass(frozen=True)
 class ModelSplit:
-    """How a transformer's compute splits over a serving mesh's ``model``
-    axis on the calling rank (:func:`model_split`). ``attn``, ``mlp`` and
+    """How a transformer's compute splits over a mesh's ``model`` axis
+    on the calling rank (:func:`model_split`; the serving engine's and
+    the trainer's mesh modes). ``attn``, ``mlp`` and
     ``vocab`` say which layers split (each degrades to replicated as a
     whole when its leaves do not tile); the head ranges are the rank's
     q heads and the kv heads they read."""
@@ -271,6 +271,14 @@ class ModelSplit:
         lo, hi = self.kv_range
         return hi - lo
 
+    @property
+    def kv_share(self) -> int:
+        """How many ``model`` ranks hold each of this rank's kv heads: 1
+        when the kv heads split over ``model``, ``model / kv_heads``
+        when ``model`` exceeds them (each rank then holds the one kv
+        head its q heads share)."""
+        return max(self.size // self.kv_heads, 1) if self.attn else 1
+
     def qkv_rows(self, device) -> torch.Tensor:
         """The rows of the fused ``[q | k | v]`` projection this rank
         keeps: its q heads, then its k heads, then its v heads."""
@@ -283,29 +291,34 @@ class ModelSplit:
         return torch.cat(rows).to(device)
 
 
+#: the leaves each layer's split cuts (the keys of a transformer block)
 _SPLIT_LEAVES = {
-    "attn": ("attn.qkv.weight", "attn.attn_out.weight"),
-    "mlp": ("mlp_in.weight", "mlp_out.weight"),
+    "attn": ("attn.qkv.weight", "attn.qkv.bias", "attn.attn_out.weight"),
+    "mlp": ("mlp_in.weight", "mlp_in.bias", "mlp_out.weight"),
 }
 
 
-def model_split(graph, variables: dict, place) -> ModelSplit:
+def model_split(graph, variables: dict, place,
+                rules: Sequence[tuple[str, tuple]] | None = None
+                ) -> ModelSplit:
     """The compute split of ``graph`` (a transformer LM: dense or MoE
-    blocks) on ``place``'s ``model`` axis, by ``TRANSFORMER_TP_RULES``
+    blocks) on ``place``'s ``model`` axis (a ``parallel.mesh.
+    ModelPlace``), by ``rules`` (default ``TRANSFORMER_TP_RULES``)
     through :func:`build_param_shardings` (a one-rank axis kept, so it
-    runs the split forward with the whole). A layer splits when all its
-    rule-split leaves tile evenly; attention also needs whole heads on
-    each rank and ``kv_heads % model == 0`` or ``model % kv_heads ==
-    0``."""
+    runs the split forward with the whole). A layer splits when the
+    rules shard every leaf it cuts over ``model`` and those leaves tile
+    evenly; attention also needs whole heads on each rank and
+    ``kv_heads % model == 0`` or ``model % kv_heads == 0``."""
     heads = int(graph.extra["heads"])
     hk = int(graph.extra.get("kv_heads") or heads)
     m = place.model_size
     if place.model is None:
         flags = dict.fromkeys(("attn", "mlp", "vocab"), False)
     else:
-        sh = build_param_shardings(variables, place.mesh,
-                                   TRANSFORMER_TP_RULES, graph,
-                                   keep_unit_axes=True)
+        sh = build_param_shardings(
+            variables, place.mesh,
+            TRANSFORMER_TP_RULES if rules is None else rules, graph,
+            keep_unit_axes=True)
 
         def split(block: str, key: str) -> bool:
             leaf = sh.get(block, {}).get(key)
@@ -316,12 +329,14 @@ def model_split(graph, variables: dict, place) -> ModelSplit:
             owners = [name for name, _ in graph.blocks
                       if keys[0] in variables.get(name, {})]
             flags[layer] = bool(owners) and all(
-                split(name, k) for name in owners for k in keys)
+                split(name, k) for name in owners for k in keys
+                if k in variables[name])
         flags["attn"] = flags["attn"] and heads % m == 0 and (
             hk % m == 0 or m % hk == 0)
         embed, head = graph.blocks[0][0], graph.blocks[-1][0]
         flags["vocab"] = (split(embed, "token.weight")
-                          and split(head, "head.weight"))
+                          and split(head, "head.weight")
+                          and split(head, "head.bias"))
     d = None
     for name, _ in graph.blocks:
         w = variables.get(name, {}).get("attn.qkv.weight")
@@ -331,38 +346,62 @@ def model_split(graph, variables: dict, place) -> ModelSplit:
     return ModelSplit(m, place.model_index, heads, hk, d, **flags)
 
 
+def split_leaves(graph, variables: dict, split: ModelSplit) -> dict:
+    """``(block, key) -> how`` for every leaf of ``variables`` that
+    ``split`` cuts: ``"qkv"`` (the head-aligned rows of
+    :meth:`ModelSplit.qkv_rows`) or the dim whose contiguous chunk the
+    rank keeps. Leaves that stay whole are absent."""
+    embed, head = graph.blocks[0][0], graph.blocks[-1][0]
+    vocab_leaves = {(embed, "token.weight"), (head, "head.weight"),
+                    (head, "head.bias")}
+    out = {}
+    for name, block in variables.items():
+        for key in block:
+            leaf = key.rsplit(".", 1)[-1]
+            owner = key[: len(key) - len(leaf) - 1]
+            if split.attn and owner.endswith("qkv"):
+                out[(name, key)] = "qkv"
+            elif split.attn and owner.endswith("attn_out") \
+                    and leaf == "weight":
+                out[(name, key)] = 1  # the rank's heads' columns
+            elif split.mlp and owner == "mlp_in":
+                out[(name, key)] = 0
+            elif split.mlp and owner == "mlp_out" and leaf == "weight":
+                out[(name, key)] = 1
+            elif split.vocab and (name, key) in vocab_leaves:
+                out[(name, key)] = 0
+    return out
+
+
+def cut_leaf(split: ModelSplit, how, t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the whole leaf ``t`` (a new compact tensor),
+    cut as :func:`split_leaves` says."""
+    if how == "qkv":
+        return t.index_select(0, split.qkv_rows(t.device))
+    return t.chunk(split.size, dim=how)[split.index].contiguous()
+
+
+def join_leaf(split: ModelSplit, how, parts: list) -> torch.Tensor:
+    """The whole leaf from every ``model`` rank's part, in rank order:
+    the inverse of :func:`cut_leaf` (a kv head's rows that several ranks
+    hold are taken from the last of them; the ranks hold them equal)."""
+    if how != "qkv":
+        return torch.cat(parts, dim=how)
+    rows = (split.heads + 2 * split.kv_heads) * split.head_dim
+    whole = parts[0].new_empty((rows, *parts[0].shape[1:]))
+    for r, part in enumerate(parts):
+        whole.index_copy_(0, replace(split, index=r).qkv_rows(part.device),
+                          part)
+    return whole
+
+
 def local_variables(graph, variables: dict, split: ModelSplit) -> dict:
     """This rank's shards of ``variables`` under ``split``: the split
     layers' leaves cut to the rank's part (``qkv`` head-aligned, the
     rest by the rules' dims), every other leaf whole. Cut leaves are new
     compact tensors; whole ones are the same tensors."""
-    m, r = split.size, split.index
-    embed, head = graph.blocks[0][0], graph.blocks[-1][0]
-    vocab_leaves = {(embed, "token.weight"), (head, "head.weight"),
-                    (head, "head.bias")}
-
-    def chunk(t, dim):
-        return t.chunk(m, dim=dim)[r].contiguous()
-
-    out = {}
-    for name, block in variables.items():
-        local = dict(block)
-        for key, t in block.items():
-            leaf = key.rsplit(".", 1)[-1]
-            owner = key[: len(key) - len(leaf) - 1]
-            if split.attn and owner.endswith("qkv"):
-                local[key] = t.index_select(0, split.qkv_rows(t.device))
-            elif split.attn and owner.endswith("attn_out") \
-                    and leaf == "weight":
-                d = split.head_dim
-                q0 = split.q_start
-                local[key] = t[:, q0 * d:(q0 + split.local_heads) * d] \
-                    .contiguous()
-            elif split.mlp and owner == "mlp_in":
-                local[key] = chunk(t, 0)
-            elif split.mlp and owner == "mlp_out" and leaf == "weight":
-                local[key] = chunk(t, 1)
-            elif split.vocab and (name, key) in vocab_leaves:
-                local[key] = chunk(t, 0)
-        out[name] = local
-    return out
+    how = split_leaves(graph, variables, split)
+    return {name: {key: cut_leaf(split, how[(name, key)], t)
+                   if (name, key) in how else t
+                   for key, t in block.items()}
+            for name, block in variables.items()}

@@ -18,19 +18,40 @@ Every rank runs the same step program on its own shard of the data:
   from :func:`~mmlspark_tpu_torch.parallel.sharding.build_param_shardings`
   (the JAX package's spec, carried to the port's axes through the weight
   bridge); a rank stores only its shard of a sharded leaf, and the
-  optimizer state follows it. The step gathers the shards of each axis in
-  one all-gather of a flat bucket and runs the model on whole tensors —
-  the placement is a storage layout, the arithmetic the global one; the
-  gather's backward keeps the rank's part of the gradient (every rank of
-  the axis computed the same one). The pipeline's stacked stages are the
-  exception: each ``pipe`` rank keeps and runs its own stage, ungathered,
-  so a rank holds one stage's weights and gradients. The fused optimizer updates the local
-  shards; the gradient norm counts every replicated leaf once and sums
-  each sharded leaf's squares over its axes. A rule that shards over
-  ``data`` is refused.
-- **Checkpoints** hold whole tensors: rank 0 writes them, every rank
-  restores and keeps its shard, so a mesh run's payload equals a
-  one-device run's and a resume at another ``data`` width works.
+  optimizer state follows it. The rules split the COMPUTE, as GSPMD does
+  in the JAX package:
+
+  - **Tensor parallelism.** A transformer LM on a mesh with a ``model``
+    axis runs each rank's copy of :func:`~mmlspark_tpu_torch.models.
+    transformer.split_graph` bound to its shards, ungathered: ``qkv`` and
+    ``mlp_in`` column-parallel (``qkv`` head-aligned, :func:`~
+    mmlspark_tpu_torch.parallel.sharding.cut_leaf`), ``attn_out`` and
+    ``mlp_out`` row-parallel with one sum over ``model`` each, the
+    vocab-parallel embedding rows and ``head`` columns, and the loss
+    over the rank's vocab slice (:func:`vocab_parallel_loss_terms`).
+    Every collective has its transpose in the backward, so each shard's
+    gradient is local and each replicated leaf's whole. Under GQA with
+    ``model % kv_heads == 0`` a rank stores the kv head its q heads
+    share; those rows' gradients are summed over the ranks that read
+    them and the gradient norm counts them once. A ``{"model": 1}`` axis
+    runs the same code path.
+  - **Expert parallelism.** Under ``EXPERT_RULES`` each ``expert`` rank
+    runs only its experts (:func:`~mmlspark_tpu_torch.models.moe.
+    expert_local_graph`, ``parallel/expert.py``).
+  - **Pipeline stages.** Each ``pipe`` rank keeps and runs its own
+    stacked stage, ungathered.
+
+  Any other sharded leaf (a rule set on a model with no split form, a
+  layer the split degrades to whole) is gathered for the step, one
+  all-gather of a flat bucket an axis, whose backward keeps the rank's
+  part of the gradient (every rank of the axis computed the same one).
+  The fused optimizer updates the local shards; the gradient norm
+  counts every replicated leaf once and sums each sharded leaf's
+  squares over its axes. A rule that shards over ``data`` is refused.
+- **Checkpoints** hold whole tensors: rank 0 writes them (the split's
+  shards joined over ``model``), every rank restores and cuts its part,
+  so a mesh run's payload equals a one-device run's and a resume at
+  another ``data`` or ``model`` width works.
 - **The audit's vote.** Without rules every rank holds a whole replica:
   each folds its copy on the host, the folds are all-gathered, the
   majority wins, and a divergent replica is re-replicated from the lowest
@@ -55,11 +76,16 @@ import torch
 from mmlspark_tpu_torch.core.exceptions import FriendlyError, ParamError
 from mmlspark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
     PIPELINE_AXIS,
     MeshAxis,
     make_mesh,
     mesh_shape,
 )
+
+#: the graphs the trainer splits over ``model`` (``split_graph``'s)
+SPLIT_MODELS = ("transformer_lm", "transformer_lm_moe")
 
 
 def wants_mesh(cfg) -> bool:
@@ -106,6 +132,67 @@ class _GatherShards(torch.autograd.Function):
             for g, d in zip(grads, ctx.dims)))
 
 
+class _XentRest(torch.autograd.Function):
+    """The vocab-parallel cross entropy of each row less the rank's own
+    term, ``-log_softmax(x_r)[t]`` on the rank ``r`` that holds the
+    target (0 elsewhere), which the caller computes through
+    ``torch.log_softmax``. With ``lse_r`` the rank's log-sum-exp, the
+    global one ``lse`` (the ranks' maximum through an all-reduce max,
+    their shifted exponentials through an all-reduce sum, with the
+    owner's ``lse_r`` and its term) and ``x_t = lse_r + log_softmax
+    (x_r)[t]`` on the owner, the row's loss ``lse - x_t`` is
+    ``(lse - lse_owner) + own term``. The backward gives the local
+    logits ``softmax(x)`` on the rank's slice less the owner's
+    ``softmax(x_r)``: with the own term's gradient, softmax minus
+    one-hot. At one rank the rest and its gradient are exact zeros, so
+    the loss and its gradients are ``F.cross_entropy``'s bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, own, inside, axis):
+        import torch.distributed as dist
+
+        lse_r = torch.logsumexp(logits, dim=-1)
+        top = lse_r.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=axis.group)
+        parts = torch.stack([torch.exp(lse_r - top),
+                             torch.where(inside, lse_r, 0.0), own])
+        dist.all_reduce(parts, group=axis.group)
+        lse = top + torch.log(parts[0])
+        ctx.save_for_backward(logits, lse, lse_r, inside)
+        return (lse - parts[1]) + (parts[2] - own)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, lse_r, inside = ctx.saved_tensors
+        # softmax(x) - [owner] softmax(x_r) = softmax(x) (1 - e^(lse -
+        # lse_r)): one exponential over the slice, exactly 0 at one rank
+        scale = 1.0 - torch.where(inside, torch.exp(lse - lse_r), 0.0)
+        grad = torch.exp(logits - lse[:, None]) * (scale * g)[:, None]
+        return grad, None, None, None
+
+
+def vocab_parallel_loss_terms(logits, labels, mask, axis: MeshAxis):
+    """The softmax cross entropy's masked terms (the trainer's
+    ``masked_loss_terms``: the weighted sum of per-token losses and the
+    weights, (B,) or (B, T)) over vocab-parallel ``logits``: the last
+    dim is the rank's ``axis.index``-th contiguous slice of the
+    vocabulary, ``labels`` global ids. Each rank gets the same values
+    (the whole loss's in another summation order; at one rank the same
+    bits) and its slice's logit gradients, two all-reduces a call."""
+    w = mask.float()
+    if logits.ndim == 3:
+        w = w[:, None] * torch.ones(logits.shape[:2], device=logits.device)
+    n = logits.shape[-1]
+    x = logits.reshape(-1, n).float()
+    local = labels.reshape(-1).long() - axis.index * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.log_softmax(x, dim=-1).gather(
+        -1, torch.where(inside, local, 0)[:, None])[:, 0]
+    own = -torch.where(inside, picked, 0.0)
+    per = own + _XentRest.apply(x, own.detach(), inside, axis)
+    return torch.sum(per.reshape(labels.shape) * w), w
+
+
 class MeshRun:
     """One training run's mesh: the axes, the rank's place, the layout of
     every parameter and the collectives of the step."""
@@ -131,10 +218,22 @@ class MeshRun:
         self.data = MeshAxis(self.mesh, DATA_AXIS) \
             if self.in_mesh and DATA_AXIS in self.shape else None
         self.rules = cfg.param_rules
-        self.layout: dict = {}  # (block, key) -> [(dim, axis name)]
-        # stacked pipeline stages sharded one a pipe rank: the step runs
-        # the rank's stage as it is stored (parallel/pipeline.py)
-        self.stage_local: set = set()
+        # (block, key) -> [(dim, axis name)]: the leaves stored as
+        # contiguous chunks (the split's leaves are cut by split_how)
+        self.layout: dict = {}
+        # chunked leaves the step binds as stored: the pipeline's stacked
+        # stages (parallel/pipeline.py) and the expert-local experts
+        self.step_local: set = set()
+        # the Megatron split over model: its ModelSplit, the rank's model
+        # axis and how it cuts each leaf it computes on
+        self.split = None
+        self.model: MeshAxis | None = None
+        self.split_how: dict = {}
+        # the expert-local FFN's expert axis
+        self.experts: MeshAxis | None = None
+        self.whole_shapes: dict = {}
+        # the graph the step runs (the rank's split and expert-local copy)
+        self.step_graph = None
 
     @property
     def data_index(self) -> int:
@@ -151,7 +250,13 @@ class MeshRun:
     # -- parameter layout -------------------------------------------------------
 
     def plan(self, graph, weights: dict) -> None:
-        """Each weight's sharded dims by the rules (none without rules)."""
+        """Each weight's layout by the rules (none without rules), the
+        split over ``model`` and the expert-local FFN where the graph and
+        the rules have them, and the graph the step runs."""
+        self.whole_shapes = {(b, k): tuple(t.shape)
+                             for b, block in weights.items()
+                             for k, t in block.items()}
+        self.step_graph = graph
         if not self.rules:
             return
         from mmlspark_tpu_torch.parallel.sharding import (
@@ -174,10 +279,61 @@ class MeshRun:
                     self.layout[(b, k)] = dims
                 if dims == [(0, PIPELINE_AXIS)] and getattr(
                         modules.get(b), "stacked", False):
-                    self.stage_local.add((b, k))
+                    self.step_local.add((b, k))
+        self._plan_split(graph, weights)
+        self._plan_experts(graph, weights)
+
+    def _plan_split(self, graph, weights: dict) -> None:
+        """The Megatron split of a transformer LM over a ``model`` axis
+        (one rank included) where the rules shard a layer's leaves."""
+        from mmlspark_tpu_torch.models.transformer import split_graph
+        from mmlspark_tpu_torch.parallel.mesh import ModelPlace
+        from mmlspark_tpu_torch.parallel.sharding import (
+            model_split,
+            split_leaves,
+        )
+
+        if MODEL_AXIS not in self.shape or graph.name not in SPLIT_MODELS:
+            return
+        place = ModelPlace(self.mesh)
+        split = model_split(graph, weights, place, self.rules)
+        if not (split.attn or split.mlp or split.vocab):
+            return
+        self.split, self.model = split, place.model
+        self.split_how = split_leaves(graph, weights, split)
+        for key in self.split_how:
+            self.layout.pop(key, None)
+        self.step_graph = split_graph(graph, split, place)
+
+    def _plan_experts(self, graph, weights: dict) -> None:
+        """The expert-local FFN where the rules put every expert leaf's
+        stacked dim on an ``expert`` axis (one rank included)."""
+        from mmlspark_tpu_torch.models.moe import MoEFFN, expert_local_graph
+        from mmlspark_tpu_torch.parallel.sharding import (
+            build_param_shardings,
+        )
+
+        if EXPERT_AXIS not in self.shape or not any(
+                isinstance(m, MoEFFN) for _, mod in graph.blocks
+                for m in mod.modules()):
+            return
+        sh = build_param_shardings(weights, self.mesh, self.rules, graph,
+                                   keep_unit_axes=True)
+        experts = [(b, k) for b, block in weights.items() for k in block
+                   if ".experts." in f".{k}"]
+        if not experts or any(sh[b][k].spec[:1] != (EXPERT_AXIS,)
+                              for b, k in experts):
+            return
+        self.experts = MeshAxis(self.mesh, EXPERT_AXIS)
+        self.step_local.update(key for key in experts if key in self.layout)
+        self.step_graph = expert_local_graph(self.step_graph, self.experts)
 
     def shard(self, b: str, k: str, whole: torch.Tensor) -> torch.Tensor:
         """The rank's part of a whole leaf."""
+        from mmlspark_tpu_torch.parallel.sharding import cut_leaf
+
+        if (b, k) in self.split_how:
+            return cut_leaf(self.split, self.split_how[(b, k)], whole)
         t = whole
         for dim, name in self.layout.get((b, k), ()):
             ax = MeshAxis(self.mesh, name)
@@ -186,15 +342,17 @@ class MeshRun:
 
     def gather(self, local: dict, differentiable: bool = True,
                stages: bool = True) -> dict:
-        """Whole tensors of ``local`` (``{block: {key: tensor}}`` holding
-        the rank's shards): one all-gather a bucket of leaves that share
-        their sharded axis; leaves sharded over several axes are gathered
-        axis by axis. Without ``stages`` (the step) the pipeline's stage
-        leaves stay the rank's own stage."""
+        """Whole tensors of the chunked leaves of ``local`` (``{block:
+        {key: tensor}}`` holding the rank's shards): one all-gather a
+        bucket of leaves that share their sharded axis; leaves sharded
+        over several axes are gathered axis by axis. The split's leaves
+        stay as they are (:meth:`whole` joins them). Without ``stages``
+        (the step's binding) the pipeline's stage leaves and the
+        expert-local experts stay the rank's own too."""
         out = {b: dict(block) for b, block in local.items()}
         pending = {key: list(dims) for key, dims in self.layout.items()
                    if key[0] in local and key[1] in local[key[0]]
-                   and (stages or key not in self.stage_local)}
+                   and (stages or key not in self.step_local)}
         while pending:
             # innermost sharded dim first: the reverse of shard()'s order
             by_axis: dict = {}
@@ -215,7 +373,63 @@ class MeshRun:
             pending = {k: v for k, v in pending.items() if v}
         return out
 
+    def whole(self, local: dict) -> dict:
+        """Whole tensors of every leaf of ``local`` (no autograd): the
+        chunked leaves gathered, the split's joined over ``model`` in one
+        all-gather (:func:`~mmlspark_tpu_torch.parallel.sharding.
+        join_leaf`)."""
+        import torch.distributed as dist
+
+        from mmlspark_tpu_torch.parallel.sharding import join_leaf
+
+        out = self.gather(local, differentiable=False)
+        keys = [key for key in self.split_how
+                if key[0] in local and key[1] in local[key[0]]]
+        if not keys:
+            return out
+        with torch.no_grad():
+            flat = torch.cat([local[b][k].reshape(-1) for b, k in keys])
+            parts = torch.empty(self.model.size, flat.numel(),
+                                dtype=flat.dtype, device=flat.device)
+            dist.all_gather(list(parts.unbind(0)), flat,
+                            group=self.model.group)
+            off = 0
+            for b, k in keys:
+                t = local[b][k]
+                out[b][k] = join_leaf(self.split, self.split_how[(b, k)], [
+                    p[off:off + t.numel()].view_as(t) for p in parts])
+                off += t.numel()
+        return out
+
     # -- the step's collectives ---------------------------------------------------
+
+    def sum_shared_kv(self, keys: list, grads: list) -> list:
+        """``grads`` with the rows of each kv head that several ``model``
+        ranks hold (GQA, ``model`` > ``kv_heads``) summed over those
+        ranks: each rank's ``qkv`` kv rows (all its kv head's) at the kv
+        head's place in a zeroed bucket, one all-reduce over ``model``.
+        The same list when no kv head is shared."""
+        import torch.distributed as dist
+
+        split = self.split
+        if split is None or split.kv_share == 1:
+            return grads
+        q = split.local_heads * split.head_dim
+        idx = [i for i, key in enumerate(keys)
+               if self.split_how.get(key) == "qkv"]
+        flat = torch.cat([grads[i][q:].reshape(-1) for i in idx])
+        bucket = flat.new_zeros(split.kv_heads, flat.numel())
+        kv = split.kv_range[0]
+        bucket[kv] = flat
+        dist.all_reduce(bucket, group=self.model.group)
+        out, off = list(grads), 0
+        for i in idx:
+            g = grads[i]
+            n = g[q:].numel()
+            out[i] = torch.cat([g[:q], bucket[kv, off:off + n].view_as(
+                g[q:])])
+            off += n
+        return out
 
     def sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over ``data`` (a new tensor; every mesh has one
@@ -248,13 +462,17 @@ class MeshRun:
         set)."""
         import torch.distributed as dist
 
-        rep = [g for key, g in zip(keys, grads) if key not in self.layout]
+        rep = [g for key, g in zip(keys, grads)
+               if key not in self.layout and key not in self.split_how]
         sq = sum(torch.sum(g * g) for g in rep)
         by_axes: dict = {}
         for key, g in zip(keys, grads):
             if key in self.layout:
                 axes = tuple(sorted({a for _, a in self.layout[key]}))
                 by_axes.setdefault(axes, []).append(torch.sum(g * g))
+            elif key in self.split_how:
+                by_axes.setdefault((MODEL_AXIS,), []).append(
+                    self._split_sq(key, g))
         for axes, parts in by_axes.items():
             part = torch.stack(parts).sum()
             for name in axes:
@@ -262,20 +480,33 @@ class MeshRun:
             sq = sq + part
         return torch.sqrt(sq)
 
+    def _split_sq(self, key, g):
+        """The squares of a split leaf's gradient this rank counts: all
+        of them, but a shared kv head's rows on the first of its ranks
+        only."""
+        split = self.split
+        if self.split_how[key] != "qkv" or split.kv_share == 1:
+            return torch.sum(g * g)
+        q = split.local_heads * split.head_dim
+        sq = torch.sum(g[:q] * g[:q])
+        if split.index % split.kv_share == 0:
+            sq = sq + torch.sum(g[q:] * g[q:])
+        return sq
+
     # -- whole-state views (checkpoints, the vote) -------------------------------
 
     def whole_state(self, state: dict) -> dict:
         """``state`` with every sharded leaf — the weight and its moments
         — gathered whole (a host-bound copy: no autograd)."""
         out = dict(state)
-        out["params"] = self.gather(state["params"], differentiable=False)
+        out["params"] = self.whole(state["params"])
         opt = dict(state["opt_state"])
         keys = [(b, k) for b, block in state["params"].items()
                 for k in block]
         for name, moments in opt.items():
             if isinstance(moments, list):
                 nest = _nest(keys, moments)
-                whole = self.gather(nest, differentiable=False)
+                whole = self.whole(nest)
                 opt[name] = [whole[b][k] for b, k in keys]
         out["opt_state"] = opt
         return out
@@ -312,8 +543,7 @@ class MeshRun:
 
         keys = [(b, k) for b, block in state["params"].items()
                 for k in block]
-        whole_shape = {key: self._whole_shape(key, state["params"][key[0]][
-            key[1]].shape) for key in keys}
+        whole_shape = self.whole_shapes  # recorded by plan()
         return {
             "params": {b: {k: meta(t, whole_shape[(b, k)])
                            for k, t in block.items()}
@@ -327,12 +557,6 @@ class MeshRun:
                 for name, v in state["opt_state"].items()},
             "anomaly": {k: meta(t) for k, t in state["anomaly"].items()},
         }
-
-    def _whole_shape(self, key, shape) -> tuple:
-        shape = list(shape)
-        for dim, name in self.layout.get(key, ()):
-            shape[dim] *= self.shape[name]
-        return tuple(shape)
 
     # -- host-side agreement -----------------------------------------------------
 

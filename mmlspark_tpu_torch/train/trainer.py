@@ -95,10 +95,14 @@ The mesh mode (``mesh_axes`` other than None or ``{"data": 1}``, or
 ``{"data": 1}`` inside an initialised process group) runs the same step
 on every rank of a :func:`~mmlspark_tpu_torch.parallel.mesh.make_mesh`
 mesh: data parallelism over ``data`` with the loss normalised by the
-global mask count and the gradients summed in one flat bucket,
-``param_rules`` as a sharded storage layout gathered for the step,
-whole-tensor checkpoints (rank 0 writes; elastic resume at another data
-width) and the audit's cross-replica vote (``train/distributed.py``).
+global mask count and the gradients summed in one flat bucket;
+``param_rules`` that split the compute as GSPMD does in the JAX package
+— under ``TRANSFORMER_TP_RULES`` a transformer LM runs each rank's
+Megatron-split copy bound to its shards, ungathered, its loss the
+vocab-parallel cross entropy, and under ``EXPERT_RULES`` each ``expert``
+rank runs only its experts; whole-tensor checkpoints (rank 0 writes;
+elastic resume at another data or model width) and the audit's
+cross-replica vote (``train/distributed.py``).
 ``mesh_axes=None`` is one device, group or not. Checkpoints are the
 port's own ``.npy`` payloads and do not cross to the JAX package's orbax
 ones.
@@ -138,9 +142,13 @@ from mmlspark_tpu_torch.models import bridge
 from mmlspark_tpu_torch.models.graph import LOSSES
 from mmlspark_tpu_torch.ops.fused_optim import moment_names, optimizer_update
 from mmlspark_tpu_torch.ops.tree_checksum import FoldPlan, as_uint32, tree_fold
-from mmlspark_tpu_torch.parallel.mesh import local_batch
+from mmlspark_tpu_torch.parallel.mesh import Gather, local_batch
 from mmlspark_tpu_torch.testing.compile_guard import ProgramCountingGraph
-from mmlspark_tpu_torch.train.distributed import MeshRun, wants_mesh
+from mmlspark_tpu_torch.train.distributed import (
+    MeshRun,
+    vocab_parallel_loss_terms,
+    wants_mesh,
+)
 from mmlspark_tpu_torch.train.resilience import (
     AtomicCheckpointStore,
     next_accum_rung,
@@ -569,10 +577,14 @@ class SPMDTrainer:
         def make_mesh_step(accum: int):
             """The step over the mesh (``train/distributed.py``): this
             rank's rows, the counts and then the gradients summed over
-            ``data``, the sharded weights gathered for the forward. At one
-            rank every collective is an identity and the arithmetic is the
-            one-device step's, in its order."""
+            ``data``; the rank's split (and expert-local) graph on its
+            shards, the other sharded weights gathered for the forward. At
+            one rank every collective is an identity and the arithmetic is
+            the one-device step's, in its order (the vocab-parallel loss
+            included: its part beyond ``log_softmax`` is exactly 0)."""
             keys = [(b, k) for b, block in weights.items() for k in block]
+            vocab = mrun.model if mrun.split is not None \
+                and mrun.split.vocab else None
 
             def terms(current, bx, by, bm):
                 """The rank's loss sum, its weights' tokens a row, the aux
@@ -580,9 +592,15 @@ class SPMDTrainer:
                 routes the global batch's groups, ``parallel/expert.py``)
                 and the new statistics."""
                 with local_batch(mrun.data):
-                    out, updated = self.graph.apply(
+                    out, updated = mrun.step_graph.apply(
                         current, bx, train=True, mask=bm, remat=cfg.remat)
-                total, w = masked_loss_terms(cfg.loss, out, by, bm)
+                if vocab is not None and cfg.loss == SOFTMAX_XENT:
+                    # the logits are the rank's vocab slice
+                    total, w = vocab_parallel_loss_terms(out, by, bm, vocab)
+                else:
+                    if vocab is not None:
+                        out = Gather.apply(out, -1, vocab)
+                    total, w = masked_loss_terms(cfg.loss, out, by, bm)
                 aux = None
                 if any(LOSSES in block for block in updated.values()):
                     aux = cfg.moe_aux_weight * sown_aux_loss(updated)
@@ -591,10 +609,12 @@ class SPMDTrainer:
             def step(bx, by, bm, *flag):
                 for p in params:
                     p.grad = None
-                whole = mrun.gather(variables, stages=False)
+                # the split's shards, the pipeline's stages and the local
+                # experts as stored; any other sharded leaf gathered
+                bound = mrun.gather(variables, stages=False)
                 if accum == 1:
                     rows = mrun.sum_over_data(bm.float().sum())
-                    total, per_row, aux, current = terms(whole, bx, by, bm)
+                    total, per_row, aux, current = terms(bound, bx, by, bm)
                     loss = total / torch.clamp(rows * per_row, min=1.0)
                     if aux is not None:
                         loss = loss + aux
@@ -606,7 +626,7 @@ class SPMDTrainer:
                     rows = mrun.sum_over_data(torch.stack(
                         [bm[i::accum].float().sum() for i in range(accum)]))
                     lsum = csum = torch.zeros((), device=dev)
-                    current = whole
+                    current = bound
                     for i in range(accum):
                         mm = bm[i::accum]
                         total, per_row, aux, current = terms(
@@ -623,6 +643,7 @@ class SPMDTrainer:
                 with torch.no_grad():
                     grads = [torch.zeros_like(p) if p.grad is None
                              else p.grad for p in params]
+                    grads = mrun.sum_shared_kv(keys, grads)
                     grads, (lsum,) = mrun.reduce_grads(grads, [lsum])
                     loss = lsum
                     if denom is not None:
@@ -961,8 +982,7 @@ class SPMDTrainer:
                     save_checkpoint(step - 1)
             if eval_fn is not None:
                 metrics = eval_fn(_detached(
-                    variables if mrun is None
-                    else mrun.gather(variables, differentiable=False)))
+                    variables if mrun is None else mrun.whole(variables)))
                 self.history.append({"step": step, "epoch": epoch,
                                      **metrics})
         # the end-of-run sweep: a bad streak that never met the cadence
@@ -972,7 +992,7 @@ class SPMDTrainer:
         self.telemetry.gauge("train.step_capture_s").set(
             capture_s[0] + program.capture_seconds)
         if mrun is not None:
-            return _detached(mrun.gather(variables, differentiable=False))
+            return _detached(mrun.whole(variables))
         return _detached(variables)
 
     def _resume(self, store, state: dict, steps_per_epoch: int,

@@ -2048,8 +2048,10 @@ def _mesh_lm_run(cuda, graph, weights, x, y, **cfg):
 
 def test_mesh_step_at_one_rank_is_bit_equal_to_plain(cuda, seq_mesh):
     """The trainer's mesh mode over a one-rank NCCL group under
-    TRANSFORMER_TP_RULES: every collective is an identity and the mesh
-    step keeps the plain step's arithmetic, so the curve and the final
+    TRANSFORMER_TP_RULES runs the split step (the rank's Megatron-split
+    copy on its shards, the vocab-parallel loss): every collective is an
+    identity, the split leaves are the whole ones and the loss's part
+    beyond ``log_softmax`` is exactly 0, so the curve and the final
     parameters equal the plain trainer's bit for bit; the step is one
     captured program with its collectives inside, and the flash kernels
     run on the tensor cores once a layer a step."""
@@ -2065,6 +2067,35 @@ def test_mesh_step_at_one_rank_is_bit_equal_to_plain(cuda, seq_mesh):
     meshed = _mesh_lm_run(cuda, graph, weights, x, y,
                           mesh_axes={"data": 1, "model": 1},
                           param_rules=TRANSFORMER_TP_RULES)
+    assert meshed[0] == plain[0]
+    for b in plain[1]:
+        for k in plain[1][b]:
+            assert torch.equal(meshed[1][b][k], plain[1][b][k]), (b, k)
+    assert meshed[2] == 1
+    assert meshed[3] == [CP_LM["depth"] * 4] * 3
+
+
+def test_expert_local_step_at_one_rank_is_bit_equal_to_plain(cuda,
+                                                            seq_mesh):
+    """The MoE LM under EXPERT_RULES on a one-rank ``expert`` axis runs
+    the expert-local FFN (the rank's experts on its slice of the
+    dispatch, the combine summed over ``expert``): at one rank the slice
+    is the whole buffer and the sum an identity, so the curve and the
+    final parameters equal the plain trainer's bit for bit, in one
+    captured step."""
+    from mmlspark_tpu_torch.models import build_model, init_variables
+    from mmlspark_tpu_torch.parallel import EXPERT_RULES
+
+    graph = build_model("transformer_lm_moe", attn_impl="flash",
+                        n_experts=4, **CP_LM)
+    weights = init_variables(graph, 4, device=cuda)
+    x = np.random.default_rng(4).integers(
+        0, CP_LM["vocab_size"], size=(8, 256)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    plain = _mesh_lm_run(cuda, graph, weights, x, y)
+    meshed = _mesh_lm_run(cuda, graph, weights, x, y,
+                          mesh_axes={"data": 1, "expert": 1},
+                          param_rules=EXPERT_RULES)
     assert meshed[0] == plain[0]
     for b in plain[1]:
         for k in plain[1][b]:

@@ -196,7 +196,8 @@ def test_stream_images_chunks_match_jax(image_dir):
         _same_rows(g, w)
 
 
-def test_zip_traversal_and_seeded_subsample_match_jax(tmp_path):
+def test_zip_traversal_and_seeded_subsample_match_jax(tmp_path,
+                                                      monkeypatch):
     z = tmp_path / "z"
     z.mkdir()
     with zipfile.ZipFile(z / "bundle.zip", "w") as zf:
@@ -209,9 +210,14 @@ def test_zip_traversal_and_seeded_subsample_match_jax(tmp_path):
     d.mkdir()
     for i in range(60):
         (d / f"f{i:03d}.bin").write_bytes(bytes([i]))
+    # each file is sampled by a hash of its path: read the directory
+    # through a relative path, so the sample does not depend on where the
+    # temporary directory lies
+    monkeypatch.chdir(tmp_path)
     for ratio, seed in ((0.5, 7), (0.5, 8), (0.25, 7)):
-        got = readers.read_binary_files(str(d), sample_ratio=ratio, seed=seed)
-        want = jax_readers.read_binary_files(str(d), sample_ratio=ratio,
+        got = readers.read_binary_files("many", sample_ratio=ratio,
+                                        seed=seed)
+        want = jax_readers.read_binary_files("many", sample_ratio=ratio,
                                              seed=seed)
         assert list(got["path"]) == list(want["path"])
         assert 5 < got.num_rows < 50
