@@ -31,6 +31,26 @@ the card, ``TrainClassifier``/``TrainRegressor``,
 ``ComputeModelStatistics`` and ``FindBestModel`` — runs on the stage
 layer too.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+The stage layer's names are re-exported here, as the JAX package's root
+does, with :func:`all_stages`.
 """
 
 __version__ = "0.1.0"
+
+from mmlspark_tpu_torch.core.stage import (  # noqa: F401
+    Estimator,
+    Model,
+    Pipeline,
+    PipelineModel,
+    PipelineStage,
+    Transformer,
+)
+from mmlspark_tpu_torch.data.dataset import Dataset  # noqa: F401
+
+
+def all_stages():
+    """The registry of every stage class, by class name (the JAX
+    package's ``all_stages``: importing the stages populates it)."""
+    import mmlspark_tpu_torch.stages  # noqa: F401  (populates the registry)
+
+    return dict(PipelineStage.registry())

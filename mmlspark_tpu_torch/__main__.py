@@ -9,10 +9,17 @@ Subcommands, flags and defaults are the JAX CLI's:
   config                      print the resolved app config namespace
   env                         print the device/topology view
   zoo list|download <name>    model-zoo operations
-  bench, evidence, docgen     the JAX package's repo scripts (``bench.py``,
-                              ``tools/*_evidence.py``, ``tools/docgen.py``),
-                              which run JAX: over the port they wait for
-                              ROADMAP.md Queue 1 item 20 and raise
+  evidence flash|profile|decode|feed
+                              an on-card proof over the port
+                              (``mmlspark_tpu_torch/tools/``, the
+                              counterparts of the JAX package's
+                              ``tools/*`` scripts): one JSON record
+  docgen [out_dir]            the API docs from the port's registries
+                              (.rst + html; default build/docs_torch/api)
+  bench                       the JAX package's ``bench.py``, which runs
+                              JAX: over the port it waits for the port's
+                              first benchmark (ROADMAP.md Queue 1 item 20)
+                              and raises
 
 Everything runs on the card unless ``--cpu-mesh`` is given, which here
 means "on the CPU": ``--cpu-mesh 1`` runs the plain PyTorch path on the
@@ -49,8 +56,11 @@ _RANK_ENV = "MML_TPU_TORCH_CPU_RANK"
 _RANK_COMMANDS = ("run", "serve", "train", "env")
 #: the time limit of every rank process ``--cpu-mesh N`` starts
 RANK_TIMEOUT_S = 900.0
-_JAX_SCRIPTS = ("ROADMAP.md Queue 1 item 20: bench, evidence and docgen "
-                "over the port, after its first benchmark")
+_BENCH = ("ROADMAP.md Queue 1 item 20: bench over the port comes with the "
+          "port's first benchmark PR")
+#: the evidence tools under ``mmlspark_tpu_torch/tools/``, by subcommand
+EVIDENCE_TOOLS = {"flash": "flash_evidence", "profile": "profile_resnet50",
+                   "decode": "decode_evidence", "feed": "feed_overhead"}
 
 
 def _apply_backend(args):
@@ -174,7 +184,7 @@ def cmd_run(args) -> int:
 
 def cmd_bench(args) -> int:
     raise FriendlyError(
-        f"bench runs the JAX package's bench.py; it waits for {_JAX_SCRIPTS}"
+        f"bench runs the JAX package's bench.py; it waits for {_BENCH}"
     )
 
 
@@ -267,17 +277,23 @@ def cmd_train(args) -> int:
 
 
 def cmd_evidence(args) -> int:
-    raise FriendlyError(
-        f"evidence {args.which} runs a JAX evidence tool under tools/; it "
-        f"waits for {_JAX_SCRIPTS}"
-    )
+    """Run an evidence tool over the port: on the card, or with
+    ``--cpu-mesh`` on the CPU (the tool's ``--device cpu``). Its exit
+    code is the command's: 3 when the record failed its contract."""
+    import importlib
+
+    tool = importlib.import_module(
+        f"mmlspark_tpu_torch.tools.{EVIDENCE_TOOLS[args.which]}")
+    argv = list(args.tool_args)
+    if _apply_backend(args) == "cpu":
+        argv = ["--device", "cpu", *argv]
+    return tool.main(argv)
 
 
 def cmd_docgen(args) -> int:
-    raise FriendlyError(
-        f"docgen runs tools/docgen.py over the JAX package; it waits for "
-        f"{_JAX_SCRIPTS}"
-    )
+    from mmlspark_tpu_torch.tools import docgen
+
+    return docgen.main([args.out_dir] if args.out_dir else [])
 
 
 def cmd_config(args) -> int:
@@ -347,7 +363,7 @@ def main(argv: list[str] | None = None) -> int:
     sp.set_defaults(fn=cmd_run)
 
     sp = sub.add_parser("bench", help="the JAX package's repo benchmark; "
-                        "raises over the port")
+                        "raises over the port until its first benchmark")
     sp.add_argument(
         "--telemetry-dir", default="", metavar="DIR",
         help="write the serve group's events.jsonl + metrics.json "
@@ -612,16 +628,18 @@ def main(argv: list[str] | None = None) -> int:
 
     sp = sub.add_parser(
         "evidence",
-        help="a JAX evidence tool (flash | profile | decode | feed); "
-        "raises over the port",
+        help="an evidence tool over the port (flash | profile | decode | "
+        "feed), on the card unless --cpu-mesh is given",
     )
     sp.add_argument("which", choices=["flash", "profile", "decode", "feed"])
     sp.add_argument("tool_args", nargs=argparse.REMAINDER)
     sp.set_defaults(fn=cmd_evidence)
 
-    sp = sub.add_parser("docgen", help="regenerate the JAX package's API "
-                        "docs; raises over the port")
-    sp.add_argument("out_dir", nargs="?", default="docs/api")
+    sp = sub.add_parser("docgen", help="regenerate the API docs from the "
+                        "port's registries")
+    sp.add_argument("out_dir", nargs="?", default="",
+                    help="where the .rst pages go (default "
+                    "build/docs_torch/api; the html goes beside it)")
     sp.set_defaults(fn=cmd_docgen)
 
     sp = sub.add_parser("config", help="print resolved app config")

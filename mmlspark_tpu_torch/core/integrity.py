@@ -53,6 +53,14 @@ from mmlspark_tpu_torch.core.exceptions import MMLError
 #: word-position multiplier stride (even; golden-ratio mix constant)
 _MIX = 0x9E3779B8
 
+#: payload fields folded into :func:`payload_checksum`, in hash order.
+#: ``prompt``/``prefix`` hash as ONE concatenated sequence: a fleet
+#: index entry re-serves the same KV under ``prompt=seq, prefix=[]``,
+#: and the checksum must survive that re-spelling unchanged.
+HANDOFF_CHECKSUM_FIELDS = (
+    "prompt+prefix", "length", "first_token", "kv",
+)
+
 
 class IntegrityError(MMLError):
     """Base of every checksum-mismatch detection. Deliberately NOT a
@@ -268,10 +276,11 @@ def _hash_array(h, leaf) -> None:
 
 
 def payload_checksum(payload: dict) -> str:
-    """sha256 over a KV hand-off payload's integrity-bearing fields: the
-    prompt and prefix as ONE sequence, the length, the first token and
-    the cache leaves. Fetches the cache to the host — call at hand-off
-    boundaries only, never inside a decode block."""
+    """sha256 over a KV hand-off payload's integrity-bearing fields
+    (:data:`HANDOFF_CHECKSUM_FIELDS`): the prompt and prefix as ONE
+    sequence, the length, the first token and the cache leaves. Fetches
+    the cache to the host — call at hand-off boundaries only, never
+    inside a decode block."""
     h = hashlib.sha256()
     seq = np.concatenate([
         np.asarray(payload["prompt"], np.int32).reshape(-1),

@@ -150,6 +150,12 @@ def load_native(name: str) -> ctypes.CDLL | None:
         return lib
 
 
+def load_library() -> ctypes.CDLL | None:
+    """The image-decode library (the JAX package's single-library entry
+    point)."""
+    return load_native("decode")
+
+
 def build_error(name: str) -> str | None:
     """The compiler's or loader's message from library ``name``'s failed
     build in this process, else None."""

@@ -204,6 +204,11 @@ class SlotCachePool:
         walks to return every held slot deterministically."""
         return sorted(self._leased)
 
+    @property
+    def utilization(self) -> float:
+        """The share of the pool's slots leased."""
+        return len(self._leased) / self.num_slots
+
     def lease(self) -> int:
         if not self._free:
             raise FriendlyError(

@@ -465,6 +465,11 @@ class PagedCachePool:
         return sorted(self._leased)
 
     @property
+    def utilization(self) -> float:
+        """The share of the pool's slots leased."""
+        return len(self._leased) / self.num_slots
+
+    @property
     def pages_free(self) -> int:
         return sum(len(f) for f in self._free_pages)
 

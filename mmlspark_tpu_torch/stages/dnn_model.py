@@ -191,6 +191,17 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
     def capture_seconds(self) -> float:
         return sum(p.capture_seconds for p in self._programs.values())
 
+    def captured_forward(self) -> tuple:
+        """``(program, weights)``: the forward program of the current
+        output node and weight precision, as the last ``transform`` ran
+        it, and the device weights it reads — to time or trace the model
+        alone, with no feed. ``program(weights, x)`` runs one batch."""
+        key = (self.output_node, self.weight_quant)
+        if key not in self._programs:
+            raise FriendlyError("captured_forward: no transform has run "
+                                "this stage's forward yet")
+        return self._programs[key], self._dev_weights
+
     # -- execution ----------------------------------------------------------
 
     def _forward(self) -> ProgramCountingGraph:

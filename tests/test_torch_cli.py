@@ -168,10 +168,11 @@ def test_multihost_env_contract(monkeypatch):
         mesh.initialize_distributed(device="cpu")
 
 
-@pytest.mark.parametrize("argv", [["bench"], ["evidence", "flash"],
-                                  ["docgen"]])
+@pytest.mark.parametrize("argv", [["bench"]])
 def test_jax_scripts_raise_naming_item_20(argv):
-    with pytest.raises(FriendlyError, match="item 20"):
+    # evidence and docgen run over the port (tests/test_torch_evidence.py,
+    # tests/test_torch_docgen.py); bench waits for the first benchmark PR
+    with pytest.raises(FriendlyError, match="item 20.*first benchmark"):
         main(argv)
 
 

@@ -137,6 +137,23 @@ def test_output_node_cut_and_programs(mlp):
     assert headless.layer_names == ["hidden1", "z"]
 
 
+def test_captured_forward_is_the_transforms_program(mlp):
+    """``captured_forward`` hands out the program and device weights the
+    last transform ran, so the model alone gives the transform's
+    scores; before any transform it raises."""
+    stage, _ = mlp
+    fresh = stage.copy().set(weights=stage.weights)
+    with pytest.raises(FriendlyError, match="no transform"):
+        fresh.captured_forward()
+    ds = _feature_ds(n=4)
+    out = fresh.transform(ds)["scores"]
+    program, weights = fresh.captured_forward()
+    assert weights is fresh._device_weights(torch.device("cpu"))
+    got = program(weights, torch.from_numpy(
+        ds["features"].astype(np.float32)))
+    np.testing.assert_array_equal(got.float().numpy(), out)
+
+
 def test_object_vector_column_and_errors(mlp):
     stage, _ = mlp
     ds = Dataset({"features": [np.zeros(4), np.ones(4), np.full(4, 2.0)]})

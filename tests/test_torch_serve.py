@@ -400,7 +400,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.models.pipelined, "
         "mmlspark_tpu_torch.train.distributed, "
         "mmlspark_tpu_torch.__main__, mmlspark_tpu_torch.entry, "
-        "mmlspark_tpu_torch.testing.rank_pool\n"
+        "mmlspark_tpu_torch.testing.rank_pool, "
+        "mmlspark_tpu_torch.tools.docgen, mmlspark_tpu_torch.tools.common, "
+        "mmlspark_tpu_torch.tools.timing, "
+        "mmlspark_tpu_torch.tools.flash_evidence, "
+        "mmlspark_tpu_torch.tools.decode_evidence, "
+        "mmlspark_tpu_torch.tools.profile_resnet50, "
+        "mmlspark_tpu_torch.tools.feed_overhead\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
         "'transformer_lm_moe', 'skipgram'):\n"
@@ -456,7 +462,10 @@ def test_port_sources_name_no_jax_import():
                  "parallel/context_parallel.py", "__main__.py", "entry.py",
                  "testing/rank_pool.py", "parallel/pipeline.py",
                  "parallel/sequence_rnn.py", "models/pipelined.py",
-                 "train/distributed.py"):
+                 "train/distributed.py", "tools/__init__.py",
+                 "tools/docgen.py", "tools/common.py", "tools/timing.py",
+                 "tools/flash_evidence.py", "tools/decode_evidence.py",
+                 "tools/profile_resnet50.py", "tools/feed_overhead.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
     for path in files:
         for mod in _imported_modules(path):
