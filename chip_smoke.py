@@ -14,8 +14,9 @@ histogram tree learners, ``TrainClassifier``/``TrainRegressor``,
 attention (Ulysses and ring over a one-rank NCCL mesh), the trainer's
 mesh mode with the pipelined LM and the sequence-parallel BiLSTM over
 the same group, the launcher
-(``python -m mmlspark_tpu_torch``) and the entry point, and prints the
-measured numbers.
+(``python -m mmlspark_tpu_torch``), the entry point, the evidence tools
+and the twelve sample workflows (``mmlspark_tpu_torch/examples/``), and
+prints the measured numbers.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,9 @@ Phases (each one fails the run with a non-zero exit on error):
 
 1. the card's name and power limit, from ``nvidia-smi``;
 2. kernel vs plain, on the same CUDA tensors: ``flash_decode`` (float)
-   at the serving shapes and at GQA, D=128 and strided-view cases; the
+   at the serving shapes and at GQA, D=128 and strided-view cases, and
+   at e307's head dim 16 (B=4 beams over a 48-token cache, and the
+   rolled window cache of 8); the
    int8 ``flash_decode``, ``paged_flash_decode`` (float pages) and its
    int8 mode at B=8, page_size 16, 32 pages a row (L=512), H=Hkv=8,
    D=64, plus Hkv=2 and D=128, live lengths {0, 1, 15, 16, 17, 300, 511,
@@ -32,10 +35,12 @@ Phases (each one fails the run with a non-zero exit on error):
    backward kernels, float32 and bfloat16, at (B, S, H, Hkv, D) =
    (8, 512, 8, 8, 64) causal (the training shape), (2, 500, 8, 2, 64)
    causal with a 128 window (GQA, a padded tile), (2, 384, 8, 1, 128)
-   non-causal (MQA), (1, 1, 4, 4, 64) and (2, 64, 4, 4, 256), q/k/v
+   non-causal (MQA), (1, 1, 4, 4, 64), (2, 64, 4, 4, 256) and e307's
+   head dim 16 ((1, 16, 2, 2, 16) with a window of 8, (1, 48, 2, 2, 16)
+   and (2, 130, 2, 2, 16) with a window of 8, all causal), q/k/v
    strided slices of one fused tensor and dO a strided view; the route
    each call took is read off the counters (bf16 at head dims 64 and 128:
-   the tensor-core forward and backward pair; f32 and D = 256: the
+   the tensor-core forward and backward pair; f32, D = 16 and 256: the
    f32-FMA kernels); and the fused optimizer kernel against its plain
    update at the full-width model's parameter shapes, bit-equal in f32
    for adam, adamw, sgd and momentum with the quarantine's ``bad`` false
@@ -392,7 +397,18 @@ Phases (each one fails the run with a non-zero exit on error):
    256), each record accepted by its tool's ``check_record``, the flash
    process's forward and backward kernels and the decode process's
    decode kernel launched (their counters read at exit);
-16. numbers: each kernel's, its plain version's and (where one exists)
+16. the sample workflows (the ``examples`` line): the port's twelve
+   examples (``mmlspark_tpu_torch/examples/e101``-``e307``, the
+   reference's notebooks 101-305 and the long-context and generation
+   samples), each a process of its own through the port's harness
+   (``python -m mmlspark_tpu_torch run <script>``, no ``--cpu-mesh``):
+   each prints its ``OK`` line with its JAX twin's keys and its launch
+   counters (read at its exit); every example passes its own floors,
+   and e307 (``d_model=32``, 2 heads: head dim 16) launches the
+   attention forward, both backward kernels (their f32-FMA route: the
+   ``kernels`` line's attention rows count it as ``simt_launches``) and
+   the dense decode kernel;
+17. numbers: each kernel's, its plain version's and (where one exists)
    a library call's times (CUDA events, inputs rotated through more
    memory than the 50 MB L2 so each launch reads cold): ``ms`` the
    device's time (a spin kernel holds the stream while the host
@@ -482,6 +498,10 @@ KERNEL_CASES = [
     ("mqa_hkv1", 8, 512, 8, 1, 64, None, False),
     ("d128", 8, 512, 8, 4, 128, None, False),
     ("strided_views", 4, 96, 8, 8, 64, [0, 5, 64, 96], True),
+    # e307's models (the examples phase): head dim 16, the dense cache
+    # of four beams and the rolled window cache of 8
+    ("e307_d16", 4, 48, 2, 2, 16, [1, 9, 24, 48], False),
+    ("e307_d16_window", 1, 8, 2, 2, 16, [8], False),
 ]
 SLICE_LENGTHS = [0, 1, 127, 128, 129, 300, 511, 512]
 #: (name, B, H, Hkv, D) for the int8 and paged kernel checks, with
@@ -504,6 +524,11 @@ ATTN_CASES = [
     ("mqa_d128_noncausal", 2, 384, 8, 1, 128, False, None),
     ("one_token", 1, 1, 4, 4, 64, True, None),
     ("d256", 2, 64, 4, 4, 256, True, None),
+    # e307's models (the examples phase): head dim 16, windows smaller
+    # than a tile
+    ("e307_d16_window", 1, 16, 2, 2, 16, True, 8),
+    ("e307_d16", 1, 48, 2, 2, 16, True, None),
+    ("e307_d16_tiles_window", 2, 130, 2, 2, 16, True, 8),
 ]
 #: (out, LSE, gradients): out as the decode kernels; the LSE is f32 on
 #: both sides; a gradient's max abs error over the plain value's max abs
@@ -3372,6 +3397,10 @@ def measure_attention_kernels(errors: dict, launches: dict):
     bwd_design = ("mma.sync m16n8k16 bf16 tensor cores, cp.async double "
                   "buffer, P and dS fed back in registers (the bf16 route; "
                   "f32 and other head dims keep flash_attention_bwd.cu)")
+    # the main paths' launches of the f32-FMA route (flash_attention_fwd.cu,
+    # flash_attention_bwd.cu: f32, and bf16 at other head dims than 64/128)
+    simt = {k: launches[f"{k}_launches"] - launches[f"{k}_mma_launches"]
+            for k in ("fwd", "bwd_kv", "bwd_q")}
     rows = [
         kernel_row(
             "flash_attention_fwd", src + "flash_attention_fwd_mma.cu",
@@ -3385,21 +3414,23 @@ def measure_attention_kernels(errors: dict, launches: dict):
             design="mma.sync m16n8k16 bf16 tensor cores, cp.async double "
                    "buffer (the bf16 route; f32 and other head dims keep "
                    "flash_attention_fwd.cu)",
-            profiler_ms=fwd_profiled),
+            profiler_ms=fwd_profiled, simt_launches=simt["fwd"]),
         kernel_row(
             "flash_attention_bwd_kv", src + "flash_attention_bwd_mma.cu",
             f"{jax_file}:285", launches["bwd_kv_mma_launches"],
             max(err["dk_abs"], err["dv_abs"]), kv_t, plain_bwd, lib_bwd,
             *work["flash_attention_bwd_kv"], BF16_FLOPS_PER_S, shape,
             design=bwd_design, profiler_ms=profiled["bwd_kv"],
-            simt_ms=simt_t["bwd_kv"].ms, **bwd_notes),
+            simt_ms=simt_t["bwd_kv"].ms, simt_launches=simt["bwd_kv"],
+            **bwd_notes),
         kernel_row(
             "flash_attention_bwd_q", src + "flash_attention_bwd_mma.cu",
             f"{jax_file}:330", launches["bwd_q_mma_launches"],
             err["dq_abs"], dq_t, plain_bwd, lib_bwd,
             *work["flash_attention_bwd_q"], BF16_FLOPS_PER_S, shape,
             design=bwd_design, profiler_ms=profiled["bwd_q"],
-            simt_ms=simt_t["bwd_q"].ms, **bwd_notes),
+            simt_ms=simt_t["bwd_q"].ms, simt_launches=simt["bwd_q"],
+            **bwd_notes),
     ]
     del sets, arg_sets
     timings = {"whole_call": whole, "operands_and_row_delta": operands,
@@ -6751,6 +6782,66 @@ def check_evidence() -> dict:
     return out
 
 
+#: the launch counters an example's process must have advanced: e307's
+#: overfit LMs train through the attention kernels and decode through
+#: the dense decode kernel, all at head dim 16
+EXAMPLE_COUNTERS = {"e307": ("fwd_launches", "bwd_kv_launches",
+                             "bwd_q_launches", "launches")}
+#: the sample workflows the harness must find, and how many of their
+#: processes run at once (the card and the host's 8 cores have room)
+N_EXAMPLES, EXAMPLE_WORKERS = 12, 4
+
+
+def check_examples(smi: str) -> dict:
+    """The port's sample workflows on the card through its harness, one
+    process each (``python -m mmlspark_tpu_torch run <script>``),
+    EXAMPLE_WORKERS at a time: every example passes, its OK line has the
+    keys its source prints, and the counters of EXAMPLE_COUNTERS advanced
+    in their processes."""
+    import importlib.util
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mmlspark_tpu_torch.examples import harness
+
+    torch.cuda.empty_cache()
+    paths = harness.discover([], use_shard=False)
+    if len(paths) != N_EXAMPLES:
+        raise AssertionError(f"examples: {len(paths)} found, not "
+                             f"{N_EXAMPLES}")
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        done = list(pool.map(harness.run_example, paths))
+    runs, failed = {}, []
+    for path, run in zip(paths, done):
+        name = os.path.basename(path)[:4]
+        want, _ = harness.ok_fields(path)
+        missing = [c for c in EXAMPLE_COUNTERS.get(name, ())
+                   if not run.launches.get(c, 0) > 0]
+        passed = run.ok and list(run.result) == list(want) and not missing
+        runs[name] = {"status": "PASS" if passed else "FAIL",
+                      "seconds": run.seconds, "ok": run.result,
+                      "launches": run.launches}
+        log(f"examples {name}: {runs[name]['status']} {run.seconds:.1f}s "
+            f"{run.detail}")
+        if not passed:
+            runs[name]["missing_launches"] = missing
+            failed.append(name)
+            log(f"examples {name} output:\n{run.output[-3000:]}")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    total = {c: sum(r["launches"].get(c, 0) for r in runs.values())
+             for c in COUNTERS + ("fused_optim_launches",)}
+    # the optional host libraries the examples' stages would reach for
+    # (the port reads CSV without pandas and the digits without sklearn)
+    host = {m: importlib.util.find_spec(m) is not None
+            for m in ("pandas", "sklearn", "PIL")}
+    return {"device": smi, "passed": f"{len(runs)}/{len(paths)}",
+            "workers": EXAMPLE_WORKERS, "runs": runs, "launches": total,
+            "process_seconds": sum(r["seconds"] for r in runs.values()),
+            "host_modules": host}
+
+
 ENGINE_KEYS = (
     "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "per_token_ms",
     "per_token_ms_p50", "tick_ms_p50", "completed", "tokens_generated",
@@ -6869,6 +6960,10 @@ def main() -> int:
     t0 = time.perf_counter()
     evidence = check_evidence()
     log(f"evidence phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    examples = check_examples(smi)
+    examples["phase_s"] = time.perf_counter() - t0
+    log(f"examples phase took {examples['phase_s']:.1f}s")
 
     # each kernel's launches on the main paths: the first slices' runs
     # plus the MoE engines' (decode), the MoE training run's (attention),
@@ -6880,25 +6975,31 @@ def main() -> int:
     fleet_counts = fleet_launches(fleet)
     mesh_counts = {label: run["launch_counts"]
                    for label, run in mesh_serve["engines"].items()}
+    # (and the sample workflows' processes: decode, attention, optimizer)
+    ex_counts = examples["launches"]
     launches = {
         "launches": dense["counts"]["launches"]
         + moe_counts["moe dense bf16"]["launches"]
         + fleet_counts["launches"]
         + multimodel["launch_counts"]["launches"]
         + multimodel["replicas"]["launch_counts"]["launches"]
-        + mesh_counts["dense bf16"]["launches"],
+        + mesh_counts["dense bf16"]["launches"]
+        + ex_counts["launches"],
         "q8_launches": header["header dense int8"]["counts"]["q8_launches"]
         + fleet_counts["q8_launches"]
-        + mesh_counts["header dense int8"]["q8_launches"],
+        + mesh_counts["header dense int8"]["q8_launches"]
+        + ex_counts["q8_launches"],
         "paged_launches":
             header["header paged bf16"]["counts"]["paged_launches"]
             + moe_counts["moe paged bf16"]["paged_launches"]
             + fleet_counts["paged_launches"]
-            + mesh_counts["header paged bf16"]["paged_launches"],
+            + mesh_counts["header paged bf16"]["paged_launches"]
+            + ex_counts["paged_launches"],
         "paged_q8_launches":
             header["header paged int8"]["counts"]["paged_q8_launches"]
             + fleet_counts["paged_q8_launches"]
-            + mesh_counts["header paged int8"]["paged_q8_launches"],
+            + mesh_counts["header paged int8"]["paged_q8_launches"]
+            + ex_counts["paged_q8_launches"],
     }
     # the attention kernels' launches: the training runs', the MoE
     # training run's, the Ulysses run's of the context-parallel phase and
@@ -6910,13 +7011,14 @@ def main() -> int:
         "launch_counts"]
     attn_rows, attn_backward = measure_attention_kernels(
         attn_errors, {k: v + moe_train[k] + ulysses.get(k, 0)
-                      + mesh_step[k] + expert_step[k]
+                      + mesh_step[k] + expert_step[k] + ex_counts.get(k, 0)
                       for k, v in training["launch_counts"].items()})
     rows = measure_kernels(errors, launches) + attn_rows + [
         measure_fused_optimizer(
             optim_equal, training["launch_counts"]["fused_optim_launches"]
             + mesh_step["fused_optim_launches"]
-            + expert_step["fused_optim_launches"]),
+            + expert_step["fused_optim_launches"]
+            + ex_counts["fused_optim_launches"]),
         measure_tree_checksum(train_resilience["fold_bit_equal"],
                               fold_launches)]
     print(json.dumps({"kernel_errors": errors,
@@ -6960,6 +7062,7 @@ def main() -> int:
     print(json.dumps({"mesh_serve": mesh_serve}))
     print(json.dumps({"cli": cli, "entry": entry_run}))
     print(json.dumps({"evidence": evidence}))
+    print(json.dumps({"examples": examples}))
     log(f"smoke run took {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

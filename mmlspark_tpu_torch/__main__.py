@@ -168,17 +168,21 @@ class _Group:
 
 
 def cmd_run(args) -> int:
-    if _apply_backend(args) == "cpu":
-        # the script's default device becomes unavailable, as
-        # JAX_PLATFORMS=cpu hides the TPU from a JAX script
+    from mmlspark_tpu_torch.core.env import process_default
+
+    device = _apply_backend(args) or "cuda"
+    if device == "cpu":
+        # the card becomes unavailable and the script's default device is
+        # the CPU, as JAX_PLATFORMS=cpu hides the TPU from a JAX script
         os.environ["CUDA_VISIBLE_DEVICES"] = ""
     sys.argv = [args.script, *args.script_args]
-    if os.environ.get(_RANK_ENV):
-        # a --cpu-mesh rank: the script starts in the group
-        with _Group("cpu"):
-            runpy.run_path(args.script, run_name="__main__")
-        return 0
-    runpy.run_path(args.script, run_name="__main__")
+    with process_default(device):
+        if os.environ.get(_RANK_ENV):
+            # a --cpu-mesh rank: the script starts in the group
+            with _Group("cpu"):
+                runpy.run_path(args.script, run_name="__main__")
+            return 0
+        runpy.run_path(args.script, run_name="__main__")
     return 0
 
 

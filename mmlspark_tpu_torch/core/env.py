@@ -12,6 +12,7 @@ and the ``torch.distributed`` process group.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -19,9 +20,28 @@ import torch
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
 
 
+#: what ``device=None`` means in this process: the card, unless the
+#: launcher's ``--cpu-mesh`` asked for the CPU (:func:`process_default`)
+_process_default = "cuda"
+
+
 def has_cuda() -> bool:
     """True when PyTorch sees at least one CUDA device."""
     return torch.cuda.is_available()
+
+
+@contextmanager
+def process_default(device: str):
+    """Within the block ``device=None`` means ``device``: how ``python -m
+    mmlspark_tpu_torch --cpu-mesh N run script.py`` puts a script that
+    names no device on the CPU, as ``JAX_PLATFORMS=cpu`` does a JAX
+    script. The old meaning comes back when the block ends."""
+    global _process_default
+    before, _process_default = _process_default, device
+    try:
+        yield
+    finally:
+        _process_default = before
 
 
 def default_device(device=None) -> torch.device:
@@ -29,9 +49,10 @@ def default_device(device=None) -> torch.device:
 
     ``None`` means the card: ``cuda`` when a GPU is present, else a
     :class:`FriendlyError` — the port never falls back to the CPU on its
-    own. An explicit ``"cpu"`` (what the tests pass) is honoured, and an
+    own (inside :func:`process_default`, the device it names). An
+    explicit ``"cpu"`` (what the tests pass) is honoured, and an
     explicit CUDA device raises the same error when no GPU is present."""
-    dev = torch.device("cuda" if device is None else device)
+    dev = torch.device(_process_default if device is None else device)
     if dev.type == "cuda" and not has_cuda():
         raise FriendlyError(
             "no CUDA device is available; the port runs on the GPU by "

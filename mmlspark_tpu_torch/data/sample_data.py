@@ -16,13 +16,26 @@ These back the committed model zoo's pretrained backbone
 (tools/publish_zoo.py ``ResNet20_Digits04``) and the transfer-learning
 examples (e303) the way the reference zoo's ImageNet CNNs back
 notebooks 303/305.
+
+The port reads the scans from its own copy of scikit-learn's
+``datasets/data/digits.csv.gz`` (:data:`DIGITS_CSV`, the table
+``sklearn.datasets.load_digits`` parses: 64 pixel counts and the label a
+row), so it needs no scikit-learn (the GPU machine has none) and no
+import of it (seconds of start-up a call).
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+
 import numpy as np
 
 from mmlspark_tpu_torch.core.exceptions import FriendlyError
+
+#: the digits table, a copy of scikit-learn's ``digits.csv.gz``
+DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits.csv.gz")
 
 __all__ = ["load_digit_images"]
 
@@ -52,17 +65,14 @@ def load_digit_images(
     scans): the training augmentation, and the evaluation condition under
     which raw-pixel models break while convolutional features hold up.
     """
-    try:
-        from sklearn.datasets import load_digits
-    except ImportError as e:
+    if not os.path.exists(DIGITS_CSV):
         raise FriendlyError(
-            "load_digit_images needs scikit-learn (bundled sample data); "
-            "it is not installed here"
-        ) from e
-
-    d = load_digits()
-    x8 = (d.data.reshape(-1, 8, 8) / 16.0).astype(np.float32)
-    y = d.target.astype(np.int32)
+            f"load_digit_images reads {DIGITS_CSV}, which is missing"
+        )
+    with gzip.open(DIGITS_CSV, "rt") as f:
+        table = np.loadtxt(f, delimiter=",")
+    x8 = (table[:, :-1].reshape(-1, 8, 8) / 16.0).astype(np.float32)
+    y = table[:, -1].astype(np.int32)
     if classes is not None:
         keep = np.isin(y, np.asarray(classes))
         x8, y = x8[keep], y[keep]

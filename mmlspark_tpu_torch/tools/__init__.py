@@ -10,7 +10,9 @@ evidence tools under ``tools/``).
 - :mod:`.profile_resnet50`: a ``torch.profiler`` trace of the ResNet-50
   forward that ``TPUModel`` replays;
 - :mod:`.feed_overhead`: ``TPUModel``'s feed machinery against the
-  model-only ceiling.
+  model-only ceiling;
+- :mod:`.make_notebooks`: the notebook tier (``notebooks/samples_torch/``)
+  from the port's example scripts (``mmlspark_tpu_torch/examples/``).
 
 Each evidence tool has ``run(...)`` returning its record as a dict, a
 pure ``check_record(record)`` returning the list of its contract's

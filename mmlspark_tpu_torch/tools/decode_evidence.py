@@ -46,6 +46,7 @@ import torch
 
 from mmlspark_tpu_torch.core.env import default_device
 from mmlspark_tpu_torch.models import build_model, init_variables
+from mmlspark_tpu_torch.models.bridge import variables_to
 from mmlspark_tpu_torch.models.generate import (
     _cached_apply,
     generate,
@@ -109,13 +110,23 @@ def _compute_dtype(graph):
 def run(device=None, *, vocab: int = VOCAB, d_model: int = D_MODEL,
         heads: int = HEADS, depth: int = DEPTH, batch: int = BATCH,
         prompt: int = PROMPT, n_short: int = N_SHORT, n_long: int = N_LONG,
-        trials: int = TRIALS, seed: int = 0) -> dict:
+        trials: int = TRIALS, seed: int = 0, variables=None) -> dict:
+    """The record. ``seed`` draws the prompts (``default_rng(seed)``, the
+    JAX tool's ``default_rng(0)`` at 0) and, unless ``variables`` are
+    given, the weights (``init_variables(graph, seed)``). ``variables``
+    are the port's weights of this model, e.g. the JAX tool's flax
+    weights through ``models.bridge.load_flax_variables``."""
     dev = default_device(device)
     on_card = dev.type == "cuda"
     graph = build_model("transformer_lm", vocab_size=vocab, d_model=d_model,
                         heads=heads, depth=depth, max_len=prompt + n_long,
                         attn_impl="dense")
-    variables = init_variables(graph, seed, device=dev)
+    weights = "given" if variables is not None else f"init_variables seed " \
+        f"{seed}"
+    if variables is None:
+        variables = init_variables(graph, seed, device=dev)
+    else:
+        variables = variables_to(variables, dev)
     ids = torch.from_numpy(np.random.default_rng(seed).integers(
         0, vocab, size=(batch, prompt)).astype(np.int32)).to(dev)
     record = {
@@ -128,6 +139,7 @@ def run(device=None, *, vocab: int = VOCAB, d_model: int = D_MODEL,
                       "torch.", ""), "cache_dtype": "bfloat16"},
         "lengths": {"n_short": n_short, "n_long": n_long},
         "seed": seed,
+        "weights": weights,
         "method": METHOD,
     }
 

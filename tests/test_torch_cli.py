@@ -129,6 +129,35 @@ def test_run_script(tmp_path, capsys, monkeypatch):
     assert "rows 2 argv ['--flag', 'x'] cards ''" in out
 
 
+def test_run_script_names_no_device_under_cpu_mesh(tmp_path, capsys,
+                                                   monkeypatch):
+    """A script that names no device runs on the CPU under ``--cpu-mesh
+    1 run`` (``core.env.process_default``), and the card is the default
+    again once the script has run."""
+    from mmlspark_tpu_torch.core import env
+
+    script = tmp_path / "user.py"
+    script.write_text(
+        "from mmlspark_tpu_torch.core.env import default_device\n"
+        "from mmlspark_tpu_torch.models import build_model, "
+        "init_variables\n"
+        "v = init_variables(build_model('bilstm_tagger', vocab_size=8, "
+        "embed_dim=4, hidden=4, num_tags=2), 0)\n"
+        "print('device', default_device(), next(iter(next(iter("
+        "v.values())).values())).device)\n")
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES",
+                       os.environ.get("CUDA_VISIBLE_DEVICES", "0"))
+    out = _cli(capsys, "--cpu-mesh", "1", "run", str(script))
+    assert "device cpu cpu" in out
+    assert env._process_default == "cuda"
+    with env.process_default("cpu"):
+        assert env.default_device() == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(FriendlyError, match="no CUDA device"):
+            env.default_device()
+
+
 def test_zoo_list_and_download(tmp_path, capsys):
     repo = ["--local-repo", str(tmp_path / "repo"),
             "--remote", str(REPO / "models" / "zoo_repo")]

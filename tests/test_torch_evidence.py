@@ -172,6 +172,43 @@ def test_decode_refuses_what_the_jax_contract_refuses(records):
         assert decode_evidence.check_record(bad), name
 
 
+def test_decode_proof_runs_on_given_weights(records, monkeypatch):
+    """``decode_evidence.run(variables=...)``: the proof over weights the
+    caller gives — here the JAX tool's kind, flax's ``init`` bridged by
+    ``load_flax_variables`` — and the record names them; both streams are
+    generated from exactly those weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from mmlspark_tpu.models import build_model as jax_build_model
+    from mmlspark_tpu_torch.models import build_model
+    from mmlspark_tpu_torch.models.bridge import load_flax_variables
+
+    shape = dict(vocab_size=64, d_model=32, heads=2, depth=2, max_len=24,
+                 attn_impl="dense")
+    flax_vars = jax_build_model("transformer_lm", **shape).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    variables = load_flax_variables(build_model("transformer_lm", **shape),
+                                    flax_vars, device="cpu")
+    seen = []
+    generate = decode_evidence.generate
+
+    def spy(graph, v, prompt, n, **kw):
+        seen.append(v)
+        return generate(graph, v, prompt, n, **kw)
+
+    monkeypatch.setattr(decode_evidence, "generate", spy)
+    rec = decode_evidence.run(
+        "cpu", vocab=64, d_model=32, heads=2, depth=2, batch=2, prompt=8,
+        n_short=8, n_long=16, variables=variables)
+    assert rec["weights"] == "given"
+    assert records["decode"]["weights"] == "init_variables seed 0"
+    assert len(seen) == 2 and all(v is variables for v in seen)
+    num = rec["numerics"]
+    assert num["prefill_logits_scaled_err"] <= decode_evidence.PREFILL_TOL
+    assert num["n_tokens_compared"] == 2 * 16
+
+
 def test_feed_and_profile_refuse_broken_records(records):
     bad = copy.deepcopy(records["feed"])
     bad["scores_max_abs_diff_vs_model_only"] = 0.5

@@ -406,15 +406,23 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "mmlspark_tpu_torch.tools.flash_evidence, "
         "mmlspark_tpu_torch.tools.decode_evidence, "
         "mmlspark_tpu_torch.tools.profile_resnet50, "
-        "mmlspark_tpu_torch.tools.feed_overhead\n"
+        "mmlspark_tpu_torch.tools.feed_overhead, "
+        "mmlspark_tpu_torch.tools.make_notebooks, "
+        "mmlspark_tpu_torch.examples, mmlspark_tpu_torch.examples.harness\n"
+        "import importlib, pkgutil, mmlspark_tpu_torch.examples as ex\n"
+        "names = sorted(m.name for m in pkgutil.iter_modules(ex.__path__) "
+        "if m.name.startswith('e'))\n"
+        "assert len(names) == 12, names\n"
+        "for name in names:\n"
+        "    importlib.import_module('mmlspark_tpu_torch.examples.' + name)\n"
         "from mmlspark_tpu_torch.models import build_model\n"
         "for name in ('resnet20_cifar10', 'resnet50', 'bilstm_tagger', "
         "'transformer_lm_moe', 'skipgram'):\n"
         "    build_model(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
-        "'mmlspark_tpu') or m.startswith(('jax.', 'flax.', "
-        "'mmlspark_tpu.')))\n"
+        "'optax', 'mmlspark_tpu') or m.startswith(('jax.', 'flax.', "
+        "'optax.', 'mmlspark_tpu.')))\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -465,12 +473,18 @@ def test_port_sources_name_no_jax_import():
                  "train/distributed.py", "tools/__init__.py",
                  "tools/docgen.py", "tools/common.py", "tools/timing.py",
                  "tools/flash_evidence.py", "tools/decode_evidence.py",
-                 "tools/profile_resnet50.py", "tools/feed_overhead.py"):
+                 "tools/profile_resnet50.py", "tools/feed_overhead.py",
+                 "tools/make_notebooks.py", "examples/__init__.py",
+                 "examples/harness.py"):
         assert REPO / "mmlspark_tpu_torch" / name in files, name
+    examples = [f for f in files if f.parent.name == "examples"
+                and f.name.startswith("e")]
+    assert len(examples) == 12, examples
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "flax", "mmlspark_tpu"), (path, mod)
+            assert top not in ("jax", "flax", "optax", "mmlspark_tpu"), (
+                path, mod)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
