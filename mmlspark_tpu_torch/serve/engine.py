@@ -189,6 +189,7 @@ within a token-flip budget of the bf16 streams).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -537,7 +538,8 @@ class ServeEngine:
                  state_argnums) -> RetraceWatchdog:
         return RetraceWatchdog(
             ProgramCountingGraph(fn, state_argnums=state_argnums,
-                                 pool=self._graph_pool, label=label),
+                                 pool=self._graph_pool, label=label,
+                                 span="serve.capture"),
             label, registry=self.registry, recorder=self.recorder,
             expected_programs=expected,
         )
@@ -1007,26 +1009,17 @@ class ServeEngine:
             raise
 
     def _step_inner(self) -> list[RequestResult]:
+        """The tick's phases, each under its profiler range: every host
+        moment of a tick lies in exactly one innermost range of
+        ``serve.account``, ``serve.admit``, ``serve.prefill``,
+        ``serve.handoff``, ``serve.capture`` and ``serve.decode``'s
+        ``inputs``, ``launch``, ``stage``, ``fetch`` and ``consume``."""
         t0 = time.perf_counter()
         tick = self._sched.tick_count
-        finished = self._sched.expire(tick)
+        with annotate("serve.account"):
+            finished = self._sched.expire(tick)
+            shedding = self._shedding(tick)
         tokens_this_tick = 0
-        # SLO load shedding: while the budget burns, NEW admissions wait
-        # (in-flight requests keep decoding, so the overload drains); an
-        # idle engine admits regardless, or it could never observe the
-        # recovery
-        shedding = (
-            self._slo is not None and self._slo.should_shed
-            and self.pool.leased_count > 0
-        )
-        if self._slo is not None and self._place is not None:
-            # the monitor reads this rank's clock: every rank sheds if any
-            # does, so the admissions stay the same everywhere
-            shedding = bool(self._place.agree_max([shedding])[0])
-        if shedding and self._sched.queue_depth:
-            self.metrics.record_slo_shed()
-            self.recorder.record("slo_shed", tick=tick,
-                                 queue_depth=self._sched.queue_depth)
         with annotate("serve.admit"):
             while (
                 not shedding
@@ -1038,6 +1031,10 @@ class ServeEngine:
             ):
                 req = self._sched.pop_next()
                 slot = self.pool.lease()
+                if req.admitted_at is None:
+                    # a preempted request keeps its first admission
+                    req = dataclasses.replace(
+                        req, admitted_at=time.perf_counter())
                 self._span_event(req.id, "admitted", tick=tick, slot=slot)
                 # preempted and restored requests re-prefill prompt + the
                 # tokens already emitted: greedy determinism makes the
@@ -1071,39 +1068,63 @@ class ServeEngine:
                                      finished, kv=cache):
                     tokens_this_tick += 1
         if self._sched.filling:
-            tokens_this_tick += self._advance_fills(tick, finished)
+            with annotate("serve.prefill"):
+                tokens_this_tick += self._advance_fills(tick, finished)
         # slot occupancy AS OF the decode block: a request can join and
         # retire inside one tick
         leased_this_tick = self.pool.leased_count
-        if self._async_host:
-            tokens_this_tick += self._decode_phase_async(tick, finished)
-        elif self._sched.active:
-            tokens_this_tick += self._decode_phase(tick, finished)
-        self._sched.tick_count += 1
-        tick_s = time.perf_counter() - t0
-        self.metrics.sample_tick(
-            self._sched.queue_depth, leased_this_tick, tick_s,
-            tokens_emitted=tokens_this_tick,
-        )
-        self.recorder.record("tick", tick=tick, ms=round(tick_s * 1e3, 3),
-                             tokens=tokens_this_tick)
-        for res in finished:
-            self.metrics.record_finish(res)
-            # a request retired before admission (a deadline) abandons
-            # its pending hand-off payload
-            self._handoffs.pop(res.id, None)
-            self._end_span(res.id, res.status, tick=res.finish_tick,
-                           generated=res.generated)
-        # once a tick, after the finish feed: the next tick's admission
-        # sees the freshest shed signal
-        if self._slo is not None:
-            self._slo.evaluate(tick=tick)
-        if (
-            self._snapshot_every is not None
-            and self._sched.tick_count % self._snapshot_every == 0
-        ):
-            self.checkpoint()
+        with annotate("serve.decode"):
+            if self._async_host:
+                tokens_this_tick += self._decode_phase_async(tick,
+                                                             finished)
+            elif self._sched.active:
+                tokens_this_tick += self._decode_phase(tick, finished)
+        with annotate("serve.account"):
+            self._sched.tick_count += 1
+            tick_s = time.perf_counter() - t0
+            self.metrics.sample_tick(
+                self._sched.queue_depth, leased_this_tick, tick_s,
+                tokens_emitted=tokens_this_tick,
+            )
+            self.recorder.record("tick", tick=tick,
+                                 ms=round(tick_s * 1e3, 3),
+                                 tokens=tokens_this_tick)
+            for res in finished:
+                self.metrics.record_finish(res)
+                # a request retired before admission (a deadline)
+                # abandons its pending hand-off payload
+                self._handoffs.pop(res.id, None)
+                self._end_span(res.id, res.status, tick=res.finish_tick,
+                               generated=res.generated)
+            # once a tick, after the finish feed: the next tick's
+            # admission sees the freshest shed signal
+            if self._slo is not None:
+                self._slo.evaluate(tick=tick)
+            if (
+                self._snapshot_every is not None
+                and self._sched.tick_count % self._snapshot_every == 0
+            ):
+                self.checkpoint()
         return finished
+
+    def _shedding(self, tick: int) -> bool:
+        """SLO load shedding: while the budget burns, NEW admissions wait
+        (in-flight requests keep decoding, so the overload drains); an
+        idle engine admits regardless, or it could never observe the
+        recovery."""
+        shedding = (
+            self._slo is not None and self._slo.should_shed
+            and self.pool.leased_count > 0
+        )
+        if self._slo is not None and self._place is not None:
+            # the monitor reads this rank's clock: every rank sheds if any
+            # does, so the admissions stay the same everywhere
+            shedding = bool(self._place.agree_max([shedding])[0])
+        if shedding and self._sched.queue_depth:
+            self.metrics.record_slo_shed()
+            self.recorder.record("slo_shed", tick=tick,
+                                 queue_depth=self._sched.queue_depth)
+        return shedding
 
     def _first_token(self, req, slot: int, first: int, bucket: int | None,
                      tick: int, finished: list, *,
@@ -1113,7 +1134,10 @@ class ServeEngine:
         check, then activation — or, on a prefill-role engine, the
         hand-off of ``kv`` (the program's output cache, valid over the
         request's sequence). Returns whether the token was emitted
-        (False: quarantined)."""
+        (False: quarantined). The first token in hand stamps the request's
+        ``first_token_at``, once in its life."""
+        if req.first_token_at is None:
+            req = dataclasses.replace(req, first_token_at=time.perf_counter())
         if self._faults is not None:
             poison = self._faults.poison_value(site, tick=tick,
                                                request=req.id,
@@ -1435,18 +1459,17 @@ class ServeEngine:
             tp = time.perf_counter()
             if not final:
                 ok = False
-                with annotate("serve.prefill"):
-                    while True:
-                        try:
-                            self._fire("serve.prefill", tick, req.id)
-                            self._chunk_call(fs, ids, start, last)
-                            ok = True
+                while True:
+                    try:
+                        self._fire("serve.prefill", tick, req.id)
+                        self._chunk_call(fs, ids, start, last)
+                        ok = True
+                        break
+                    except Exception as e:
+                        attempts += 1
+                        if not self._absorb(e, attempts, tick,
+                                            "serve.prefill"):
                             break
-                        except Exception as e:
-                            attempts += 1
-                            if not self._absorb(e, attempts, tick,
-                                                "serve.prefill"):
-                                break
                 if not ok:
                     self._sched.fill_done(slot)
                     finished.append(self._quarantine_unactivated(
@@ -1468,26 +1491,25 @@ class ServeEngine:
             # -- the final chunk: compute, land in the slot, sync ----------
             entry = fs.carry["entry"]
             first, stale = None, False
-            with annotate("serve.prefill"):
-                while True:
-                    try:
-                        self._fire("serve.prefill", tick, req.id)
-                        tok, cache = self._chunk_call(fs, ids, start, last)
-                        # map the shared prefix pages FIRST, then scatter
-                        # only [keep, total)
-                        if entry is not None and not self.pool.map_prefix(
-                                slot, entry, fs.keep):
-                            stale = True
-                            break
-                        self.pool.write_prefill(slot, cache, fs.total,
-                                                start=fs.keep)
-                        first = int(tok)
+            while True:
+                try:
+                    self._fire("serve.prefill", tick, req.id)
+                    tok, cache = self._chunk_call(fs, ids, start, last)
+                    # map the shared prefix pages FIRST, then scatter only
+                    # [keep, total)
+                    if entry is not None and not self.pool.map_prefix(
+                            slot, entry, fs.keep):
+                        stale = True
                         break
-                    except Exception as e:
-                        attempts += 1
-                        if not self._absorb(e, attempts, tick,
-                                            "serve.prefill"):
-                            break
+                    self.pool.write_prefill(slot, cache, fs.total,
+                                            start=fs.keep)
+                    first = int(tok)
+                    break
+                except Exception as e:
+                    attempts += 1
+                    if not self._absorb(e, attempts, tick,
+                                        "serve.prefill"):
+                        break
             if stale:
                 # the prefix entry was evicted since the fill started: the
                 # fill restarts from scratch (the stream is unchanged)
@@ -1568,39 +1590,42 @@ class ServeEngine:
         ``ensure_decode_pages`` covers what ``prev`` may still write."""
         attempts = 0
         while self._sched.active:
-            states = dict(self._sched.active)
-            lag = {}
-            if prev is not None:
-                for slot, st in prev["states"].items():
-                    if states.get(slot) is st:
-                        lag[slot] = prev["t_block"]
-            pre_pos = {slot: st.pos + lag.get(slot, 0)
-                       for slot, st in states.items()}
-            tok, rem, eos, _ = self._sched.decode_block_inputs(self.pad_id)
-            rems = []
-            for slot, st in states.items():
-                adj = (st.req.max_new_tokens - len(st.out)
-                       - lag.get(slot, 0))
-                rem[slot] = adj
-                if adj > 0:
-                    rems.append(adj)
-            if not rems:
-                return "idle"
-            t_block = self._block_size(min(rems))
-            tok_d, rem_d, eos_d = (host_to_device(self._rows(a), self.device)
-                                   for a in (tok, rem, eos))
-            if lag:
-                sel = np.zeros((self.pool.num_slots,), bool)
-                sel[list(lag)] = True
-                tok_d = torch.where(host_to_device(self._rows(sel),
-                                                   self.device),
-                                    prev["last"], tok_d)
-            pool = self.pool
-            family = self._analyze_block(t_block, self.variables,
-                                         pool.buffers, pool.positions,
-                                         pool.live, tok_d, rem_d, eos_d)
-            try:
-                with annotate("serve.decode"):
+            with annotate("serve.decode.inputs"):
+                states = dict(self._sched.active)
+                lag = {}
+                if prev is not None:
+                    for slot, st in prev["states"].items():
+                        if states.get(slot) is st:
+                            lag[slot] = prev["t_block"]
+                pre_pos = {slot: st.pos + lag.get(slot, 0)
+                           for slot, st in states.items()}
+                tok, rem, eos, _ = self._sched.decode_block_inputs(
+                    self.pad_id)
+                rems = []
+                for slot, st in states.items():
+                    adj = (st.req.max_new_tokens - len(st.out)
+                           - lag.get(slot, 0))
+                    rem[slot] = adj
+                    if adj > 0:
+                        rems.append(adj)
+                if not rems:
+                    return "idle"
+                t_block = self._block_size(min(rems))
+                tok_d, rem_d, eos_d = (
+                    host_to_device(self._rows(a), self.device)
+                    for a in (tok, rem, eos))
+                if lag:
+                    sel = np.zeros((self.pool.num_slots,), bool)
+                    sel[list(lag)] = True
+                    tok_d = torch.where(host_to_device(self._rows(sel),
+                                                       self.device),
+                                        prev["last"], tok_d)
+                pool = self.pool
+                family = self._analyze_block(t_block, self.variables,
+                                             pool.buffers, pool.positions,
+                                             pool.live, tok_d, rem_d, eos_d)
+            with annotate("serve.decode.launch"):
+                try:
                     issued = time.perf_counter()
                     if self._paged:
                         # pre-map every page this block can write; page
@@ -1612,21 +1637,21 @@ class ServeEngine:
                     self._fire("serve.decode", tick)
                     staged = self._call("serve.decode", self._decode_call,
                                         t_block, tok_d, rem_d, eos_d)
-            except Exception as e:
-                attempts += 1
-                if not self._absorb(e, attempts, tick, "serve.decode"):
-                    return "failed"
-                continue
-            self._dispatch_gen += 1
-            self.pool.defer_frees(self._dispatch_gen)
-            self._inflight = dict(
-                staged, states=states, pre_pos=pre_pos,
-                t_block=t_block, family=family, issued=issued,
-                gen=self._dispatch_gen, n_active=len(states),
-                overlapped=prev is not None)
-            if prev is not None:
-                self.metrics.record_overlapped_dispatch()
-            return "ok"
+                except Exception as e:
+                    attempts += 1
+                    if not self._absorb(e, attempts, tick, "serve.decode"):
+                        return "failed"
+                    continue
+                self._dispatch_gen += 1
+                self.pool.defer_frees(self._dispatch_gen)
+                self._inflight = dict(
+                    staged, states=states, pre_pos=pre_pos,
+                    t_block=t_block, family=family, issued=issued,
+                    gen=self._dispatch_gen, n_active=len(states),
+                    overlapped=prev is not None)
+                if prev is not None:
+                    self.metrics.record_overlapped_dispatch()
+                return "ok"
         return "idle"
 
     def _decode_call(self, t_block: int, tok_d, rem_d, eos_d) -> dict:
@@ -1651,26 +1676,28 @@ class ServeEngine:
                 pool.positions.copy_(saved[0])
                 pool.live.copy_(saved[1])
             raise
-        self._decode_sizes.add(t_block)
-        on_card = self.device.type == "cuda"
-        if self._place is not None:
-            # every data rank's rows, the live flags as a last column
-            toks, live = toks[:, :-1], toks[:, -1]
-            last = self._rows(toks[:, -1]).clone()
-        else:
-            live = pool.live
-            last = toks[:, -1].clone()
-        toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=on_card)
-        live_h = torch.empty(live.shape, dtype=live.dtype,
-                             pin_memory=on_card)
-        toks_h.copy_(toks, non_blocking=on_card)
-        live_h.copy_(live, non_blocking=on_card)
-        event = None
-        if on_card:
-            event = torch.cuda.Event()
-            event.record()
-        return {"toks_h": toks_h, "live_h": live_h, "last": last,
-                "event": event}
+        with annotate("serve.decode.stage"):
+            self._decode_sizes.add(t_block)
+            on_card = self.device.type == "cuda"
+            if self._place is not None:
+                # every data rank's rows, the live flags as a last column
+                toks, live = toks[:, :-1], toks[:, -1]
+                last = self._rows(toks[:, -1]).clone()
+            else:
+                live = pool.live
+                last = toks[:, -1].clone()
+            toks_h = torch.empty(toks.shape, dtype=toks.dtype,
+                                 pin_memory=on_card)
+            live_h = torch.empty(live.shape, dtype=live.dtype,
+                                 pin_memory=on_card)
+            toks_h.copy_(toks, non_blocking=on_card)
+            live_h.copy_(live, non_blocking=on_card)
+            event = None
+            if on_card:
+                event = torch.cuda.Event()
+                event.record()
+            return {"toks_h": toks_h, "live_h": live_h, "last": last,
+                    "event": event}
 
     def _fetch(self, inflight: dict) -> tuple[np.ndarray, np.ndarray]:
         """The block's ONE host sync: wait for its staging event (never
@@ -1702,101 +1729,108 @@ class ServeEngine:
             return [s for s, st in states.items()
                     if self._sched.active.get(s) is st]
 
-        toks_h = live_h = None
-        fetch_attempts = 0
-        wait0 = time.perf_counter()
-        while True:
-            try:
-                self._fire("serve.device_get", tick)
-                toks_h, live_h = self._call("serve.device_get", self._fetch,
-                                            inflight)
-                break
-            except Exception as e:
-                if not (is_transient(e) or is_resource_exhausted(e)):
-                    raise
-                fetch_attempts += 1
-                if fetch_attempts > self._retry_limit:
+        with annotate("serve.decode.fetch"):
+            toks_h = live_h = None
+            fetch_attempts = 0
+            wait0 = time.perf_counter()
+            while True:
+                try:
+                    self._fire("serve.device_get", tick)
+                    toks_h, live_h = self._call("serve.device_get",
+                                                self._fetch, inflight)
                     break
-                self._backoff(fetch_attempts)
-        done = time.perf_counter()
-        self.metrics.record_host_sync(done - wait0)
-        prev_done = self._prev_block_done
-        self._prev_block_done = done
-        if toks_h is None:
-            # the block's tokens are unrecoverable: every stream in it
-            # now has a gap — a definite failure beats resuming past it
-            for slot in live_rows():
-                finished.append(self._quarantine_slot(
-                    slot, tick, "device_get_failed"))
-            self._close_frees(inflight["gen"])
-            return 0
-        # a pipelined block could not start before the previous block's
-        # outputs were in: the span from its issue to that fetch is queue
-        # time, not the block's own
-        dispatch_s = done - inflight["issued"]
-        queued_s = 0.0
-        if inflight["overlapped"]:
-            queued_s = min(dispatch_s,
-                           max(0.0, prev_done - inflight["issued"]))
-        if self._faults is not None:
-            toks_h = self._faults.poison_block(
-                "serve.device_get", toks_h, tick=tick, slots=live_rows(),
-                replica=self._replica)
-        # token-stream validation: greedy tokens are argmax indices in
-        # [0, vocab); quarantine a corrupted row BEFORE consume() folds it
-        bad_rows = (toks_h < 0).any(axis=1)
-        if self._vocab is not None:
-            bad_rows |= (toks_h >= int(self._vocab)).any(axis=1)
-        quarantined: set[int] = set()
-        if bad_rows.any():
-            for slot in live_rows():
-                if bad_rows[slot]:
+                except Exception as e:
+                    if not (is_transient(e) or is_resource_exhausted(e)):
+                        raise
+                    fetch_attempts += 1
+                    if fetch_attempts > self._retry_limit:
+                        break
+                    self._backoff(fetch_attempts)
+            done = time.perf_counter()
+            self.metrics.record_host_sync(done - wait0)
+        with annotate("serve.decode.consume"):
+            prev_done = self._prev_block_done
+            self._prev_block_done = done
+            if toks_h is None:
+                # the block's tokens are unrecoverable: every stream in
+                # it now has a gap — a definite failure beats resuming
+                # past it
+                for slot in live_rows():
                     finished.append(self._quarantine_slot(
-                        slot, tick, "poisoned_token"))
-                    quarantined.add(slot)
-        blk_finished, consumed = self._sched.consume(toks_h, tick,
-                                                     states=states)
-        n_tokens = sum(consumed.values())
-        # live KV rows the block attended per slot: its c consumed
-        # micro-steps read frontiers pos0+1 .. pos0+c
-        live_kv = sum(
-            c * (pre_pos[slot] + 1) + c * (c - 1) // 2
-            for slot, c in consumed.items()
-        )
-        exec_s = max(0.0, dispatch_s - queued_s)
-        n_active = inflight["n_active"]
-        self.metrics.record_decode(
-            n_active, exec_s, tokens_emitted=n_tokens, block=t_block,
-            live_kv=live_kv, cache_len=self.cache_len,
-        )
-        family = inflight["family"]
-        self.metrics.perf.record_dispatch(family, dispatch_s,
-                                          tokens=n_tokens, queued_s=queued_s)
-        decode_ms = round(exec_s * 1e3, 3)
-        self.recorder.record("dispatch", tick=tick, family=family,
-                             ms=decode_ms, queued_ms=round(queued_s * 1e3, 3),
-                             tokens=n_tokens)
-        for slot, st in states.items():
-            if slot in quarantined or consumed.get(slot) is None:
-                continue
-            # for every request that kept its slot from dispatch to
-            # fetch, the device live mask and the host's retirement
-            # bookkeeping agree row by row
-            if bool(live_h[slot]) != (self._sched.active.get(slot) is st):
-                raise RuntimeError(
-                    f"device live mask and host retirement disagree for "
-                    f"slot {slot} (block T={t_block})"
-                )
-        for slot, st in states.items():
-            if consumed.get(slot) is not None:
-                self._span_event(st.req.id, "decode", tick=tick,
-                                 pos=pre_pos[slot], n_active=n_active,
-                                 block=t_block, tokens=consumed[slot],
-                                 step_ms=decode_ms)
-        finished.extend(blk_finished)
-        self._note_clean_dispatch(tick)
-        self._close_frees(inflight["gen"])
-        return n_tokens
+                        slot, tick, "device_get_failed"))
+                self._close_frees(inflight["gen"])
+                return 0
+            # a pipelined block could not start before the previous
+            # block's outputs were in: the span from its issue to that
+            # fetch is queue time, not the block's own
+            dispatch_s = done - inflight["issued"]
+            queued_s = 0.0
+            if inflight["overlapped"]:
+                queued_s = min(dispatch_s,
+                               max(0.0, prev_done - inflight["issued"]))
+            if self._faults is not None:
+                toks_h = self._faults.poison_block(
+                    "serve.device_get", toks_h, tick=tick,
+                    slots=live_rows(), replica=self._replica)
+            # token-stream validation: greedy tokens are argmax indices
+            # in [0, vocab); quarantine a corrupted row BEFORE consume()
+            # folds it
+            bad_rows = (toks_h < 0).any(axis=1)
+            if self._vocab is not None:
+                bad_rows |= (toks_h >= int(self._vocab)).any(axis=1)
+            quarantined: set[int] = set()
+            if bad_rows.any():
+                for slot in live_rows():
+                    if bad_rows[slot]:
+                        finished.append(self._quarantine_slot(
+                            slot, tick, "poisoned_token"))
+                        quarantined.add(slot)
+            blk_finished, consumed = self._sched.consume(toks_h, tick,
+                                                         states=states)
+            n_tokens = sum(consumed.values())
+            # live KV rows the block attended per slot: its c consumed
+            # micro-steps read frontiers pos0+1 .. pos0+c
+            live_kv = sum(
+                c * (pre_pos[slot] + 1) + c * (c - 1) // 2
+                for slot, c in consumed.items()
+            )
+            exec_s = max(0.0, dispatch_s - queued_s)
+            n_active = inflight["n_active"]
+            self.metrics.record_decode(
+                n_active, exec_s, tokens_emitted=n_tokens, block=t_block,
+                live_kv=live_kv, cache_len=self.cache_len,
+            )
+            family = inflight["family"]
+            self.metrics.perf.record_dispatch(family, dispatch_s,
+                                              tokens=n_tokens,
+                                              queued_s=queued_s)
+            decode_ms = round(exec_s * 1e3, 3)
+            self.recorder.record("dispatch", tick=tick, family=family,
+                                 ms=decode_ms,
+                                 queued_ms=round(queued_s * 1e3, 3),
+                                 tokens=n_tokens)
+            for slot, st in states.items():
+                if slot in quarantined or consumed.get(slot) is None:
+                    continue
+                # for every request that kept its slot from dispatch to
+                # fetch, the device live mask and the host's retirement
+                # bookkeeping agree row by row
+                if bool(live_h[slot]) != (
+                        self._sched.active.get(slot) is st):
+                    raise RuntimeError(
+                        f"device live mask and host retirement disagree "
+                        f"for slot {slot} (block T={t_block})"
+                    )
+            for slot, st in states.items():
+                if consumed.get(slot) is not None:
+                    self._span_event(st.req.id, "decode", tick=tick,
+                                     pos=pre_pos[slot], n_active=n_active,
+                                     block=t_block, tokens=consumed[slot],
+                                     step_ms=decode_ms)
+            finished.extend(blk_finished)
+            self._note_clean_dispatch(tick)
+            self._close_frees(inflight["gen"])
+            return n_tokens
 
     def _close_frees(self, gen: int) -> None:
         """Release the frees deferred up to block ``gen``; with no block

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -191,6 +192,9 @@ class _Pending:
     #: submit, carried by the hand-off payload onto the decode replica
     #: and by every failover replay and drain migration
     trace_id: str = ""
+    #: ``time.perf_counter()`` when the set took the request: its
+    #: result's ``submitted_at``, whichever copy commits
+    submitted_at: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -702,7 +706,7 @@ class DisaggFleet:
             other.routed.pop(c.rid, None)
             other.engine.cancel(c.rid)
         p.copies = []
-        out = dataclasses.replace(res, id=gid)
+        out = dataclasses.replace(res, id=gid, submitted_at=p.submitted_at)
         self._results[gid] = out
         return out
 
@@ -1061,6 +1065,7 @@ class DisaggFleet:
                 prompt_len=len(p.prompt), generated=len(prefix),
                 submit_tick=p.submit_tick, first_token_tick=None,
                 finish_tick=self._tick, wall_s=now - p.submit_t,
+                submitted_at=p.submitted_at,
             )
         self._open.clear()
 

@@ -146,9 +146,12 @@ class ServeMetrics:
         self._ttft_ms = r.histogram(n("serve.ttft_ms"))
         self._per_token_ms = r.histogram(n("serve.per_token_ms"))
         self._tick_ms = r.histogram(n("serve.tick_ms"))
-        self.queue_depth_samples: list[int] = []
-        self.util_samples: list[float] = []
-        self.tick_seconds: list[float] = []
+        # the per-tick samples as running count, sums and maxima (both
+        # sampled values are never negative): to_dict reads no more
+        self._ticks = 0
+        self._queue_depth_sum = self._queue_depth_max = 0
+        self._util_sum = self._util_max = 0.0
+        self._tick_s_sum = 0.0
         self.ttft_ticks: list[int] = []
         self.ttft_s: list[float] = []
         #: request id per ttft_s entry — first-token ARRIVAL order is
@@ -509,9 +512,13 @@ class ServeMetrics:
         block's consumed tokens) — explicit, because with fused blocks a
         tick emits up to S*T tokens and attributing its wall time to one
         token would inflate every per-token figure T-fold."""
-        self.queue_depth_samples.append(queue_depth)
-        self.util_samples.append(leased / self.slots)
-        self.tick_seconds.append(seconds)
+        util = leased / self.slots
+        self._ticks += 1
+        self._queue_depth_sum += queue_depth
+        self._queue_depth_max = max(self._queue_depth_max, queue_depth)
+        self._util_sum += util
+        self._util_max = max(self._util_max, util)
+        self._tick_s_sum += seconds
         self.tick_tokens.append(tokens_emitted)
         self._tick_ms.record(seconds * 1e3)
         self.perf.record_tick(seconds)
@@ -533,7 +540,7 @@ class ServeMetrics:
         return {
             "model": self.model,
             "slots": self.slots,
-            "ticks": len(self.tick_seconds),
+            "ticks": self._ticks,
             "submitted": self.submitted,
             "rejected": self.rejected,
             "completed": self.completed,
@@ -541,10 +548,11 @@ class ServeMetrics:
             "failed": self.failed,
             "stalled": self.stalled,
             "tokens_generated": self.tokens_generated,
-            "queue_depth_mean": _mean(self.queue_depth_samples),
+            "queue_depth_mean": (
+                self._queue_depth_sum / self._ticks if self._ticks else None
+            ),
             "queue_depth_max": (
-                max(self.queue_depth_samples)
-                if self.queue_depth_samples else None
+                self._queue_depth_max if self._ticks else None
             ),
             "ttft_ticks_mean": _mean(self.ttft_ticks),
             "ttft_ms_mean": (
@@ -563,12 +571,11 @@ class ServeMetrics:
             "tick_ms_p95": _rnd(self._tick_ms.percentile(95)),
             "tick_ms_p99": _rnd(self._tick_ms.percentile(99)),
             "slot_utilization_mean": (
-                round(_mean(self.util_samples), 4)
-                if self.util_samples else None
+                round(self._util_sum / self._ticks, 4)
+                if self._ticks else None
             ),
             "slot_utilization_peak": (
-                round(max(self.util_samples), 4)
-                if self.util_samples else None
+                round(self._util_max, 4) if self._ticks else None
             ),
             "tokens_per_sec": (
                 round(self.tokens_generated / wall, 1) if wall > 0 else None
@@ -599,10 +606,9 @@ class ServeMetrics:
             "host_sync_wait_s": round(self.host_sync_wait_s, 4),
             "host_idle_fraction": (
                 round(
-                    min(1.0, self.host_sync_wait_s
-                        / sum(self.tick_seconds)), 4
+                    min(1.0, self.host_sync_wait_s / self._tick_s_sum), 4
                 )
-                if sum(self.tick_seconds) > 0 else None
+                if self._tick_s_sum > 0 else None
             ),
             # fused decode blocks:
             # the configured max T, mean real tokens per tick, and how

@@ -53,6 +53,11 @@ class ServeRequest:
     #: trace-context id stamped at the first submit and carried through
     #: snapshots; the engine mints ``t{id}``
     trace_id: str = ""
+    #: ``time.perf_counter()`` at the first admission and when the first
+    #: token was in hand; a preempted request keeps both (a restored one
+    #: starts afresh: a snapshot holds no host clock)
+    admitted_at: float | None = None
+    first_token_at: float | None = None
 
 
 @dataclass
@@ -65,7 +70,10 @@ class RequestResult:
     bound) or ``"handed_off"`` (a prefill-role engine finished the
     prefill and shipped the KV to a decode replica). ``tokens`` includes
     the prompt, like ``generate()``, and for a non-completed status
-    whatever was generated."""
+    whatever was generated. ``submitted_at``, ``admitted_at`` and
+    ``first_token_at`` are ``time.perf_counter()`` stamps (the profiler's
+    timeline maps them through ``utils.profiling.clock_anchor``); None
+    where the request never got that far."""
 
     id: int
     status: str
@@ -76,6 +84,9 @@ class RequestResult:
     first_token_tick: int | None
     finish_tick: int
     wall_s: float
+    submitted_at: float | None = None
+    admitted_at: float | None = None
+    first_token_at: float | None = None
 
 
 @dataclass
@@ -412,4 +423,7 @@ class ContinuousBatchScheduler:
             first_token_tick=first_token_tick,
             finish_tick=tick,
             wall_s=time.perf_counter() - req.submit_wall,
+            submitted_at=req.submit_wall,
+            admitted_at=req.admitted_at,
+            first_token_at=req.first_token_at,
         )

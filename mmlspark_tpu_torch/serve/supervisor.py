@@ -107,6 +107,9 @@ class _Pending:
     #: twins, failover replays, drain migrations — submits with it, so
     #: all of a request's fragments across replicas join on one id
     trace_id: str = ""
+    #: ``time.perf_counter()`` when the set took the request: its
+    #: result's ``submitted_at``, whichever copy commits
+    submitted_at: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -469,7 +472,7 @@ class ReplicaSet:
                 replica=c.replica, wasted=emitted or 0,
             )
         p.copies = []
-        out = dataclasses.replace(res, id=gid)
+        out = dataclasses.replace(res, id=gid, submitted_at=p.submitted_at)
         self._results[gid] = out
         return out
 
@@ -804,6 +807,7 @@ class ReplicaSet:
                 prompt_len=len(p.prompt), generated=len(prefix),
                 submit_tick=p.submit_tick, first_token_tick=None,
                 finish_tick=self._tick, wall_s=now - p.submit_t,
+                submitted_at=p.submitted_at,
             )
         self._open.clear()
 

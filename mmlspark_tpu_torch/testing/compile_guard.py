@@ -64,10 +64,12 @@ from __future__ import annotations
 import gc
 import importlib
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Iterator
 
 import torch
+
+from mmlspark_tpu_torch.utils.profiling import annotate
 
 #: modules whose ``COUNTERS`` name module-level launch counters that a
 #: replay adds to (the kernel wrappers)
@@ -211,14 +213,18 @@ class ProgramCountingGraph:
     replayed on every later one, or on the CPU an eager call. ``_cache_size``
     counts programs (the JAX ``ProgramCountingJit`` contract);
     ``capture_seconds`` sums the captures' wall time. ``pool``, a
-    :class:`GraphPool`, is shared by the programs of one family."""
+    :class:`GraphPool`, is shared by the programs of one family. ``span``
+    names a profiler range around a key's first call and capture on the
+    card, so a trace tells a capture from the work around it."""
 
     def __init__(self, fn: Callable, *, state_argnums=(),
-                 pool: GraphPool | None = None, label: str = "program"):
+                 pool: GraphPool | None = None, label: str = "program",
+                 span: str | None = None):
         self._fn = fn
         self._state = frozenset(state_argnums)
         self.pool = pool if pool is not None else GraphPool()
         self.label = label
+        self._span = span
         self._programs: dict = {}
         self.capture_seconds = 0.0
 
@@ -235,9 +241,14 @@ class ProgramCountingGraph:
     def __call__(self, *args):
         key = tuple(_signature(a) for a in args)
         if key not in self._programs:
-            out = self._fn(*args)
-            self._programs[key] = (self._capture(args) if _on_cuda(args)
-                                   else None)
+            if not _on_cuda(args):
+                out = self._fn(*args)
+                self._programs[key] = None
+                return out
+            with (annotate(self._span) if self._span is not None
+                  else nullcontext()):
+                out = self._fn(*args)
+                self._programs[key] = self._capture(args)
             return out
         program = self._programs[key]
         if program is None:
